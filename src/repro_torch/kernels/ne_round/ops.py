@@ -1,0 +1,160 @@
+"""Front door of the NE-round kernels: ``one_hop``, ``select_topk`` and
+``claim_scatter``, with the reference package's signatures.
+
+The tensor's device decides the route: a CPU tensor goes to the plain
+version in ``ref.py``; a CUDA tensor goes to the hand-written kernel in
+``csrc/ne_round.cu`` (built with ``nvcc`` at first use); anything else
+raises.  There is no fallback from the kernel to the plain version.
+Each wrapper checks its inputs, allocates its outputs, launches on the
+current stream and adds one to ``launches[name]`` per kernel call.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.ne_round import ref
+
+launches = {"one_hop": 0, "select": 0, "claim_scatter": 0}
+
+_P = ctypes.c_void_p
+_ARGTYPES = {
+    "ne_one_hop": [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                   _P, _P, _P],
+    "ne_claim_scatter": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_longlong, ctypes.c_int, _P, _P],
+    "ne_select": [_P, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _P, _P,
+                  _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                  ctypes.c_int, _P, _P, _P, _P, _P],
+}
+MAX_K_SEL = 4096   # select_finish keeps K keys in 48 KB of shared memory
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _lib():
+    """The built library, its argument types set (built at first use)."""
+    from repro_torch.kernels.ne_round import build
+
+    lib = build.load("ne_round")
+    if lib.ne_select.argtypes is None:
+        for fn, argtypes in _ARGTYPES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _route(*tensors) -> str:
+    """'cpu' or 'cuda' from the tensors' common device; raises otherwise."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"inputs lie on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no NE-round kernel for device {dev}")
+    return dev.type
+
+
+def _check(t, dtype, shape, name):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _raise_on(err: int, fn: str) -> None:
+    if err:
+        raise RuntimeError(f"{fn} failed with cudaError_t {err}")
+
+
+def one_hop(vclaim, u, v, edge_part, num_partitions: int, mask=None):
+    """Returns ``(part, counts)``: (M,) int32, -1 where no new allocation,
+    and the (P,) int32 histogram of new allocations."""
+    if _route(vclaim, u, v, edge_part, mask) == "cpu":
+        return ref.one_hop_ref(vclaim, u, v, edge_part, num_partitions,
+                               mask=mask)
+    m = u.shape[0]
+    _check(vclaim, torch.int32, vclaim.shape[:1], "vclaim")
+    for t, name in ((u, "u"), (v, "v"), (edge_part, "edge_part")):
+        _check(t, torch.int32, (m,), name)
+    if mask is not None:
+        _check(mask, torch.bool, (m,), "mask")
+    part = torch.empty(m, dtype=torch.int32, device=u.device)
+    counts = torch.empty(num_partitions, dtype=torch.int32, device=u.device)
+    err = _lib().ne_one_hop(_ptr(vclaim), _ptr(u), _ptr(v), _ptr(edge_part),
+                            _ptr(mask), m, num_partitions, _ptr(part),
+                            _ptr(counts), _stream())
+    _raise_on(err, "ne_one_hop")
+    launches["one_hop"] += 1
+    return part, counts
+
+
+def select_topk(vparts_c, active_c, degree_rest, lam: float, k_sel: int,
+                remaining_c, rnd_v, any_ok):
+    """Boundary selection for a (C, N) chunk of partitions; returns
+    ``(idx, valid)`` of shape (C, k_sel).  ``vparts_c`` may be a strided
+    view (the kernel reads it through its strides, in place)."""
+    if _route(vparts_c, active_c, degree_rest, remaining_c, rnd_v,
+              any_ok) == "cpu":
+        return ref.select_ref(vparts_c, active_c, degree_rest, lam, k_sel,
+                              remaining_c, rnd_v, any_ok)
+    c, n = vparts_c.shape
+    if vparts_c.dtype != torch.bool:
+        raise TypeError(f"vparts_c: dtype {vparts_c.dtype}, expected bool")
+    if not 1 <= k_sel <= min(n, MAX_K_SEL):
+        raise ValueError(f"k_sel={k_sel} outside [1, min(N, {MAX_K_SEL})]")
+    _check(degree_rest, torch.int32, (n,), "degree_rest")
+    _check(active_c, torch.bool, (c,), "active_c")
+    _check(remaining_c, torch.int32, (c,), "remaining_c")
+    _check(any_ok, torch.bool, (), "any_ok")
+    rnd32 = rnd_v.to(torch.int32).contiguous()
+    _check(rnd32, torch.int32, (c,), "rnd_v")
+    dev = vparts_c.device
+    keys = torch.empty((c, n), dtype=torch.int64, device=dev)
+    bsize = torch.empty(c, dtype=torch.int32, device=dev)
+    idx = torch.empty((c, k_sel), dtype=torch.int32, device=dev)
+    valid = torch.empty((c, k_sel), dtype=torch.bool, device=dev)
+    s_c, s_n = vparts_c.stride()
+    err = _lib().ne_select(_ptr(vparts_c), s_c, s_n, _ptr(degree_rest),
+                           _ptr(active_c), _ptr(remaining_c), _ptr(rnd32),
+                           _ptr(any_ok), c, n, float(lam), k_sel,
+                           _ptr(keys), _ptr(bsize), _ptr(idx), _ptr(valid),
+                           _stream())
+    _raise_on(err, "ne_select")
+    launches["select"] += 1
+    return idx, valid
+
+
+def claim_scatter(sel_idx, sel_valid, edges_per_part, num_vertices: int,
+                  num_partitions: int):
+    """(P, K) selections → (N,) int32 claim keys."""
+    if _route(sel_idx, sel_valid, edges_per_part) == "cpu":
+        return ref.claim_scatter_ref(sel_idx, sel_valid, edges_per_part,
+                                     num_vertices, num_partitions)
+    rows, k = sel_idx.shape
+    _check(sel_idx, torch.int32, (rows, k), "sel_idx")
+    _check(sel_valid, torch.bool, (rows, k), "sel_valid")
+    _check(edges_per_part, torch.int32, (rows,), "edges_per_part")
+    out = torch.empty(num_vertices, dtype=torch.int32, device=sel_idx.device)
+    err = _lib().ne_claim_scatter(_ptr(sel_idx), _ptr(sel_valid),
+                                  _ptr(edges_per_part), rows, k,
+                                  num_vertices, num_partitions, _ptr(out),
+                                  _stream())
+    _raise_on(err, "ne_claim_scatter")
+    launches["claim_scatter"] += 1
+    return out
