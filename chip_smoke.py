@@ -36,6 +36,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
+EDGE_FACTOR = 16                   # the main path's graph: RMAT, EF 16
+PARTITIONS = 64                    # P = 64; other NEConfig fields default
+
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 CU_SOURCE = "src/repro_torch/kernels/ne_round/csrc/ne_round.cu"
 REPLACES = {
@@ -287,8 +290,6 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22,
                     help="RMAT scale of the main run (2^scale vertices)")
-    ap.add_argument("--edge-factor", type=int, default=16)
-    ap.add_argument("--partitions", type=int, default=64)
     ap.add_argument("--check-scale", type=int, default=14,
                     help="RMAT scale of the card-vs-CPU identity run")
     ap.add_argument("--time-round", type=int, default=20,
@@ -323,7 +324,7 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
           flush=True)
     t0 = time.perf_counter()
-    build.build("ne_round")
+    build.load("ne_round")
     print(f"phase 1: built ne_round in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for line in build.build_logs.get("ne_round", "").splitlines():
@@ -332,17 +333,17 @@ def main() -> None:
 
     # the main path's graph: RMAT, Graph500 (a, b, c, d), seed 1
     t0 = time.perf_counter()
-    edges = rmat_edges(args.scale, args.edge_factor, seed=1)
+    edges = rmat_edges(args.scale, EDGE_FACTOR, seed=1)
     g = from_edges(edges, num_vertices=1 << args.scale, device=dev)
     del edges
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     n, m = g.num_vertices, g.num_edges
-    print(f"phase 1: RMAT scale {args.scale} EF {args.edge_factor}: "
+    print(f"phase 1: RMAT scale {args.scale} EF {EDGE_FACTOR}: "
           f"N={n} M={m} (host generation + CSR + copy {gen_s:.2f} s)",
           flush=True)
 
-    cfg = tp.NEConfig(num_partitions=args.partitions).clamped(n)
+    cfg = tp.NEConfig(num_partitions=PARTITIONS).clamped(n)
     c = min(cfg.sel_chunk, cfg.num_partitions)
     phase_kernels(torch, ops, ref, g, dev, cfg.num_partitions, c, cfg.k_sel)
 
@@ -375,13 +376,13 @@ def main() -> None:
           f"RF {st.replication_factor} > Theorem 1 bound {rf_bound}")
     check(all(launches[k] > 0 for k in launches), f"a kernel never ran: "
           f"{launches}")
-    check(launches["select"] == res.rounds * (cfg.num_partitions // c)
+    check(launches["select"] == res.rounds * -(-cfg.num_partitions // c)
           and launches["one_hop"] == res.rounds
           and launches["claim_scatter"] == res.rounds,
           f"launch counts {launches} do not match {res.rounds} rounds")
 
     # --- phase 4: card == CPU at a small scale ------------------------------
-    small = rmat_edges(args.check_scale, args.edge_factor, seed=1)
+    small = rmat_edges(args.check_scale, EDGE_FACTOR, seed=1)
     n_small = 1 << args.check_scale
     t0 = time.perf_counter()
     r_gpu = tp.partition(from_edges(small, n_small, device=dev), cfg)

@@ -37,6 +37,7 @@ from repro_torch.core.graph import (Graph, as_graph, exclusive_rank,
                                     resolve_device)
 from repro_torch.core.metrics import stats_from_counts
 from repro_torch.kernels.ne_round import ops as ne_ops
+from repro_torch.kernels.ne_round import ref as ne_ref
 
 I32_INF = 2**31 - 1
 
@@ -96,10 +97,8 @@ class PartitionResult:
         self.stats = stats
 
 
-def priority_enc(count, p, num_partitions: int):
-    """Priority key: smaller edge count wins, then smaller partition id."""
-    cap = (I32_INF - num_partitions) // num_partitions - 1
-    return torch.clamp(count, max=cap) * num_partitions + p
+# one copy of the claim rule, shared with the kernels' plain versions
+priority_enc = ne_ref._enc
 
 
 def boundary_reseed(degree_rest, keys_c):

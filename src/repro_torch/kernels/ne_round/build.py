@@ -38,43 +38,26 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _target(name: str) -> tuple[Path, Path]:
+def _build(name: str) -> Path:
+    """Path of the library of ``csrc/<name>.cu``, running ``nvcc`` when
+    that source has not been built yet."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
-
-
-def _start(name: str):
-    """Start ``nvcc`` for one source; None when the library is built."""
-    src, lib = _target(name)
+    lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
-        return None
+        return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, lib, cmd
-
-
-def _finish(name: str, started) -> None:
-    if started is None:
-        return
-    proc, tmp, lib, cmd = started
-    out, _ = proc.communicate()
-    build_logs[name] = out
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    build_logs[name] = proc.stdout
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{name}: {' '.join(cmd)}\n{out}")
+                           f"{name}: {' '.join(cmd)}\n{proc.stdout}")
     os.replace(tmp, lib)
-
-
-def build(*names: str) -> None:
-    """Build the named sources, all ``nvcc`` processes running at once."""
-    started = {n: _start(n) for n in names}
-    for n, s in started.items():
-        _finish(n, s)
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -82,7 +65,6 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            build(name)
-            lib = ctypes.CDLL(str(_target(name)[1]))
+            lib = ctypes.CDLL(str(_build(name)))
             _loaded[name] = lib
         return lib

@@ -5,7 +5,8 @@ Each function computes exactly what its CUDA kernel in
 apart from the float32 ``ceil(lam * |B|)``).  The front door in ``ops.py``
 runs these for tensors on the CPU; the tests hold them against the
 reference package, and ``chip_smoke.py`` holds the kernels against them
-on the card.  ``_enc`` mirrors ``core.partitioner.priority_enc``.
+on the card.  ``_enc`` is the claim priority rule; the partitioner uses
+it as ``core.partitioner.priority_enc``.
 """
 from __future__ import annotations
 

@@ -22,6 +22,8 @@ import math
 
 import torch
 
+from repro_torch.core.graph import resolve_device
+
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -49,10 +51,11 @@ def threefry2x32(k0, k1, x0, x1):
 
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
-    """Key of an integer seed, as ``jax.random.PRNGKey`` makes it."""
+    """Key of an integer seed, as ``jax.random.PRNGKey`` makes it.
+    ``device=None`` means the card, as for every entry point of the port."""
     seed = int(seed)
     return torch.tensor([(seed >> 32) & _MASK, seed & _MASK],
-                        dtype=torch.int64, device=device)
+                        dtype=torch.int64, device=resolve_device(device))
 
 
 def _words(key: torch.Tensor):

@@ -93,7 +93,8 @@ def test_select_matches_reference(n, c, k_sel, seed, case):
     vp, act, dr, rem = _select_inputs(n, c, seed, ties=case == "ties",
                                       restart=case == "restart")
     keys_j = jax.vmap(jax.random.PRNGKey)(jnp.arange(c) + seed)
-    keys_t = torch.stack([trandom.PRNGKey(s + seed) for s in range(c)])
+    keys_t = torch.stack([trandom.PRNGKey(s + seed, device="cpu")
+                          for s in range(c)])
     # the restart draw: the port's equals the reference's
     rnd_j, any_j = jp.boundary_reseed(jnp.asarray(dr), keys_j)
     rnd_t, any_t = tp.boundary_reseed(_t(dr), keys_t)
@@ -174,7 +175,7 @@ def test_vertex_claims_match_reference(p, sel_chunk):
                             jnp.asarray(vparts), jnp.asarray(dr),
                             jnp.asarray(epp), jax.random.PRNGKey(9))
     got = tp.vertex_claims(tp.NEConfig(**kw), 250, _t(vparts), _t(dr),
-                           _t(epp), trandom.PRNGKey(9))
+                           _t(epp), trandom.PRNGKey(9, device="cpu"))
     np.testing.assert_array_equal(_np(got), _np(want))
 
 
