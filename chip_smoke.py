@@ -9,17 +9,25 @@ Phases, each printing its lines; any failed check exits non-zero:
 1. the device (name and power limit from nvidia-smi) and the time to
    build the CUDA kernels from ``src/repro_torch/kernels/*/csrc``;
 2. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (RMAT scale-22 graph, P = 64, C = 8, K = 256),
-   exactly: the three kernels are integer math, so the tolerance is 0;
+   main path's shapes (RMAT scale-22 graph, P = 64, C = 8, K = 256; the
+   bit-packing kernels also at a ragged P = 37 and at the two-hop chunk
+   shape), exactly: the kernels are integer math, so the tolerance is 0;
 3. the main path: ``partition`` of the RMAT graph (edge factor 16,
    P = 64, the NEConfig defaults) on the card, with the kernel launch
    counts set to 0 just before and read just after, and its invariants;
+3b. the SPMD path: ``partition_spmd`` of the same graph and config in a
+   world-1 NCCL group on the card, with the counts set to 0 just before
+   and read just after; it must equal phase 3's result bit for bit, and
+   each kernel's launches must match the round count's formula;
 4. ``partition`` at RMAT scale 14 on the card and on the CPU (plain
-   versions), which must be bit-identical;
-5. one round under torch.profiler (device time by kernel, busy share),
-   the device time of the round's layers, and each kernel's time on
-   inputs taken from a real round beside its plain version's, a library
-   call's and the bound from the bytes it must move, as one JSON line.
+   versions), and ``partition_spmd`` at that scale on the card (NCCL)
+   and on the CPU (gloo), all four bit-identical;
+5. one round of each path under torch.profiler (device time by kernel,
+   busy share), the device time of the round's layers, and each kernel's
+   time on inputs taken from a real round (single-controller kernels) or
+   a real SPMD round (bit-packing kernels) beside its plain version's, a
+   library call's and the bound from the bytes it must move, as one JSON
+   line.
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU
 fallback: without a CUDA device the script exits non-zero.
@@ -45,7 +53,12 @@ REPLACES = {
     "one_hop": "src/repro/kernels/ne_round/ne_round.py:80",
     "select": "src/repro/kernels/ne_round/ne_round.py:188",
     "claim_scatter": "src/repro/kernels/ne_round/ne_round.py:245",
+    "pack_bits": "src/repro/kernels/ne_round/ne_round.py:296",
+    "unpack_bits": "src/repro/kernels/ne_round/ne_round.py:313",
+    "or_words": "src/repro/kernels/ne_round/ne_round.py:330",
 }
+SINGLE_KERNELS = ("one_hop", "select", "claim_scatter")
+BIT_KERNELS = ("pack_bits", "unpack_bits", "or_words")
 
 
 def fail(msg: str) -> None:
@@ -167,6 +180,91 @@ def phase_kernels(torch, ops, ref, g, dev, p_num, c, k_sel):
               f"K={k_sel}", flush=True)
 
 
+def random_words(torch, gen, n, w, dev):
+    """(n, w) int32 words of random bits, bit 31 set in every fourth row."""
+    words = torch.randint(-2**31, 2**31, (n, w), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+    words[::4] |= torch.tensor(-2**31, dtype=torch.int32, device=dev)
+    return words
+
+
+def phase_bit_kernels(torch, ops, ref, n, dev, p_num, chunk):
+    """Phase 2, the SPMD round's bit-packing kernels against their plain
+    versions: the whole replica map at P and at a ragged 37, and the
+    two-hop chunk shape; random words have bit 31 and pad bits set."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for p, rows in ((p_num, n), (37, n), (p_num, chunk)):
+        w = ref.replica_words(p)
+        bools = torch.rand((rows, p), generator=gen, device=dev) < 0.3
+        bools[::2, min(31, p - 1)] = True
+        got = ops.pack_bits(bools)
+        err = max_abs_err(got, ref.pack_bits_ref(bools))
+        check(err == 0, f"pack_bits differs at ({rows}, {p}): {err}")
+        words = random_words(torch, gen, rows, w, dev)
+        err = max(max_abs_err(ops.unpack_bits(words, p),
+                              ref.unpack_bits_ref(words, p)),
+                  max_abs_err(ops.unpack_bits(got, p), bools))
+        check(err == 0, f"unpack_bits differs at ({rows}, {w}): {err}")
+        other = random_words(torch, gen, rows, w, dev)
+        err = max_abs_err(ops.or_words(words, other),
+                          ref.or_words_ref(words, other))
+        check(err == 0, f"or_words differs at ({rows}, {w}): {err}")
+        print(f"phase 2: pack_bits, unpack_bits, or_words == plain at "
+              f"N={rows}, P={p}, W={w}", flush=True)
+
+
+def phase_spmd_times(torch, tp, sm, ops, ref, u, v, n, cfg, limit, state,
+                     reps):
+    """Phase 5, the bit-packing kernels on one real SPMD round's inputs
+    (this rank's state after some rounds, its shard ``u``, ``v``): the
+    replica delta that the round's one-hop allocation packs, the packed
+    map it unpacks and merges into, and its first two-hop chunk."""
+    p_num = cfg.num_partitions
+    from repro_torch import random as trandom
+
+    _, sub = trandom.split(state.key)
+    vclaim = tp.vertex_claims(cfg, limit, ops.unpack_bits(state.vparts, p_num),
+                              state.degree_rest, state.edges_per_part, sub)
+    part1, _ = ops.one_hop(vclaim, u, v, state.edge_part, p_num)
+    delta = sm.replica_delta(part1 >= 0, part1, u, v, n, p_num)
+    words = state.vparts
+    packed = ops.pack_bits(delta)
+    w = words.shape[1]
+    ce = min(cfg.edge_chunk, u.shape[0])
+    inter = words[u[:ce].long()] & words[v[:ce].long()]
+    rows = []
+    for name, kern, plain, lib, nbytes in (
+        ("pack_bits", lambda: ops.pack_bits(delta),
+         lambda: ref.pack_bits_ref(delta), None, n * p_num + 4 * n * w),
+        ("unpack_bits", lambda: ops.unpack_bits(words, p_num),
+         lambda: ref.unpack_bits_ref(words, p_num), None,
+         4 * n * w + n * p_num),
+        ("or_words", lambda: ops.or_words(words, packed),
+         lambda: ref.or_words_ref(words, packed),
+         lambda: torch.bitwise_or(words, packed), 12 * n * w),
+    ):
+        err = max_abs_err(kern(), plain())
+        check(err == 0, f"{name} differs on the captured SPMD round: {err}")
+        rows.append({
+            "name": name, "route": "cuda", "source": CU_SOURCE,
+            "replaces": REPLACES[name], "max_abs_err": err,
+            "ms": time_ms(kern, reps),
+            "plain_ms": time_ms(plain, max(1, reps // 4)),
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "library_ms": None if lib is None else time_ms(lib, reps),
+        })
+    err = max_abs_err(ops.unpack_bits(inter, p_num),
+                      ref.unpack_bits_ref(inter, p_num))
+    check(err == 0, f"unpack_bits differs on the captured chunk: {err}")
+    chunk_ms = time_ms(lambda: ops.unpack_bits(inter, p_num), reps)
+    chunk_bound = bound_ms(4 * ce * w + ce * p_num)
+    print(f"phase 5: SPMD round {int(state.rounds)}: {int(delta.sum())} "
+          f"replica flags set by its one-hop; unpack_bits at the two-hop "
+          f"chunk ({ce}, {w}): ms={chunk_ms!r} bound_ms={chunk_bound!r}",
+          flush=True)
+    return rows
+
+
 def phase_times(torch, tp, ops, ref, g, cfg, limit, state, reps):
     """Phase 5: kernel, plain and library times on one real round's
     inputs (the state after some rounds of the main path's run)."""
@@ -260,25 +358,23 @@ def phase_times(torch, tp, ops, ref, g, cfg, limit, state, reps):
     return rows
 
 
-def profile_round(torch, tp, g, cfg, limit, state, top: int = 12):
-    """One round under torch.profiler: device time by kernel and the
-    device's busy share of the round's wall time.  Runs on a copy of the
-    state (the round updates its state in place)."""
+def profile_round(torch, label, round_fn, top: int = 12):
+    """One round (``round_fn()``) under torch.profiler: device time by
+    kernel and the device's busy share of the round's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    st = tp.NEState(*(t.clone() for t in state))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tp.ne_round_step(g, cfg, limit, st)
+        round_fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [e for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")]
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in rows)
-    print(f"phase 5: profiled round {int(state.rounds)}: wall {wall_us:.0f}"
+    print(f"phase 5: profiled {label}: wall {wall_us:.0f}"
           f" us, device busy {busy:.0f} us ({100 * busy / wall_us:.1f}%)",
           flush=True)
     for e in rows[:top]:
@@ -286,12 +382,37 @@ def profile_round(torch, tp, g, cfg, limit, state, top: int = 12):
               f"{e.key[:90]}", flush=True)
 
 
+def same_result(np, a, b) -> bool:
+    """Two PartitionResults equal bit for bit."""
+    return (all(np.array_equal(getattr(a, f), getattr(b, f))
+                for f in ("edge_part", "vparts", "edges_per_part"))
+            and a.rounds == b.rounds and a.leftover == b.leftover
+            and a.stats == b.stats)
+
+
+def spmd_rounds(torch, sm, g, cfg, limit, rounds):
+    """The world-1 SPMD state after ``rounds`` rounds (run inside an open
+    group), and this rank's shard (u, v) on the card."""
+    from repro_torch.core.graph import shard_edges
+
+    shards, masks, _, _ = shard_edges(g.edges.cpu().numpy(), 1)
+    u, v = (torch.from_numpy(shards[0, :, i].copy()).to(g.device)
+            for i in (0, 1))
+    mask = torch.from_numpy(masks[0]).to(g.device)
+    state = sm.spmd_init_state(shards, masks, g.num_vertices, cfg,
+                               device=g.device)
+    while int(state.rounds) < rounds and not sm.spmd_done(state, cfg):
+        state = sm.spmd_round_step(cfg, limit, g.num_vertices, u, v, mask,
+                                   state)
+    return state, u, v, mask
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22,
                     help="RMAT scale of the main run (2^scale vertices)")
     ap.add_argument("--check-scale", type=int, default=14,
-                    help="RMAT scale of the card-vs-CPU identity run")
+                    help="RMAT scale of the card-vs-CPU identity runs")
     ap.add_argument("--time-round", type=int, default=20,
                     help="round whose inputs the kernel timings use")
     ap.add_argument("--reps", type=int, default=20)
@@ -310,6 +431,8 @@ def main() -> None:
     from repro_torch.core.epilogue import alpha_limit
     from repro_torch.core.graph import from_edges
     from repro_torch.core.metrics import theorem1_upper_bound
+    from repro_torch.dist import compat
+    from repro_torch.dist import partitioner_sm as sm
     from repro_torch.graphs.rmat import rmat_edges
     from repro_torch.kernels.ne_round import build, ops, ref
 
@@ -344,10 +467,12 @@ def main() -> None:
           flush=True)
 
     cfg = tp.NEConfig(num_partitions=PARTITIONS).clamped(n)
-    c = min(cfg.sel_chunk, cfg.num_partitions)
-    phase_kernels(torch, ops, ref, g, dev, cfg.num_partitions, c, cfg.k_sel)
+    p_num = cfg.num_partitions
+    c = min(cfg.sel_chunk, p_num)
+    phase_kernels(torch, ops, ref, g, dev, p_num, c, cfg.k_sel)
+    phase_bit_kernels(torch, ops, ref, n, dev, p_num, min(cfg.edge_chunk, m))
 
-    # --- phase 3: the main path --------------------------------------------
+    # --- phase 3: the single-controller path --------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -356,59 +481,101 @@ def main() -> None:
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated()
-    limit = alpha_limit(cfg.alpha, m, cfg.num_partitions)
+    limit = alpha_limit(cfg.alpha, m, p_num)
     ep = res.edge_part
     st = res.stats
-    rf_bound = theorem1_upper_bound(n, m, cfg.num_partitions)
+    rf_bound = theorem1_upper_bound(n, m, p_num)
     per_round = wall / max(res.rounds, 1)
-    print(f"phase 3: partition P={cfg.num_partitions}: rounds={res.rounds} "
+    print(f"phase 3: partition P={p_num}: rounds={res.rounds} "
           f"leftover={res.leftover} RF={st.replication_factor!r} "
           f"EB={st.edge_balance!r} VB={st.vertex_balance!r} "
           f"wall={wall!r} s per_round={per_round!r} s "
           f"peak_mem={peak} B launches={launches}", flush=True)
     check(bool((ep >= 0).all()), "unassigned edges")
     check(np.array_equal(res.edges_per_part,
-                         np.bincount(ep, minlength=cfg.num_partitions)),
+                         np.bincount(ep, minlength=p_num)),
           "edges_per_part disagrees with bincount(edge_part)")
     check(int(res.edges_per_part.max()) <= limit + 1,
           f"max |E_p| {int(res.edges_per_part.max())} > limit + 1")
     check(st.replication_factor <= rf_bound,
           f"RF {st.replication_factor} > Theorem 1 bound {rf_bound}")
-    check(all(launches[k] > 0 for k in launches), f"a kernel never ran: "
-          f"{launches}")
-    check(launches["select"] == res.rounds * -(-cfg.num_partitions // c)
+    check(launches["select"] == res.rounds * -(-p_num // c)
           and launches["one_hop"] == res.rounds
-          and launches["claim_scatter"] == res.rounds,
+          and launches["claim_scatter"] == res.rounds
+          and all(launches[k] == 0 for k in BIT_KERNELS) and res.rounds > 0,
           f"launch counts {launches} do not match {res.rounds} rounds")
+
+    # --- phase 3b: the SPMD path, world 1 on the card -----------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with compat.world1("nccl"):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res_sm = sm.partition_spmd(g, cfg)
+        wall_sm = time.perf_counter() - t0
+        launches_sm = dict(ops.launches)
+    peak_sm = torch.cuda.max_memory_allocated()
+    rounds = res_sm.rounds
+    chunks = -(-m // min(cfg.edge_chunk, m))          # C = M at world 1
+    want = {"select": rounds * -(-p_num // c), "one_hop": rounds,
+            "claim_scatter": rounds, "pack_bits": 2 * rounds,
+            "or_words": 2 * rounds, "unpack_bits": rounds * (1 + chunks)}
+    print(f"phase 3b: partition_spmd world 1 P={p_num}: rounds={rounds} "
+          f"leftover={res_sm.leftover} "
+          f"RF={res_sm.stats.replication_factor!r} wall={wall_sm!r} s "
+          f"per_round={wall_sm / max(rounds, 1)!r} s peak_mem={peak_sm} B "
+          f"launches={launches_sm}", flush=True)
+    check(same_result(np, res_sm, res),
+          "SPMD world-1 result differs from the single controller's")
+    check(launches_sm == want and rounds > 0,
+          f"SPMD launch counts {launches_sm} are not {want}")
+    print("phase 3b: SPMD == single controller bit for bit; launch counts "
+          "match the formulas", flush=True)
 
     # --- phase 4: card == CPU at a small scale ------------------------------
     small = rmat_edges(args.check_scale, EDGE_FACTOR, seed=1)
     n_small = 1 << args.check_scale
+    g_gpu = from_edges(small, n_small, device=dev)
+    g_cpu = from_edges(small, n_small, device="cpu")
+    runs = {}
     t0 = time.perf_counter()
-    r_gpu = tp.partition(from_edges(small, n_small, device=dev), cfg)
-    t_gpu = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    r_cpu = tp.partition(from_edges(small, n_small, device="cpu"), cfg)
-    t_cpu = time.perf_counter() - t0
-    for f in ("edge_part", "vparts", "edges_per_part"):
-        check(np.array_equal(getattr(r_gpu, f), getattr(r_cpu, f)),
-              f"scale-{args.check_scale} card and CPU runs differ in {f}")
-    check(r_gpu.rounds == r_cpu.rounds and r_gpu.leftover == r_cpu.leftover
-          and r_gpu.stats == r_cpu.stats,
-          "card and CPU runs differ in rounds, leftover or stats")
-    print(f"phase 4: scale {args.check_scale} card == CPU bit for bit "
-          f"(rounds={r_gpu.rounds}, card {t_gpu:.2f} s, CPU {t_cpu:.2f} s)",
-          flush=True)
+    runs["single card"] = tp.partition(g_gpu, cfg)
+    runs["single CPU"] = tp.partition(g_cpu, cfg)
+    with compat.world1("nccl"):
+        runs["SPMD card"] = sm.partition_spmd(g_gpu, cfg)
+    with compat.world1("gloo"):
+        runs["SPMD CPU"] = sm.partition_spmd(g_cpu, cfg, device="cpu")
+    for name, r in runs.items():
+        check(same_result(np, r, runs["single card"]),
+              f"scale-{args.check_scale} {name} run differs from the "
+              "single-controller card run")
+    print(f"phase 4: scale {args.check_scale}: single card == single CPU == "
+          f"SPMD card == SPMD CPU bit for bit (rounds="
+          f"{runs['single card'].rounds}, all four in "
+          f"{time.perf_counter() - t0:.2f} s)", flush=True)
 
-    # --- phase 5: kernel times on a real round's inputs ---------------------
+    # --- phase 5: kernel times on real rounds' inputs -----------------------
     state = tp.ne_init_state(g, cfg)
     while int(state.rounds) < args.time_round and not tp.ne_done(state, cfg):
         state = tp.ne_round_step(g, cfg, limit, state)
-    profile_round(torch, tp, g, cfg, limit, state)
+    profile_round(torch, f"single-controller round {int(state.rounds)}",
+                  lambda: tp.ne_round_step(
+                      g, cfg, limit, tp.NEState(*(t.clone() for t in state))))
     rows = phase_times(torch, tp, ops, ref, g, cfg, limit, state, args.reps)
     for r in rows:
         r["launches"] = launches[r["name"]]
-    print(json.dumps({"kernels": rows}), flush=True)
+    del state
+    with compat.world1("nccl"):
+        st_sm, u, v, mask = spmd_rounds(torch, sm, g, cfg, limit,
+                                        args.time_round)
+        profile_round(torch, f"SPMD round {int(st_sm.rounds)}",
+                      lambda: sm.spmd_round_step(cfg, limit, n, u, v, mask,
+                                                 st_sm))
+    bit_rows = phase_spmd_times(torch, tp, sm, ops, ref, u, v, n, cfg,
+                                limit, st_sm, args.reps)
+    for r in bit_rows:
+        r["launches"] = launches_sm[r["name"]]
+    print(json.dumps({"kernels": rows + bit_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

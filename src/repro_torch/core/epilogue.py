@@ -1,7 +1,8 @@
 """Finalize epilogue — host-side numpy, no torch.
 
 A copy of the reference package's single-host epilogue: the α-capacity
-limit and the water-fill of the ``max_rounds`` leftovers.  The expressions
+limit, the water-fill of the ``max_rounds`` leftovers and the stitch of
+shard-order assignments back to edge order.  The expressions
 are kept exactly, since bit-identity with the reference depends on them.
 """
 from __future__ import annotations
@@ -81,3 +82,16 @@ def cleanup_leftovers(edge_part: np.ndarray, vparts: np.ndarray,
     vparts[edges[rem, 0], tgt] = True
     vparts[edges[rem, 1], tgt] = True
     return int(rem.size)
+
+
+def stitch_slices(out: np.ndarray, ep_slices: dict, eids: dict,
+                  ) -> np.ndarray:
+    """Scatter shard slot-order assignments to their global edge ids.
+
+    ``ep_slices[d]`` is shard ``d``'s (possibly padded) assignment and
+    ``eids[d]`` its global edge ids in slot order; only the valid prefix
+    (``eids[d].size`` slots) is read.  Writes into and returns ``out``.
+    """
+    for d, e in eids.items():
+        out[e] = np.asarray(ep_slices[d])[: e.size]
+    return out

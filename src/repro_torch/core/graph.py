@@ -13,7 +13,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.io.csr import canonicalize_host, csr_from_canonical
+from repro_torch.io.csr import (canonicalize_host, csr_from_canonical,
+                                grid_assign_host)
+
+_MASK32 = 0xFFFFFFFF
 
 
 def resolve_device(device=None) -> torch.device:
@@ -100,3 +103,63 @@ def exclusive_rank(cand: torch.Tensor, num_targets: int) -> torch.Tensor:
     onehot = targets[:, None] == cand[None, :]
     rank = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
     return torch.gather(rank, 0, cand.clamp(min=0)[None, :].long())[0]
+
+
+# ---------------------------------------------------------------------------
+# 2D-hash initial distribution (paper §4): edges go to one process of a
+# √D×√D grid by hashing both endpoints, so a vertex's replica locations
+# follow from its id.  uint32 words live in int64 masked to 32 bits (torch
+# uint32 lacks basic ops), as in ``repro_torch.random``.
+# ---------------------------------------------------------------------------
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2^32`` for x, c < 2^32, without int64 overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _mix(x: torch.Tensor) -> torch.Tensor:
+    """Cheap deterministic integer hash (xorshift-multiply, 32-bit)."""
+    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul32(x ^ (x >> 15), 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def hash_u32(x: torch.Tensor, salt: int = 0) -> torch.Tensor:
+    """The reference's ``hash_u32``: int64 values in [0, 2^32)."""
+    off = (0x9E3779B9 * salt) & _MASK32
+    return _mix(((x.to(torch.int64) & _MASK32) + off) & _MASK32)
+
+
+def grid_assign(edges: torch.Tensor, num_devices: int,
+                rows: int | None = None, salt: int = 0) -> torch.Tensor:
+    """2D-hash (grid) edge→device assignment.  Returns (M,) int32 ids."""
+    r = rows or int(np.floor(np.sqrt(num_devices)))
+    while num_devices % r:
+        r -= 1
+    c = num_devices // r
+    hu = hash_u32(edges[:, 0], salt) % r
+    hv = hash_u32(edges[:, 1], salt + 1) % c
+    return (hu * c + hv).to(torch.int32)
+
+
+def shard_edges(edges: np.ndarray, num_devices: int, salt: int = 0,
+                ) -> tuple[np.ndarray, np.ndarray, int, np.ndarray]:
+    """Host-side 2D-hash distribution into equal-length padded shards.
+
+    Returns (shards, masks, capacity, dev): shards is (D, C, 2) int32 with
+    invalid rows = 0, masks is (D, C) bool, and dev is the (M,) int32
+    per-edge device, so callers can stitch shard-order results back to
+    edge order.  Shard ``d`` holds ``edges[dev == d]`` in edge order.
+    """
+    dev = grid_assign_host(edges, num_devices, salt=salt)
+    counts = np.bincount(dev, minlength=num_devices)
+    cap = int(counts.max()) if counts.size else 1
+    shards = np.zeros((num_devices, cap, 2), np.int32)
+    masks = np.zeros((num_devices, cap), bool)
+    for d in range(num_devices):
+        rows = edges[dev == d]
+        shards[d, : rows.shape[0]] = rows
+        masks[d, : rows.shape[0]] = True
+    return shards, masks, cap, dev.astype(np.int32)

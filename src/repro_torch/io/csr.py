@@ -1,9 +1,10 @@
 """Host-side numpy CSR builders for the port's :class:`Graph`.
 
-A copy of the reference package's ``io/csr.py`` canonicalize + CSR pair:
-the port's graphs must be bit-identical to the reference's (same edge
-order, same slot order), which the tests check array by array.  numpy
-only, no torch.
+A copy of the reference package's ``io/csr.py`` canonicalize + CSR pair
+and its host 2D-hash (``grid_assign_host``): the port's graphs and edge
+shards must be bit-identical to the reference's (same edge order, same
+slot order, same device of each edge), which the tests check array by
+array.  numpy only, no torch.
 """
 from __future__ import annotations
 
@@ -65,3 +66,33 @@ def csr_from_canonical(edges: np.ndarray, n: int) -> CSRArrays:
         slot_src=src.astype(np.int32),
         degree=degree,
     )
+
+
+# ---------------------------------------------------------------------------
+# Host copy of the 2D-hash edge distribution (paper §4), numpy uint32 as in
+# the reference package; ``core.graph.hash_u32``/``grid_assign`` are the
+# torch twins.
+# ---------------------------------------------------------------------------
+
+def _mix_host(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.uint32)
+    x = (x ^ (x >> 16)) * np.uint32(0x7FEB352D)
+    x = (x ^ (x >> 15)) * np.uint32(0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def hash_u32_host(x: np.ndarray, salt: int = 0) -> np.ndarray:
+    off = np.uint32((0x9E3779B9 * salt) & 0xFFFFFFFF)
+    return _mix_host(np.asarray(x).astype(np.uint32) + off)
+
+
+def grid_assign_host(edges: np.ndarray, num_devices: int,
+                     rows: int | None = None, salt: int = 0) -> np.ndarray:
+    """2D-hash (grid) edge→device assignment.  Returns (M,) int32."""
+    r = rows or int(np.floor(np.sqrt(num_devices)))
+    while num_devices % r:
+        r -= 1
+    c = num_devices // r
+    hu = hash_u32_host(edges[:, 0], salt) % np.uint32(r)
+    hv = hash_u32_host(edges[:, 1], salt + 1) % np.uint32(c)
+    return (hu.astype(np.int32) * c + hv.astype(np.int32))

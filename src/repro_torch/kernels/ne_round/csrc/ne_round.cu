@@ -1,4 +1,6 @@
-// The Distributed NE expansion round's three kernels for Hopper (sm_90a).
+// The Distributed NE expansion round's kernels for Hopper (sm_90a): the
+// three of every round, and the three of the SPMD round's bit-packed
+// replica sets.
 //
 // Plain C interface: each entry point takes device pointers and a
 // cudaStream_t passed as void*, launches on that stream, does not
@@ -51,6 +53,23 @@
 //     sorts them (bitonic, shared memory) and runs the epilogue.
 //   The compacted keys are |B| per row, far fewer than N, so the radix
 //   passes read little; the one full pass over the chunk is the compact.
+//
+// pack_bits / unpack_bits / or_words — replace ne_round.py::pack_bits,
+//   ::unpack_bits and ::or_words.  A replica set of P partitions is
+//   W = ceil(P/32) 32-bit words per vertex: partition p is bit p % 32 of
+//   word p / 32, LSB-first, and the pad bits P..32W-1 are 0.  The port
+//   holds a word as the int32 bit pattern of the reference's uint32 word.
+//   All three are memory-bound integer passes; their bound is the bytes
+//   they stream (N*P flag bytes, 4*N*W word bytes).
+//   * pack_bits: one warp per (row, word).  Lane l reads flag byte 32w + l
+//     of the row (0 past P), and __ballot_sync hands back the word with
+//     lane l's flag in bit l, which is the LSB-first layout; lane 0 stores
+//     it.  A warp's 32 loads are one 32-byte sector of the row.
+//   * unpack_bits: one thread per 4 flag bytes, one uchar4 store, when
+//     P % 4 == 0 (the 4 bits lie in one word since 32 % 4 == 0); else one
+//     thread per byte.  Words are read unsigned: the shift is logical.
+//   * or_words: int4 (16-byte) loads and stores while all three pointers
+//     are 16-byte aligned, a scalar tail; scalar throughout otherwise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -329,5 +348,103 @@ extern "C" int ne_select(const uint8_t* vparts_c, long long stride_c,
   select_finish_kernel<<<c_rows, 1024, sizeof(u64) * kp, s>>>(
       keys, bsize, active, remaining, rnd_v, any_ok, n, lam, k_sel, kp, idx,
       valid);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// pack_bits / unpack_bits / or_words
+// ---------------------------------------------------------------------------
+
+static int grid_blocks(long long work, int threads) {
+  long long blocks = (work + threads - 1) / threads;
+  return (int)(blocks > 132 * 16 ? 132 * 16 : blocks);
+}
+
+__global__ void pack_bits_kernel(const uint8_t* __restrict__ bools,
+                                 long long n, int p, int w,
+                                 unsigned* __restrict__ words) {
+  const int lane = threadIdx.x & 31;
+  const long long total = n * w;
+  const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  // t is warp-uniform, so every lane joins each ballot
+  for (long long t = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       t < total; t += warps) {
+    const long long row = t / w;
+    const int col = (int)(t - row * w) * 32 + lane;
+    const bool b = col < p && bools[row * p + col] != 0;
+    const unsigned word = __ballot_sync(0xffffffffu, b);
+    if (lane == 0) words[t] = word;
+  }
+}
+
+extern "C" int ne_pack_bits(const uint8_t* bools, long long n, int p, int w,
+                            unsigned* words, void* stream) {
+  const long long total = n * w;
+  if (total > 0)
+    pack_bits_kernel<<<grid_blocks(total * 32, 256), 256, 0,
+                       (cudaStream_t)stream>>>(bools, n, p, w, words);
+  return (int)cudaGetLastError();
+}
+
+template <int VEC>
+__global__ void unpack_bits_kernel(const unsigned* __restrict__ words,
+                                   long long n, int p, int w,
+                                   uint8_t* __restrict__ bools) {
+  const int per_row = p / VEC;
+  const long long total = n * per_row;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       t < total; t += stride) {
+    const long long row = t / per_row;
+    const int col = (int)(t - row * per_row) * VEC;
+    const unsigned bits = __ldg(words + row * w + (col >> 5)) >> (col & 31);
+    if (VEC == 4) {
+      reinterpret_cast<uchar4*>(bools)[t] =
+          make_uchar4(bits & 1u, (bits >> 1) & 1u, (bits >> 2) & 1u,
+                      (bits >> 3) & 1u);
+    } else {
+      bools[t] = (uint8_t)(bits & 1u);
+    }
+  }
+}
+
+// bools must be 4-byte aligned (the wrapper allocates it)
+extern "C" int ne_unpack_bits(const unsigned* words, long long n, int p,
+                              int w, uint8_t* bools, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n > 0 && p % 4 == 0)
+    unpack_bits_kernel<4><<<grid_blocks(n * (p / 4), 256), 256, 0, s>>>(
+        words, n, p, w, bools);
+  else if (n > 0)
+    unpack_bits_kernel<1><<<grid_blocks(n * p, 256), 256, 0, s>>>(
+        words, n, p, w, bools);
+  return (int)cudaGetLastError();
+}
+
+__global__ void or_words_kernel(const int* __restrict__ a,
+                                const int* __restrict__ b, long long count,
+                                long long count4, int* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int4* a4 = reinterpret_cast<const int4*>(a);
+  const int4* b4 = reinterpret_cast<const int4*>(b);
+  int4* o4 = reinterpret_cast<int4*>(out);
+  for (long long i = tid; i < count4; i += stride) {
+    const int4 x = __ldg(a4 + i), y = __ldg(b4 + i);
+    o4[i] = make_int4(x.x | y.x, x.y | y.y, x.z | y.z, x.w | y.w);
+  }
+  for (long long i = count4 * 4 + tid; i < count; i += stride)
+    out[i] = a[i] | b[i];
+}
+
+extern "C" int ne_or_words(const int* a, const int* b, long long count,
+                           int* out, void* stream) {
+  const bool aligned =
+      (((uintptr_t)a | (uintptr_t)b | (uintptr_t)out) & 15) == 0;
+  const long long count4 = aligned ? count / 4 : 0;
+  const long long work = count4 + (count - count4 * 4);
+  if (count > 0)
+    or_words_kernel<<<grid_blocks(work, 256), 256, 0,
+                      (cudaStream_t)stream>>>(a, b, count, count4, out);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,7 @@
-"""Front door of the NE-round kernels: ``one_hop``, ``select_topk`` and
-``claim_scatter``, with the reference package's signatures.
+"""Front door of the NE-round kernels: ``one_hop``, ``select_topk``,
+``claim_scatter``, and the bit-packed replica-set kernels ``pack_bits``,
+``unpack_bits`` and ``or_words``, with the reference package's signatures
+(packed words are int32 bit patterns of the reference's uint32 words).
 
 The tensor's device decides the route: a CPU tensor goes to the plain
 version in ``ref.py``; a CUDA tensor goes to the hand-written kernel in
@@ -16,7 +18,8 @@ import torch
 
 from repro_torch.kernels.ne_round import ref
 
-launches = {"one_hop": 0, "select": 0, "claim_scatter": 0}
+launches = {"one_hop": 0, "select": 0, "claim_scatter": 0, "pack_bits": 0,
+            "unpack_bits": 0, "or_words": 0}
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
@@ -27,6 +30,11 @@ _ARGTYPES = {
     "ne_select": [_P, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _P, _P,
                   _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
                   ctypes.c_int, _P, _P, _P, _P, _P],
+    "ne_pack_bits": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
+                     _P],
+    "ne_unpack_bits": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       _P, _P],
+    "ne_or_words": [_P, _P, ctypes.c_longlong, _P, _P],
 }
 MAX_K_SEL = 4096   # select_finish keeps K keys in 48 KB of shared memory
 
@@ -157,4 +165,51 @@ def claim_scatter(sel_idx, sel_valid, edges_per_part, num_vertices: int,
                                   _stream())
     _raise_on(err, "ne_claim_scatter")
     launches["claim_scatter"] += 1
+    return out
+
+
+def pack_bits(bools):
+    """(N, P) bool → (N, ceil(P/32)) int32 words, LSB-first, pad bits 0."""
+    if _route(bools) == "cpu":
+        return ref.pack_bits_ref(bools)
+    n, p = bools.shape
+    _check(bools, torch.bool, (n, p), "bools")
+    w = ref.replica_words(p)
+    words = torch.empty((n, w), dtype=torch.int32, device=bools.device)
+    err = _lib().ne_pack_bits(_ptr(bools), n, p, w, _ptr(words), _stream())
+    _raise_on(err, "ne_pack_bits")
+    launches["pack_bits"] += 1
+    return words
+
+
+def unpack_bits(words, num_partitions: int):
+    """(N, W) int32 words → (N, P) bool, contiguous: the inverse of
+    :func:`pack_bits`."""
+    if _route(words) == "cpu":
+        return ref.unpack_bits_ref(words, num_partitions)
+    n, w = words.shape
+    _check(words, torch.int32, (n, w), "words")
+    if not 1 <= num_partitions <= 32 * w:
+        raise ValueError(f"num_partitions={num_partitions} outside "
+                         f"[1, {32 * w}] for {w} words")
+    bools = torch.empty((n, num_partitions), dtype=torch.bool,
+                        device=words.device)
+    err = _lib().ne_unpack_bits(_ptr(words), n, num_partitions, w,
+                                _ptr(bools), _stream())
+    _raise_on(err, "ne_unpack_bits")
+    launches["unpack_bits"] += 1
+    return bools
+
+
+def or_words(a, b):
+    """Element-wise OR of two packed replica maps of one shape."""
+    if _route(a, b) == "cpu":
+        return ref.or_words_ref(a, b)
+    _check(a, torch.int32, a.shape, "a")
+    _check(b, torch.int32, a.shape, "b")
+    out = torch.empty_like(a)
+    err = _lib().ne_or_words(_ptr(a), _ptr(b), a.numel(), _ptr(out),
+                             _stream())
+    _raise_on(err, "ne_or_words")
+    launches["or_words"] += 1
     return out

@@ -6,10 +6,12 @@ apart from the float32 ``ceil(lam * |B|)``).  The front door in ``ops.py``
 runs these for tensors on the CPU; the tests hold them against the
 reference package, and ``chip_smoke.py`` holds the kernels against them
 on the card.  ``_enc`` is the claim priority rule; the partitioner uses
-it as ``core.partitioner.priority_enc``.
+it as ``core.partitioner.priority_enc``.  ``pack_bits_np`` and
+``unpack_bits_np`` are numpy twins of the bit packing for host arrays.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 I32_INF = 2**31 - 1
@@ -88,3 +90,64 @@ def claim_scatter_ref(sel_idx, sel_valid, edges_per_part,
                         device=sel_idx.device)
     vclaim.scatter_reduce_(0, flat_v.long(), keys.reshape(-1), reduce="amin")
     return vclaim[:num_vertices]
+
+
+# ---------------------------------------------------------------------------
+# bit-packed replica sets: partition p is bit p % 32 of word p // 32,
+# LSB-first, pad bits 0.  A word is the int32 bit pattern of the
+# reference's uint32 word (torch uint32 lacks basic ops).
+# ---------------------------------------------------------------------------
+
+def replica_words(num_partitions: int) -> int:
+    """Words per vertex of the packed replica set: ``ceil(P / 32)``."""
+    return (num_partitions + 31) // 32
+
+
+def pack_bits_ref(bools):
+    """(N, P) bool → (N, ceil(P/32)) int32 words.  The word is summed in
+    int64 (an int32 sum would overflow at bit 31) and narrowed to its
+    int32 bit pattern."""
+    n, p = bools.shape
+    w = replica_words(p)
+    bp = torch.nn.functional.pad(bools, (0, w * 32 - p)).reshape(n, w, 32)
+    bits = torch.arange(32, dtype=torch.int64, device=bools.device)
+    word = (bp.to(torch.int64) << bits).sum(dim=-1)
+    return torch.where(word > I32_INF, word - (1 << 32), word).to(torch.int32)
+
+
+def unpack_bits_ref(words, num_partitions: int):
+    """(N, W) int32 words → (N, P) bool, contiguous: the inverse of
+    :func:`pack_bits_ref`.  ``>>`` on int32 is arithmetic, hence ``& 1``."""
+    n, w = words.shape
+    bits = torch.arange(32, dtype=torch.int32, device=words.device)
+    b = (words[:, :, None] >> bits) & 1
+    return b.reshape(n, w * 32)[:, :num_partitions].to(torch.bool).contiguous()
+
+
+def or_words_ref(a, b):
+    """Element-wise OR-merge of two packed replica maps."""
+    return a | b
+
+
+# numpy twins for the host side of a run (the words come back from the
+# device as int32); same bit layout as the reference's ``pack_bits_np``
+def pack_bits_np(bools: np.ndarray) -> np.ndarray:
+    """(N, P) bool → (N, ceil(P/32)) int32 words."""
+    n, p = bools.shape
+    w = replica_words(p)
+    bp = np.zeros((n, w * 32), np.uint32)
+    bp[:, :p] = bools
+    return (bp.reshape(n, w, 32)
+            << np.arange(32, dtype=np.uint32)[None, None, :]).sum(
+        axis=-1, dtype=np.uint32).view(np.int32)
+
+
+def unpack_bits_np(words: np.ndarray, num_partitions: int) -> np.ndarray:
+    """(N, W) int32 (or uint32) words → (N, P) bool."""
+    words = np.ascontiguousarray(words)
+    if words.dtype == np.int32:
+        words = words.view(np.uint32)
+    n, w = words.shape
+    bits = np.arange(32, dtype=np.uint32)
+    b = (words[:, :, None] >> bits[None, None, :]) & np.uint32(1)
+    return b.reshape(n, w * 32)[:, :num_partitions].astype(bool)

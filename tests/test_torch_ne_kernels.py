@@ -198,7 +198,8 @@ def test_front_door_rejects_other_devices():
         ops.one_hop(x, x, x, x, 2)
     ops.reset_launches()
     ops.one_hop(*(torch.zeros(4, dtype=torch.int32) for _ in range(4)), 2)
-    assert ops.launches == {"one_hop": 0, "select": 0, "claim_scatter": 0}
+    assert ops.launches == {"one_hop": 0, "select": 0, "claim_scatter": 0,
+                            "pack_bits": 0, "unpack_bits": 0, "or_words": 0}
 
 
 # --------------------------------------------------------------------------

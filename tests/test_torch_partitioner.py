@@ -187,6 +187,7 @@ def test_port_imports_no_jax_and_no_repro():
         "import sys\n"
         "import repro_torch.core.partitioner, repro_torch.graphs.rmat\n"
         "import repro_torch.kernels.ne_round.build\n"
+        "import repro_torch.dist.compat, repro_torch.dist.partitioner_sm\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -202,7 +203,8 @@ def test_port_sources_name_no_jax_and_no_repro():
     bad = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)\b)",
                      re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    assert ROOT / "src" / "repro_torch" / "dist" / "partitioner_sm.py" in files
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_spmd_ranks.py"]
     assert len(files) > 10
     for f in files:
         hits = bad.findall(f.read_text())
