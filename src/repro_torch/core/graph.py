@@ -133,9 +133,10 @@ def hash_u32(x: torch.Tensor, salt: int = 0) -> torch.Tensor:
 
 
 def grid_assign(edges: torch.Tensor, num_devices: int,
-                rows: int | None = None, salt: int = 0) -> torch.Tensor:
-    """2D-hash (grid) edge→device assignment.  Returns (M,) int32 ids."""
-    r = rows or int(np.floor(np.sqrt(num_devices)))
+                salt: int = 0) -> torch.Tensor:
+    """2D-hash (grid) edge→device assignment over an r×c grid, r the
+    largest divisor of D at most √D.  Returns (M,) int32 ids."""
+    r = int(np.floor(np.sqrt(num_devices)))
     while num_devices % r:
         r -= 1
     c = num_devices // r

@@ -37,13 +37,13 @@ def process_env() -> tuple[int, int]:
 
 def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """(D, *x.shape): row d is rank d's ``x``.  One all-gather into a flat
-    buffer, a layout that both gloo and NCCL take."""
+    buffer, a layout that both gloo and NCCL take.  Newer torch releases
+    rename ``all_gather_into_tensor`` to ``all_gather_single`` and keep
+    the old name, which every release this runs on has."""
     d = dist.get_world_size(group)
     out = torch.empty((d * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    gather = getattr(dist, "all_gather_single", None) \
-        or dist.all_gather_into_tensor
-    gather(out, x.contiguous(), group=group)
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
     return out.view((d,) + tuple(x.shape))
 
 

@@ -39,8 +39,8 @@ from repro_torch.core.epilogue import alpha_limit, stitch_slices
 from repro_torch.core.graph import (Graph, exclusive_rank, resolve_device,
                                     shard_edges)
 from repro_torch.core.partitioner import (I32_INF, NEConfig, PartitionResult,
-                                          finalize_result, priority_enc,
-                                          vertex_claims)
+                                          _mark_replicas, finalize_result,
+                                          priority_enc, vertex_claims)
 from repro_torch.dist import compat
 from repro_torch.kernels.ne_round import ops as ne_ops
 from repro_torch.kernels.ne_round import ref as ne_ref
@@ -64,10 +64,7 @@ class SpmdState(NamedTuple):
 def replica_delta(new, part, u_loc, v_loc, n: int, p_num: int):
     """(N, P) bool: the replica flags that one allocation batch sets."""
     vnew = torch.zeros((n, p_num), dtype=torch.bool, device=u_loc.device)
-    sel = new.nonzero().squeeze(1)
-    row = part[sel].long()
-    vnew[u_loc[sel].long(), row] = True
-    vnew[v_loc[sel].long(), row] = True
+    _mark_replicas(vnew, u_loc, v_loc, part, new)
     return vnew
 
 
@@ -314,13 +311,15 @@ def partition_spmd(g: Graph, cfg: NEConfig, group=None,
                            cfg, int(state.rounds))
 
 
-def spmd_state_from_numpy(arrays: dict, device=None) -> SpmdState:
+def spmd_state_from_numpy(arrays: dict, device=None,
+                          group=None) -> SpmdState:
     """This rank's SpmdState on ``device`` from the reference's state as
     numpy arrays (a dict with the SpmdState field names): ``edge_part``
-    is row ``rank`` of the reference's (D, C), the uint32 ``vparts`` words
-    become their int32 bit patterns, the uint32 ``key`` words int64."""
+    is row ``rank`` (this process's rank in ``group``, 0 without a group)
+    of the reference's (D, C), the uint32 ``vparts`` words become their
+    int32 bit patterns, the uint32 ``key`` words int64."""
     dev = resolve_device(device)
-    rank = compat.process_env()[0]
+    rank = dist.get_rank(group) if dist.is_initialized() else 0
 
     def t(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a).astype(dtype)).to(dev)

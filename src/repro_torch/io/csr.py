@@ -87,9 +87,10 @@ def hash_u32_host(x: np.ndarray, salt: int = 0) -> np.ndarray:
 
 
 def grid_assign_host(edges: np.ndarray, num_devices: int,
-                     rows: int | None = None, salt: int = 0) -> np.ndarray:
-    """2D-hash (grid) edge→device assignment.  Returns (M,) int32."""
-    r = rows or int(np.floor(np.sqrt(num_devices)))
+                     salt: int = 0) -> np.ndarray:
+    """2D-hash (grid) edge→device assignment over an r×c grid, r the
+    largest divisor of D at most √D.  Returns (M,) int32."""
+    r = int(np.floor(np.sqrt(num_devices)))
     while num_devices % r:
         r -= 1
     c = num_devices // r

@@ -4,8 +4,10 @@ The 2D-hash sharding, whole runs, rounds from a carried-over state, the
 quality gauges and the OR all-reduce must equal the reference's to the
 last bit.  World 1 runs in this process (a gloo group); the reference at
 2, 3 and 4 devices runs in a subprocess with forced host devices (this
-file run as a script), and the port's 2, 3 and 4 ranks in gloo processes
-(``repro_torch.dist.compat.spawn``, rank bodies in ``torch_spmd_ranks``).
+file run as a script, started with the module's first test so that it
+runs while the world-1 tests do), and the port's 2, 3 and 4 ranks in
+gloo processes (``repro_torch.dist.compat.spawn``, rank bodies in
+``torch_spmd_ranks``).
 
     python tests/test_torch_spmd.py OUT.pkl  # write the multi-device reference
 """
@@ -86,13 +88,15 @@ def _jax_states(d: int, jcfg, rounds_at):
 
 def _write_multi_device_reference(path: str) -> None:
     """The reference at 2, 3 and 4 devices: a whole ``partition_spmd``
-    run and the round states the carried-state test starts and ends at."""
+    run on its bool path (it pins its packed path equal to it) and the
+    packed round states the carried-state test starts and ends at."""
     assert len(jax.devices()) >= max(WORLDS), jax.devices()
     jg = j_rmat(*GRAPH)
     out = {}
     for d in WORLDS:
+        res = jsm.partition_spmd(jg, jp.NEConfig(use_pallas=False, **KW),
+                                 num_devices=d)
         jcfg = jp.NEConfig(use_pallas=True, **KW)
-        res = jsm.partition_spmd(jg, jcfg, num_devices=d)
         states = _jax_states(d, jcfg.clamped(jg.num_vertices),
                              (CARRY_ROUNDS, CARRY_ROUNDS + STEPS))
         out[d] = {"result": _result(res), "carried": states[CARRY_ROUNDS],
@@ -270,16 +274,29 @@ def test_stitch_edge_part_matches_reference():
 # 2, 3 and 4 ranks: gloo processes against the reference's devices
 # --------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def multi_device_reference(tmp_path_factory):
+@pytest.fixture(scope="module", autouse=True)
+def _reference_process(tmp_path_factory):
+    """Starts the multi-device reference with the module's first test;
+    yields (process, output path), and ends the process if no test
+    waited for it."""
     out = tmp_path_factory.mktemp("jax_spmd") / "ref.pkl"
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
-    proc = subprocess.run([sys.executable, __file__, str(out)],
-                          capture_output=True, text=True, timeout=600,
-                          env=env, cwd=str(ROOT))
-    assert proc.returncode == 0, proc.stderr[-3000:]
+    proc = subprocess.Popen([sys.executable, __file__, str(out)],
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=str(ROOT))
+    yield proc, out
+    if proc.poll() is None:
+        proc.kill()
+    proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def multi_device_reference(_reference_process):
+    proc, out = _reference_process
+    _, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err[-3000:]
     with open(out, "rb") as f:
         return pickle.load(f)
 
