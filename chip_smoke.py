@@ -27,7 +27,17 @@ Phases, each printing its lines; any failed check exits non-zero:
    time on inputs taken from a real round (single-controller kernels) or
    a real SPMD round (bit-packing kernels) beside its plain version's, a
    library call's and the bound from the bytes it must move, as one JSON
-   line.
+   line;
+6. full-graph GIN training (gin-tu, 5 layers, d_hidden 64) over the
+   vertex-cut engine in a world-1 NCCL group, on a graph of Cora's size
+   (``full_graph_sm``: 2,708 vertices, ~10,556 edges, 1,433 features,
+   7 classes) made from a seed: the ``block_spmm`` kernel against its
+   plain version (forward and backward, at the main path's shapes and at
+   16 x 16 blocks), three steps on the card against three on the CPU
+   (gloo, plain versions), 20 steps of ``train_engine_gin`` with the
+   launch counts set to 0 just before and read just after (steps x
+   (2L - 1) launches), and the kernel's times beside its bound, its plain
+   version's and a library call's.  Its row joins phase 5's JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU
 fallback: without a CUDA device the script exits non-zero.
@@ -35,6 +45,7 @@ fallback: without a CUDA device the script exits non-zero.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -48,7 +59,14 @@ EDGE_FACTOR = 16                   # the main path's graph: RMAT, EF 16
 PARTITIONS = 64                    # P = 64; other NEConfig fields default
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+FP32_FLOPS = 67e12                 # H100 SXM, FP32 on the CUDA cores
 CU_SOURCE = "src/repro_torch/kernels/ne_round/csrc/ne_round.cu"
+SPMM_SOURCE = "src/repro_torch/kernels/block_spmm/csrc/block_spmm.cu"
+GNN_SHAPE = "full_graph_sm"        # Cora's size (configs/shapes.py)
+ER_DEGREE = 6.5                    # |E| after dedup 10,545 (10,556 - 0.1 %)
+GNN_STEPS = 20                     # examples/train_gnn_partitioned.py:
+GNN_OPT = dict(lr=3e-3, weight_decay=0.0, warmup_steps=20)   # its OptConfig
+CHECK_STEPS = 3                    # card against CPU
 REPLACES = {
     "one_hop": "src/repro/kernels/ne_round/ne_round.py:80",
     "select": "src/repro/kernels/ne_round/ne_round.py:188",
@@ -56,7 +74,9 @@ REPLACES = {
     "pack_bits": "src/repro/kernels/ne_round/ne_round.py:296",
     "unpack_bits": "src/repro/kernels/ne_round/ne_round.py:313",
     "or_words": "src/repro/kernels/ne_round/ne_round.py:330",
+    "block_spmm": "src/repro/kernels/block_spmm/block_spmm.py:41",
 }
+KERNEL_FAMILIES = ("ne_round", "block_spmm")
 SINGLE_KERNELS = ("one_hop", "select", "claim_scatter")
 BIT_KERNELS = ("pack_bits", "unpack_bits", "or_words")
 
@@ -358,9 +378,11 @@ def phase_times(torch, tp, ops, ref, g, cfg, limit, state, reps):
     return rows
 
 
-def profile_round(torch, label, round_fn, top: int = 12):
-    """One round (``round_fn()``) under torch.profiler: device time by
-    kernel and the device's busy share of the round's wall time."""
+def profile_round(torch, label, round_fn, top: int = 12, host_top: int = 0):
+    """One round or step (``round_fn()``) under torch.profiler: device
+    time by kernel, the device's busy share of its wall time and, with
+    ``host_top``, the host operators by their own host time; returns the
+    profiler's device rows."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -374,12 +396,366 @@ def profile_round(torch, label, round_fn, top: int = 12):
             if str(getattr(e, "device_type", "")).endswith("CUDA")]
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in rows)
-    print(f"phase 5: profiled {label}: wall {wall_us:.0f}"
+    print(f"{label}: wall {wall_us:.0f}"
           f" us, device busy {busy:.0f} us ({100 * busy / wall_us:.1f}%)",
           flush=True)
     for e in rows[:top]:
         print(f"  {e.self_device_time_total:12.0f} us  {e.count:6d}x  "
               f"{e.key[:90]}", flush=True)
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    if host_top:
+        print(f"{label}: host time by operator (self): "
+              f"{sum(e.self_cpu_time_total for e in host):.0f} us", flush=True)
+    for e in host[:host_top]:
+        print(f"  {e.self_cpu_time_total:12.0f} us  {e.count:6d}x  "
+              f"{e.key[:90]}", flush=True)
+    return rows
+
+
+def spmm_close(ref, got, want, cols, blocks, x):
+    """(max |got - want|, whether every entry is within 1e-5 * (|A| @ |x|)
+    + 1e-6): A's entries are small integers, so only the order of the
+    float32 sums differs between the kernel and its plain version."""
+    scale = ref.block_spmm_ref(cols, blocks.abs(), x.abs())
+    err = (got - want).abs()
+    return float(err.max()), bool((err <= 1e-5 * scale + 1e-6).all())
+
+
+def spmm_bound(r, nb, bm, bn, f, x_rows):
+    """(bound ms, what bounds it) of one block_spmm call: 2 R NB bm bn F
+    operations at the FP32 rate, or the bytes of blocks, x, out and cols
+    at the memory rate, whichever takes longer."""
+    ops_ms = 2 * r * nb * bm * bn * f / FP32_FLOPS * 1e3
+    bytes_ms = bound_ms(4 * (r * nb * bm * bn + x_rows * f + r * bm * f
+                             + r * nb))
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def gnn_data(np, shape, seed):
+    """The GNN cell's graph (Erdos-Renyi of Cora's size), features (binary
+    bag-of-words at Cora's density, 18 words of 1,433 a paper), labels (a
+    random linear rule, as examples/train_gnn_partitioned.py makes them)
+    and label mask (every vertex with an edge)."""
+    from repro_torch.graphs.generators import erdos_renyi
+
+    n = shape["n_nodes"]
+    edges = erdos_renyi(n, ER_DEGREE, seed, device="cpu").edges.numpy()
+    rng = np.random.default_rng(seed)
+    feats = (rng.random((n, shape["d_feat"])) < 18 / 1433).astype(np.float32)
+    w_true = rng.normal(size=(shape["d_feat"], shape["n_classes"]))
+    labels = (feats @ w_true).argmax(1).astype(np.int32)
+    label_mask = np.bincount(edges.ravel(), minlength=n) > 0
+    return edges, feats, labels, label_mask
+
+
+def phase_spmm_checks(torch, spmm, sref, a, local, r_mirrors, d_feat, dev):
+    """Phase 6, check 1: block_spmm against its plain version on the card,
+    forward and backward, on the main path's mirror block-CSR (128 x 128
+    blocks) at layer 1's F and at d_hidden 64, and on 16 x 16 blocks of
+    the same adjacency.  Returns the largest error."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    c16, b16, _ = spmm.build_block_csr(local, r_mirrors, 16, 16)
+    cases = [(128, a["cols"], a["blocks"], d_feat),
+             (128, a["cols"], a["blocks"], 64),
+             (16, torch.from_numpy(c16).to(dev),
+              torch.from_numpy(b16).to(dev), 64)]
+    worst = 0.0
+    for b, cols, blocks, f in cases:
+        rows = cols.shape[0] * b
+        x = torch.randn((rows, f), generator=gen, device=dev)
+        g = torch.randn((rows, f), generator=gen, device=dev)
+        xg = x.clone().requires_grad_()
+        out = spmm.block_spmm(cols, blocks, xg)
+        out.backward(g)
+        torch.cuda.synchronize()
+        for what, got, xx in (("forward", out.detach(), x),
+                              ("backward", xg.grad, g)):
+            err, ok = spmm_close(sref, got,
+                                 sref.block_spmm_ref(cols, blocks, xx),
+                                 cols, blocks, xx)
+            check(ok, f"block_spmm {what} differs from plain at {b}x{b} "
+                  f"blocks, F={f}: max abs err {err!r}")
+            worst = max(worst, err)
+        print(f"phase 6: block_spmm == plain (forward and backward) at "
+              f"{b}x{b} blocks, R={cols.shape[0]}, NB={cols.shape[1]}, "
+              f"F={f}; tolerance 1e-5*(|A|@|x|)+1e-6", flush=True)
+    return worst
+
+
+def relu_tape(torch, replay=None):
+    """A torch function mode that records, in call order and on the host,
+    the input of every ``torch.relu`` run under it.  Given ``replay``
+    (another run's record) each call keeps the units that run kept, so both
+    runs take the same side of every ReLU kink."""
+    from torch.overrides import TorchFunctionMode
+
+    class Tape(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.inputs = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is not torch.relu:
+                return func(*args, **(kwargs or {}))
+            z = args[0]
+            self.inputs.append(z.detach().cpu())
+            if replay is None:
+                return func(z)
+            on = replay[len(self.inputs) - 1].to(z.device) > 0
+            return torch.where(on, z, torch.zeros_like(z))
+
+    return Tape()
+
+
+def name_units(zs, per, units):
+    """'forward f, layer l <where>, master row r, channel c' for each
+    (call, row, channel) of a run's ReLU record (``per`` calls a forward:
+    each layer's MLP hidden units, then its output)."""
+    return [f"forward {k // per} layer {k % per // 2 + 1} "
+            f"{'MLP hidden' if k % 2 == 0 else 'output'}, master row {r}, "
+            f"channel {c}: {float(zs[k][r, c])!r} of max "
+            f"{float(zs[k].abs().max())!r}" for k, r, c in units]
+
+
+def phase_gnn_card_vs_cpu(torch, np, compat, ge, gin, opt, data, cfg, p0,
+                          ocfg, dev):
+    """Phase 6, check 2: step 1's gradients and CHECK_STEPS steps of
+    ``train_engine_gin`` on the card (kernel, NCCL) and on the CPU (plain
+    versions, gloo), from the same parameters.  The CPU run takes the
+    card's side of every ReLU kink (``relu_tape``); the units where its
+    own side differs are named."""
+    from repro_torch.apps import engine as eng
+    from repro_torch.tree import tree_leaves
+
+    edges, feats, labels, label_mask = data
+    n = feats.shape[0]
+    part = np.zeros(len(edges), np.int32)
+    sg = eng.build_sharded_graph(edges, part, n, 1)
+    caps = ge.caps_from_sharded_graph(sg, feats.shape[1], cfg.n_classes)
+    runs, replay = {}, None
+    for name, backend, device in (("card", "nccl", dev),
+                                  ("CPU", "gloo", torch.device("cpu"))):
+        tape = relu_tape(torch, replay)
+        with compat.world1(backend), tape:
+            model = gin.params_from_numpy(gin.GIN(cfg), p0).to(device)
+            a = ge.engine_arrays(sg, feats, labels, label_mask, 0, device)
+            ge.loss_and_grads(model, a, caps)
+            grads = [p.grad.cpu().numpy() for p in
+                     tree_leaves(model.param_tree())]
+            model = gin.params_from_numpy(gin.GIN(cfg), p0)
+            losses = ge.train_engine_gin(edges, part, n, feats, labels,
+                                         label_mask, model, ocfg,
+                                         CHECK_STEPS, device=device)
+        runs[name] = (grads, losses,
+                      tree_leaves(gin.params_to_numpy(model)), tape.inputs)
+        replay = tape.inputs
+    (g_c, l_c, p_c, z_c), (g_h, l_h, p_h, z_h) = runs["card"], runs["CPU"]
+    check(len(z_c) == len(z_h) and len(z_c) % (CHECK_STEPS + 1) == 0,
+          f"ReLU calls: card {len(z_c)}, CPU {len(z_h)}")
+    per = len(z_c) // (CHECK_STEPS + 1)         # ReLU calls of a forward
+    # The units where the CPU's own side of the kink is not the card's,
+    # and step 1's units nearest the kink (its first two forwards, the
+    # gradient pass and train_engine_gin's step 1, share the parameters).
+    flips = [(k, int(r), int(c)) for k in range(len(z_c))
+             for r, c in torch.nonzero((z_c[k] > 0) != (z_h[k] > 0))]
+    near = []
+    for k in range(2 * per):
+        z = z_c[k].abs()
+        z = torch.where(z == 0, torch.inf, z)       # exact zeros are not
+        r, c = divmod(int(z.argmin()), z.shape[1])  # rounded either way
+        near.append((float(z[r, c] / z_c[k].abs().max()), k, r, c))
+    near = sorted(near)[:3]
+    print(f"phase 6: card vs CPU: {per} ReLU calls a forward; {len(flips)} "
+          f"units where the CPU alone would take the other side of the "
+          f"kink: {name_units(z_c, per, flips[:6])}; CPU values "
+          f"{[float(z_h[k][r, c]) for k, r, c in flips[:6]]}; step 1's "
+          f"units nearest the kink on the card: "
+          f"{name_units(z_c, per, [u[1:] for u in near])}", flush=True)
+    # Step 1 runs both from the same parameters and takes the same side of
+    # every kink, so the two differ only by float32 sums in other orders
+    # (the kernel against torch.einsum, cuBLAS against the CPU's matmul,
+    # dot products up to 1,433 long through 5 layers): ~1e-7 relative in
+    # a run with no flip (PERF.md §6); 1e-5 for every ReLU input of step 1,
+    # each loss and each leaf of step 1's gradients.  Steps 2-3 start from
+    # parameters that agree as closely, except where AdamW's first step,
+    # lr * g / |g|, takes a step-1 gradient element whose sign float32
+    # does not settle (0 < |g| <= 1e-5 of its leaf's max): such an element
+    # may move either way, by at most 2 x the summed learning rates.  Every
+    # other parameter agrees to 1e-5 (~1e-7 measured).
+    z_err = max(float((a - b).abs().max() / max(b.abs().max(), 1e-30))
+                for a, b in zip(z_c[:2 * per], z_h[:2 * per]))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_c, l_h))
+    grad_err = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                   for a, b in zip(g_c, g_h))
+    lr_sum = sum(float(opt.schedule(ocfg, torch.tensor(s, dtype=torch.int32)))
+                 for s in range(1, CHECK_STEPS + 1))
+    loose = [(g != 0) & (np.abs(g) <= 1e-5 * np.abs(g).max()) for g in g_c]
+    param_err = max(float(np.abs(a - b)[~m].max(initial=0.0))
+                    for a, b, m in zip(p_c, p_h, loose))
+    loose_err = max(float(np.abs(a - b)[m].max(initial=0.0))
+                    for a, b, m in zip(p_c, p_h, loose))
+    print(f"phase 6: card vs CPU over {CHECK_STEPS} steps: losses card "
+          f"{l_c} CPU {l_h}, max rel err {loss_err!r} (tol 1e-5); step-1 "
+          f"ReLU inputs max err / call max {z_err!r} (tol 1e-5); step-1 "
+          f"gradients max err / leaf max {grad_err!r} (tol 1e-5); params "
+          f"max abs err {param_err!r} (tol 1e-5), {sum(int(m.sum()) for m in loose)} "
+          f"elements with a step-1 gradient in (0, 1e-5] of its leaf max: max abs err "
+          f"{loose_err!r} (tol {2.01 * lr_sum!r})", flush=True)
+    check(loss_err <= 1e-5, f"card and CPU losses differ: {l_c} vs {l_h}")
+    check(z_err <= 1e-5, f"card and CPU ReLU inputs differ: {z_err}")
+    check(grad_err <= 1e-5, f"card and CPU gradients differ: {grad_err}")
+    check(param_err <= 1e-5 and loose_err <= 2.01 * lr_sum,
+          f"card and CPU parameters differ by {param_err}, {loose_err}")
+
+
+def library_spmm(torch, cols, blocks, x):
+    """The library yardstick for block_spmm: ``torch.sparse.mm`` of a BSR
+    tensor of the nonzero blocks, or a dense matmul of the (N_pad, N_pad)
+    adjacency where torch refuses BSR on the card.  Returns (call, name).
+    The port never calls either."""
+    r, nb, bm, bn = blocks.shape
+    real = blocks.sum((2, 3)) != 0          # real slots lead each row
+    crow = torch.zeros(r + 1, dtype=torch.int64, device=x.device)
+    crow[1:] = real.sum(1).cumsum(0)
+    bsr = torch.sparse_bsr_tensor(crow, cols[real].long(), blocks[real],
+                                  size=(r * bm, x.shape[0]))
+    try:
+        torch.sparse.mm(bsr, x)
+        torch.cuda.synchronize()
+        return (lambda: torch.sparse.mm(bsr, x)), "torch.sparse.mm(BSR)"
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"phase 6: torch refuses BSR @ dense on the card "
+              f"({str(e).splitlines()[0][:120]}); library = dense matmul",
+              flush=True)
+    dense = bsr.to_dense()
+    return (lambda: dense @ x), "torch.matmul(dense adjacency)"
+
+
+def phase_gnn(torch, np, compat, ne_ops, args):
+    """Phase 6: the GNN cell.  Returns block_spmm's row of the kernels
+    line."""
+    from repro_torch.apps import engine as eng
+    from repro_torch.configs import gin_tu
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.kernels.block_spmm import ops as spmm
+    from repro_torch.kernels.block_spmm import ref as sref
+    from repro_torch.launch import gnn_engine as ge
+    from repro_torch.models.gnn import gin
+    from repro_torch.train import optimizer as opt
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"phase 6: allow_tf32 matmul="
+          f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
+          f"{torch.backends.cudnn.allow_tf32}", flush=True)
+    shape = GNN_SHAPES[GNN_SHAPE]
+    data = gnn_data(np, shape, seed=0)
+    edges, feats, labels, label_mask = data
+    n, m = feats.shape[0], len(edges)
+    check(abs(m / shape["n_edges"] - 1) <= 0.02,
+          f"{m} edges, not within 2 % of {shape['n_edges']}")
+    cfg = dataclasses.replace(gin_tu.CONFIG, d_feat=shape["d_feat"],
+                              n_classes=shape["n_classes"])
+    p0 = gin.params_to_numpy(gin.GIN(cfg, torch.Generator().manual_seed(0)))
+    ocfg = opt.OptConfig(total_steps=GNN_STEPS, **GNN_OPT)
+    sg = eng.build_sharded_graph(edges, np.zeros(m, np.int32), n, 1)
+    caps = ge.caps_from_sharded_graph(sg, shape["d_feat"], cfg.n_classes)
+    a = ge.engine_arrays(sg, feats, labels, label_mask, 0, dev)
+    cols, blocks = a["cols"], a["blocks"]
+    r, nb, bm, bn = blocks.shape
+    local = sg.edges_ml[0][sg.emask[0]]
+    tiles = int((blocks != 0).any(3).any(2).sum())
+    print(f"phase 6: {cfg.name} L={cfg.n_layers} d_hidden={cfg.d_hidden} on "
+          f"{GNN_SHAPE}: N={n} E={m} d_feat={shape['d_feat']} "
+          f"classes={shape['n_classes']}; mirrors R={caps.r_mirrors}; "
+          f"block-CSR {r}x{nb} slots of {bm}x{bn}: {tiles} nonzero tiles "
+          f"of {r * nb}, blocks {blocks.nbytes} B + cols {cols.nbytes} B",
+          flush=True)
+
+    worst = phase_spmm_checks(torch, spmm, sref, a, local, caps.r_mirrors,
+                              shape["d_feat"], dev)
+    phase_gnn_card_vs_cpu(torch, np, compat, ge, gin, opt, data, cfg, p0,
+                          ocfg, dev)
+
+    # --- the main path: train_engine_gin, counts 0 just before ------------
+    with compat.world1("nccl"):
+        model = gin.params_from_numpy(gin.GIN(cfg), p0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ne_ops.reset_launches()
+        spmm.reset_launches()
+        t0 = time.perf_counter()
+        losses = ge.train_engine_gin(edges, np.zeros(m, np.int32), n, feats,
+                                     labels, label_mask, model, ocfg,
+                                     GNN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = spmm.launches["block_spmm"]
+        ne_launches = dict(ne_ops.launches)
+        peak = torch.cuda.max_memory_allocated() - base
+        # steady steps, then one under the profiler
+        state = opt.init(model.param_tree(), ocfg)
+        for _ in range(2):
+            ge.train_step(model, a, caps, state, ocfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.reps):
+            _, state = ge.train_step(model, a, caps, state, ocfg)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / args.reps
+        prof = profile_round(torch, "phase 6: profiled training step",
+                             lambda: ge.train_step(model, a, caps, state,
+                                                   ocfg), host_top=12)
+    want = GNN_STEPS * (2 * cfg.n_layers - 1)
+    busy = sum(e.self_device_time_total for e in prof)
+    spmm_us = sum(e.self_device_time_total for e in prof
+                  if "spmm_kernel" in e.key)
+    print(f"phase 6: train_engine_gin {GNN_STEPS} steps: losses {losses}; "
+          f"wall {wall!r} s (host build included); steady step "
+          f"{step_s!r} s; peak device memory {peak} B above the "
+          f"{base} B held before; block_spmm launches {launches} "
+          f"(want {want} = {GNN_STEPS} x (2L - 1)); block_spmm "
+          f"{spmm_us:.0f} of {busy:.0f} us device time of a step "
+          f"({100 * spmm_us / max(busy, 1):.1f}%)", flush=True)
+    check(len(losses) == GNN_STEPS and all(np.isfinite(losses)),
+          f"losses {losses}")
+    check(launches == want, f"block_spmm launched {launches} times, "
+          f"not {want}")
+    check(not any(ne_launches.values()),
+          f"NE-round kernels ran in the GNN phase: {ne_launches}")
+
+    # --- the kernel's times on the main path's block-CSR ------------------
+    gen = torch.Generator(device=dev).manual_seed(15)
+    row = {"name": "block_spmm", "route": "cuda", "source": SPMM_SOURCE,
+           "replaces": REPLACES["block_spmm"], "launches": launches,
+           "launches_per_step": 2 * cfg.n_layers - 1, "max_abs_err": worst}
+    for f, tag in ((shape["d_feat"], ""), (cfg.d_hidden, "_f64")):
+        x = torch.randn((r * bm, f), generator=gen, device=dev)
+        lib, lib_name = library_spmm(torch, cols, blocks, x)
+        err, ok = spmm_close(sref, lib(), sref.block_spmm_ref(cols, blocks, x),
+                             cols, blocks, x)
+        check(ok, f"the library yardstick {lib_name} differs: {err}")
+        bound, by = spmm_bound(r, nb, bm, bn, f, x.shape[0])
+        row.update({
+            "ms" + tag: time_ms(lambda: spmm.block_spmm(cols, blocks, x),
+                                args.reps),
+            "plain_ms" + tag: time_ms(
+                lambda: sref.block_spmm_ref(cols, blocks, x),
+                max(1, args.reps // 4)),
+            "bound_ms" + tag: bound, "bound_by" + tag: by,
+            "library_ms" + tag: time_ms(lib, args.reps),
+            "library_call" + tag: lib_name, "F" + tag: f})
+    print(f"phase 6: block_spmm times (F={shape['d_feat']} / F=64): "
+          f"ms {row['ms']!r} / {row['ms_f64']!r}, bound "
+          f"{row['bound_ms']!r} / {row['bound_ms_f64']!r} "
+          f"({row['bound_by']} / {row['bound_by_f64']}), plain "
+          f"{row['plain_ms']!r} / {row['plain_ms_f64']!r}, library "
+          f"{row['library_ms']!r} / {row['library_ms_f64']!r} "
+          f"({row['library_call']})", flush=True)
+    return row
 
 
 def same_result(np, a, b) -> bool:
@@ -434,7 +810,8 @@ def main() -> None:
     from repro_torch.dist import compat
     from repro_torch.dist import partitioner_sm as sm
     from repro_torch.graphs.rmat import rmat_edges
-    from repro_torch.kernels.ne_round import build, ops, ref
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ne_round import ops, ref
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -447,12 +824,13 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
           flush=True)
     t0 = time.perf_counter()
-    build.load("ne_round")
-    print(f"phase 1: built ne_round in {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    for line in build.build_logs.get("ne_round", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", file=sys.stderr)
+    build.load(*KERNEL_FAMILIES)
+    print(f"phase 1: built {', '.join(KERNEL_FAMILIES)} (one nvcc each, "
+          f"together) in {time.perf_counter() - t0:.2f} s", flush=True)
+    for fam in KERNEL_FAMILIES:
+        for line in build.build_logs.get(fam, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {fam}: {line.strip()}", file=sys.stderr)
 
     # the main path's graph: RMAT, Graph500 (a, b, c, d), seed 1
     t0 = time.perf_counter()
@@ -558,7 +936,8 @@ def main() -> None:
     state = tp.ne_init_state(g, cfg)
     while int(state.rounds) < args.time_round and not tp.ne_done(state, cfg):
         state = tp.ne_round_step(g, cfg, limit, state)
-    profile_round(torch, f"single-controller round {int(state.rounds)}",
+    profile_round(torch, f"phase 5: profiled single-controller round "
+                  f"{int(state.rounds)}",
                   lambda: tp.ne_round_step(
                       g, cfg, limit, tp.NEState(*(t.clone() for t in state))))
     rows = phase_times(torch, tp, ops, ref, g, cfg, limit, state, args.reps)
@@ -568,14 +947,19 @@ def main() -> None:
     with compat.world1("nccl"):
         st_sm, u, v, mask = spmd_rounds(torch, sm, g, cfg, limit,
                                         args.time_round)
-        profile_round(torch, f"SPMD round {int(st_sm.rounds)}",
+        profile_round(torch, f"phase 5: profiled SPMD round "
+                      f"{int(st_sm.rounds)}",
                       lambda: sm.spmd_round_step(cfg, limit, n, u, v, mask,
                                                  st_sm))
     bit_rows = phase_spmd_times(torch, tp, sm, ops, ref, u, v, n, cfg,
                                 limit, st_sm, args.reps)
     for r in bit_rows:
         r["launches"] = launches_sm[r["name"]]
-    print(json.dumps({"kernels": rows + bit_rows}), flush=True)
+    del st_sm, u, v, mask, g
+
+    # --- phase 6: GIN training over the vertex-cut engine -------------------
+    spmm_row = phase_gnn(torch, np, compat, ops, args)
+    print(json.dumps({"kernels": rows + bit_rows + [spmm_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,6 +4,8 @@
 * :func:`or_all_reduce` — the bitwise-OR all-reduce of packed replica
   words that ends every SPMD round (*SyncVertexAllocations*);
 * :func:`all_gather_rows` — the all-gather of one tensor per rank;
+* :func:`all_to_all_rows` and :func:`all_reduce_sum` — the vertex-cut
+  engine's mirror/master exchange and its loss sums, differentiable;
 * :func:`world1` and :func:`spawn` — open a group: a world-1 group in this
   process, or ``world_size`` new processes, one rank each.
 
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import pickle
 import queue as queue_mod
 import tempfile
 import time
@@ -26,6 +29,7 @@ import torch.distributed as dist
 from repro_torch.kernels.ne_round import ops as ne_ops
 
 SPAWN_TIMEOUT_S = 900.0
+_CALL = "call.pkl"       # spawn's (fn, args), beside the group's store
 
 
 def process_env() -> tuple[int, int]:
@@ -45,6 +49,54 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
                       device=x.device)
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
     return out.view((d,) + tuple(x.shape))
+
+
+class _AllToAllRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        # an all-to-all of equal chunks is its own transpose: chunk t of
+        # my output came from rank t, so its gradient goes back to rank t
+        out = torch.empty_like(grad)
+        dist.all_to_all_single(out, grad.contiguous(), group=ctx.group)
+        return out, None
+
+
+def all_to_all_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """(D·L, ...) rows, chunk t of them sent to rank t; returns the
+    (D·L, ...) rows received, chunk s from rank s (``jax.lax.all_to_all``
+    with ``tiled=True`` on the leading axis).  Differentiable: the
+    backward is the reverse all-to-all."""
+    return _AllToAllRows.apply(x.contiguous(), group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks, on every rank (``jax.lax.psum``).
+
+    Every rank goes on with the same total and differentiates its own
+    copy, so the backward passes the gradient through to this rank's
+    term: the gradient of a parameter that every rank holds is then the
+    sum of the ranks' gradients (``all_reduce`` them after the backward),
+    as for a replicated input of ``shard_map``."""
+    return _AllReduceSum.apply(x, group)
 
 
 def or_all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -103,11 +155,13 @@ def world1(backend: str):
             dist.destroy_process_group()
 
 
-def _rank_main(fn, rank, world_size, backend, store_dir, results, args):
+def _rank_main(rank, world_size, backend, store_dir, results):
     # the ranks share the host's cores; torch's default of one intra-op
     # thread per core in every rank oversubscribes them many times over
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
     try:
+        with open(os.path.join(store_dir, _CALL), "rb") as f:
+            fn, args = pickle.load(f)
         _init_group(backend, rank, world_size, store_dir)
         try:
             out = fn(*args)
@@ -133,9 +187,14 @@ def spawn(fn, world_size: int, backend: str, *args) -> list:
     out: dict = {}
     errors: dict = {}
     with tempfile.TemporaryDirectory() as store_dir:
+        # the call goes through a file: a large one pickled into each
+        # Process would hold up every start until that child had imported
+        # torch and read it, one child after the other
+        with open(os.path.join(store_dir, _CALL), "wb") as f:
+            pickle.dump((fn, args), f)
         procs = [ctx.Process(target=_rank_main,
-                             args=(fn, r, world_size, backend, store_dir,
-                                   results, args), daemon=True)
+                             args=(r, world_size, backend, store_dir,
+                                   results), daemon=True)
                  for r in range(world_size)]
         for p in procs:
             p.start()

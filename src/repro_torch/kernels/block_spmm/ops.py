@@ -1,0 +1,160 @@
+"""Front door of the block-sparse SpMM: the host block-CSR builder, the
+kernel wrapper ``block_spmm`` (differentiable in ``x``) and
+``aggregate_neighbors``, with the reference package's signatures.
+
+The tensor's device decides the route: a CPU tensor goes to the plain
+version in ``ref.py``; a CUDA tensor goes to the hand-written kernel in
+``csrc/block_spmm.cu`` (built with ``nvcc`` at first use); anything else
+raises.  There is no fallback from the kernel to the plain version.  The
+wrapper checks its inputs, allocates the output, launches on the current
+stream and adds one to ``launches["block_spmm"]`` per kernel call.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.block_spmm import ref
+
+launches = {"block_spmm": 0}
+
+_P = ctypes.c_void_p
+_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P, _P]
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _lib():
+    """The built library, its argument types set (built at first use)."""
+    from repro_torch.kernels import build
+
+    lib = build.load("block_spmm")
+    if lib.block_spmm.argtypes is None:
+        lib.block_spmm.argtypes = _ARGTYPES
+        lib.block_spmm.restype = ctypes.c_int
+    return lib
+
+
+def build_block_csr(edges: np.ndarray, num_nodes: int, bm: int = 128,
+                    bn: int = 128, directed_both: bool = True):
+    """Host-side: edge list → block-CSR (cols, blocks) with padding.
+
+    Returns (cols (R, NB) int32, blocks (R, NB, bm, bn) f32, n_pad), with
+    out[v] = Σ_{(u,v)∈E} x[u] (sum aggregation; both directions of each
+    edge when ``directed_both``).  Row tile i lists its nonzero column
+    blocks in increasing order; NB is the most any row tile has (at least
+    1); the other slots are padding, column block 0 with a zero block.
+    An entry counts its edge's copies, self loops included.
+    """
+    e = np.asarray(edges)
+    if directed_both:
+        src = np.concatenate([e[:, 0], e[:, 1]])
+        dst = np.concatenate([e[:, 1], e[:, 0]])
+    else:
+        src, dst = e[:, 0], e[:, 1]
+    n_pad = -(-num_nodes // max(bm, bn)) * max(bm, bn)
+    r, c = n_pad // bm, n_pad // bn
+    key = (dst // bm).astype(np.int64) * c + src // bn   # the edge's tile
+    uniq, inv = np.unique(key, return_inverse=True)
+    row_of = uniq // c
+    # a tile's slot: its rank among the sorted nonzero tiles of its row
+    slot = np.arange(uniq.size) - np.searchsorted(row_of, row_of)
+    nb = int(slot.max()) + 1 if slot.size else 1
+    cols = np.zeros((r, nb), np.int32)
+    cols[row_of, slot] = uniq % c
+    blocks = np.zeros((r, nb, bm, bn), np.float32)
+    np.add.at(blocks, (row_of[inv], slot[inv], dst % bm, src % bn), 1.0)
+    return cols, blocks, n_pad
+
+
+def _route(*tensors) -> str:
+    """'cpu' or 'cuda' from the tensors' common device; raises otherwise."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"inputs lie on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no block_spmm kernel for device {dev}")
+    return dev.type
+
+
+def _spmm(cols, blocks, x):
+    """One product A @ x: the plain version on the CPU, else one launch."""
+    if _route(cols, blocks, x) == "cpu":
+        return ref.block_spmm_ref(cols, blocks, x)
+    r, nb, bm, bn = blocks.shape
+    n, f = x.shape
+    if blocks.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"block_spmm takes float32 blocks and x, got "
+                        f"{blocks.dtype} and {x.dtype}")
+    if cols.dtype != torch.int32 or tuple(cols.shape) != (r, nb):
+        raise ValueError(f"cols: {cols.dtype} {tuple(cols.shape)}, expected "
+                         f"int32 {(r, nb)}")
+    if n % bn:
+        raise ValueError(f"x has {n} rows, not a multiple of bn={bn}")
+    if -(-bm // 16) > 65535 or -(-f // 64) > 65535:
+        raise ValueError(f"bm={bm} or F={f} too large for the launch grid")
+    for t, name in ((cols, "cols"), (blocks, "blocks"), (x, "x")):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    out = torch.empty((r * bm, f), dtype=x.dtype, device=x.device)
+    if out.numel() == 0 or nb == 0:
+        return out.zero_()
+    err = _lib().block_spmm(cols.data_ptr(), blocks.data_ptr(),
+                            x.data_ptr(), r, nb, bm, bn, n, f,
+                            out.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"block_spmm failed with cudaError_t {err}")
+    launches["block_spmm"] += 1
+    return out
+
+
+class BlockSpmm(torch.autograd.Function):
+    """out = A @ x for a symmetric A, whose gradient in x, A^T @ grad, is
+    the same kernel on the same (cols, blocks).  ``cols`` and ``blocks``
+    take no gradient."""
+
+    @staticmethod
+    def forward(ctx, cols, blocks, x):
+        ctx.save_for_backward(cols, blocks)
+        return _spmm(cols, blocks, x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[2]:
+            return None, None, None
+        cols, blocks = ctx.saved_tensors
+        bm, bn = blocks.shape[2:]
+        if bm != bn:
+            raise ValueError(f"the gradient of block_spmm takes A^T as A's "
+                             f"own block-CSR, which needs bm == bn, not "
+                             f"{bm} x {bn}")
+        return None, None, _spmm(cols, blocks, grad.contiguous())
+
+
+def block_spmm(cols, blocks, x):
+    """out = A @ x for block-CSR A (``build_block_csr``'s cols and blocks
+    as tensors); x is (C·bn, F), out (R·bm, F).  The gradient in x runs the
+    kernel on A^T taken as A itself, so A must be symmetric with
+    bm == bn (the backward raises otherwise), as the block-CSR of
+    ``directed_both=True`` is."""
+    return BlockSpmm.apply(cols, blocks, x)
+
+
+def aggregate_neighbors(edges: np.ndarray, x: torch.Tensor, num_nodes: int,
+                        bm: int = 128, bn: int = 128) -> torch.Tensor:
+    """Sum-aggregate neighbor features (both directions of each edge) with
+    the block-sparse kernel: a host block build (one-off per graph), then
+    one kernel call on ``x``'s device."""
+    cols, blocks, n_pad = build_block_csr(edges, num_nodes, bm, bn)
+    xp = torch.nn.functional.pad(x, (0, 0, 0, n_pad - x.shape[0]))
+    out = block_spmm(torch.from_numpy(cols).to(x.device),
+                     torch.from_numpy(blocks).to(x.device), xp)
+    return out[:num_nodes]

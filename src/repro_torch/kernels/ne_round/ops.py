@@ -46,7 +46,7 @@ def reset_launches() -> None:
 
 def _lib():
     """The built library, its argument types set (built at first use)."""
-    from repro_torch.kernels.ne_round import build
+    from repro_torch.kernels import build
 
     lib = build.load("ne_round")
     if lib.ne_select.argtypes is None:

@@ -1,0 +1,94 @@
+"""Hand-rolled optimizers: AdamW + SGD, global-norm clipping, linear-warmup
+cosine schedule — the reference's ``train/optimizer.py`` on tensors.
+
+Functions of trees of tensors (``repro_torch.tree``) with the reference's
+arithmetic, step by step in the same order and in float32; not
+``torch.optim``.  The state is a tree too: ``{"m", "v", "step"}`` for
+AdamW, ``{"step"}`` for SGD.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+    kind: str = "adamw"          # adamw | sgd
+
+
+def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
+    """The float32 learning rate at int32 ``step``."""
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    t = torch.clamp((step - cfg.warmup_steps)
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0, 1)
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 \
+        * (1 + torch.cos(math.pi * t))
+    return cfg.lr * warm * cos
+
+
+def init(params, cfg: OptConfig):
+    dev = tree_leaves(params)[0].device
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    if cfg.kind == "sgd":
+        return {"step": step}
+    zeros = tree_map(lambda p: torch.zeros_like(p.detach(),
+                                                dtype=torch.float32), params)
+    return {"m": zeros, "v": tree_map(torch.clone, zeros), "step": step}
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    gn = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    return tree_map(lambda g: g * scale, grads), gn
+
+
+@torch.no_grad()
+def update(grads, state, params, cfg: OptConfig):
+    """Returns (new_params, new_state, stats); inputs are not changed."""
+    step = state["step"] + 1
+    lr = schedule(cfg, step)
+    if cfg.clip_norm > 0:
+        grads, gn = clip_by_global_norm(grads, cfg.clip_norm)
+    else:
+        gn = global_norm(grads)
+    if cfg.kind == "sgd":
+        new_params = tree_map(
+            lambda p, g: (p.float() - lr * g.float()).to(p.dtype),
+            params, grads)
+        return new_params, {"step": step}, {"lr": lr, "grad_norm": gn}
+
+    b1, b2 = cfg.b1, cfg.b2
+    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(), state["m"],
+                 grads)
+    v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(g.float()),
+                 state["v"], grads)
+    c1 = 1 - b1 ** step.float()
+    c2 = 1 - b2 ** step.float()
+
+    def upd(p, m_, v_):
+        u = (m_ / c1) / (torch.sqrt(v_ / c2) + cfg.eps)
+        u = u + cfg.weight_decay * p.float()
+        return (p.float() - lr * u).to(p.dtype)
+
+    new_params = tree_map(upd, params, m, v)
+    return new_params, {"m": m, "v": v, "step": step}, \
+        {"lr": lr, "grad_norm": gn}

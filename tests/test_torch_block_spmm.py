@@ -1,0 +1,255 @@
+"""The port's block-sparse SpMM against the reference package.
+
+``build_block_csr`` must give the reference's arrays exactly (slot order,
+counts, padding).  The plain ``block_spmm_ref`` and ``aggregate_neighbors``
+are held to the reference's Pallas kernel (interpret mode) and
+``aggregate_neighbors`` on the same numpy-made inputs, to a float32
+tolerance: the sums run in another order, and A's entries are small
+integers, so |got - want| <= 1e-5 * (|A| @ |x|) + 1e-6.  The gradient of
+``block_spmm`` is the same product on A^T, which for the symmetric A it
+takes is A's own block-CSR.  The
+``gpu`` cases hold the CUDA kernel against the plain version on the card
+(the same tolerance and reason) and skip without one.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.graphs.generators import barabasi_albert
+from repro.graphs.rmat import rmat as j_rmat
+from repro.kernels.block_spmm import block_spmm as jbs
+from repro.kernels.block_spmm import ops as jops
+from repro_torch.kernels.block_spmm import ops, ref
+from repro_torch.tools import block_csr_tiles as tiles
+
+GRAPHS = {"ba300": lambda: np.asarray(barabasi_albert(300, 3, seed=0).edges),
+          "rmat8": lambda: np.asarray(j_rmat(8, 8, seed=0).edges)}
+NUM_NODES = {"ba300": 300, "rmat8": 256}
+
+
+def _edges(name):
+    return GRAPHS[name](), NUM_NODES[name]
+
+
+def _x(rows, f, seed):
+    return np.random.default_rng(seed).normal(size=(rows, f)).astype(
+        np.float32)
+
+
+def _assert_spmm_close(got, want, cols, blocks, x):
+    """|got - want| <= 1e-5 * (|A| @ |x|) + 1e-6, elementwise, on the rows
+    that ``got`` has."""
+    scale = ref.block_spmm_ref(cols, blocks.abs(), x.abs())[:len(got)]
+    err = (got - want).abs()
+    bad = err > 1e-5 * scale + 1e-6
+    assert not bad.any(), (f"{int(bad.sum())} entries off, max err "
+                           f"{float(err.max())}")
+
+
+# --------------------------------------------------------------------------
+# the host block-CSR builder
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("directed_both", [True, False])
+@pytest.mark.parametrize("b", [16, 32, 128])
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_build_block_csr_matches_reference(graph, b, directed_both):
+    e, n = _edges(graph)
+    want = jbs.build_block_csr(e, n, b, b, directed_both)
+    got = ops.build_block_csr(e, n, b, b, directed_both)
+    assert got[2] == want[2]
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
+def test_build_block_csr_odd_inputs_match_reference():
+    """No edges; a loop and a duplicate; bm != bn."""
+    e = np.array([[3, 3], [0, 5], [5, 0], [0, 5], [20, 1]], np.int32)
+    for args in ((np.zeros((0, 2), np.int32), 10, 16, 16),
+                 (e, 21, 16, 16), (e, 21, 16, 32), (e, 40, 32, 16)):
+        want = jbs.build_block_csr(*args)
+        got = ops.build_block_csr(*args)
+        assert got[2] == want[2]
+        for g, w in zip(got[:2], want[:2]):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("directed_both", [True, False])
+@pytest.mark.parametrize("b", [16, 128])
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_tile_stats_count_what_build_block_csr_builds(graph, b,
+                                                      directed_both):
+    e, n = _edges(graph)
+    cols, blocks, _ = ops.build_block_csr(e, n, b, b, directed_both)
+    st = tiles.tile_stats(e, n, b, b, directed_both)
+    assert (st["R"], st["NB"]) == cols.shape
+    assert st["tiles"] == int((blocks.sum((2, 3)) != 0).sum())
+    assert (st["blocks_bytes"], st["cols_bytes"]) == (blocks.nbytes,
+                                                      cols.nbytes)
+
+
+def test_expected_tiles_of_uniform_ids():
+    rng = np.random.default_rng(0)
+    n, m = 1 << 13, 20_000
+    st = tiles.tile_stats(rng.integers(0, n, (m, 2)), n)
+    assert abs(st["tiles"] / tiles.expected_tiles(n, m) - 1) < 0.01
+
+
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_directed_both_block_csr_is_its_own_transpose(graph):
+    """A of ``directed_both`` is symmetric, so A^T's block-CSR (built from
+    the reversed edges) is A's own: the backward reuses (cols, blocks)."""
+    e, n = _edges(graph)
+    a = ops.build_block_csr(e, n, 32, 32)
+    at = ops.build_block_csr(e[:, ::-1], n, 32, 32)
+    for g, w in zip(at[:2], a[:2]):
+        np.testing.assert_array_equal(g, w)
+    dense = ops.block_spmm(*(torch.from_numpy(t) for t in a[:2]),
+                           torch.eye(a[2]))
+    np.testing.assert_array_equal(dense.numpy(), dense.numpy().T)
+
+
+# --------------------------------------------------------------------------
+# the plain versions against the reference
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,f", [(32, 20), (128, 7)])
+def test_block_spmm_ref_matches_pallas_interpret(b, f):
+    e, n = _edges("rmat8")
+    cols, blocks, n_pad = ops.build_block_csr(e, n, b, b)
+    x = _x(n_pad, f, b)
+    want = np.array(jbs.block_spmm(cols, blocks, x, interpret=True))
+    tc, tb, tx = (torch.from_numpy(a) for a in (cols, blocks, x))
+    got = ops.block_spmm(tc, tb, tx)
+    np.testing.assert_array_equal(got.numpy(),
+                                  ref.block_spmm_ref(tc, tb, tx).numpy())
+    _assert_spmm_close(got, torch.from_numpy(want), tc, tb, tx)
+    # the edge-list primitive agrees on the same graph
+    _assert_spmm_close(got[:n], ref.spmm_ref(e, tx[:n], n), tc, tb, tx)
+
+
+def test_padded_slot_propagates_non_finite_as_reference():
+    """A padded slot multiplies a zero block with x's column block 0, so an
+    inf there turns the row tiles with padding into NaN, as on the TPU."""
+    e = np.array([[0, 1], [0, 20], [40, 41]], np.int32)
+    cols, blocks, n_pad = ops.build_block_csr(e, 48, 16, 16)
+    assert cols.tolist() == [[0, 1], [0, 0], [2, 0]]   # rows 1, 2 padded
+    x = _x(n_pad, 3, 1)
+    x[5, 0] = np.inf
+    want = np.asarray(jbs.block_spmm(cols, blocks, x, interpret=True))
+    got = ops.block_spmm(*(torch.from_numpy(a) for a in (cols, blocks, x)))
+    np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(want))
+    assert np.isnan(want).any()
+    ok = np.isfinite(want)
+    np.testing.assert_allclose(got.numpy()[ok], want[ok], rtol=1e-6)
+
+
+@pytest.mark.parametrize("b", [32, 128])
+def test_aggregate_neighbors_matches_reference(b):
+    e, n = _edges("ba300")
+    x = _x(n, 10, 7)
+    want = np.array(jops.aggregate_neighbors(e, jnp.asarray(x), n, b, b))
+    want_ref = np.array(jops.aggregate_neighbors_reference(e, x, n))
+    got = ops.aggregate_neighbors(e, torch.from_numpy(x), n, b, b)
+    assert got.shape == (n, 10)
+    cols, blocks, n_pad = ops.build_block_csr(e, n, b, b)
+    tc, tb = torch.from_numpy(cols), torch.from_numpy(blocks)
+    tx = torch.from_numpy(np.pad(x, ((0, n_pad - n), (0, 0))))
+    for w in (want, want_ref):
+        _assert_spmm_close(got, torch.from_numpy(w), tc, tb, tx)
+
+
+@pytest.mark.parametrize("directed_both", [True, False])
+def test_block_spmm_grad_equals_autograd_through_spmm_ref(directed_both):
+    """The gradient in x: the product on A's own block-CSR, A^T = A, for a
+    symmetric A built either way (``directed_both``, or both directions
+    of each edge listed), against autograd through ``spmm_ref``'s gather
+    and ``index_add_``."""
+    e, n = _edges("ba300")
+    if not directed_both:
+        e = np.concatenate([e, e[:, ::-1]])
+    cols, blocks, n_pad = ops.build_block_csr(e, n, 32, 32, directed_both)
+    tc, tb = torch.from_numpy(cols), torch.from_numpy(blocks)
+    x = torch.from_numpy(_x(n_pad, 6, 3)).requires_grad_()
+    w = torch.from_numpy(_x(n_pad, 6, 4))
+    launches = dict(ops.launches)
+    (ops.block_spmm(tc, tb, x) * w).sum().backward()
+    x2 = x.detach().clone().requires_grad_()
+    (ref.spmm_ref(e, x2, n_pad, directed_both) * w).sum().backward()
+    _assert_spmm_close(x.grad, x2.grad, tc, tb, w)
+    assert ops.launches == launches          # the CPU launches no kernel
+    # cols and blocks take no gradient
+    tb2 = tb.clone().requires_grad_()
+    ops.block_spmm(tc, tb2, x.detach()).sum().backward()
+    assert tb2.grad is None
+
+
+def test_block_spmm_grad_needs_square_blocks():
+    """With bm != bn A's block-CSR is not A^T's, so the backward raises
+    rather than return a wrong gradient; the forward is the reference's."""
+    e, n = _edges("rmat8")
+    cols, blocks, n_pad = ops.build_block_csr(e, n, 16, 32)
+    tc, tb = torch.from_numpy(cols), torch.from_numpy(blocks)
+    x = torch.from_numpy(_x(n_pad, 4, 5))
+    want = np.array(jbs.block_spmm(cols, blocks, x.numpy(),
+                                   interpret=True))
+    _assert_spmm_close(ops.block_spmm(tc, tb, x), torch.from_numpy(want),
+                       tc, tb, x)
+    with pytest.raises(ValueError, match="bm == bn"):
+        ops.block_spmm(tc, tb, x.requires_grad_()).sum().backward()
+
+
+def test_block_spmm_routes_by_device():
+    cols = torch.zeros((1, 1), dtype=torch.int32)
+    blocks = torch.zeros((1, 1, 16, 16))
+    with pytest.raises(ValueError, match="no block_spmm kernel"):
+        ops.block_spmm(cols.to("meta"), blocks.to("meta"),
+                       torch.zeros((16, 2), device="meta"))
+
+
+# --------------------------------------------------------------------------
+# on the card: the CUDA kernel against its plain version
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f", [(128, 1433), (128, 64), (16, 64),
+                                 (32, 7), (16, 1)])
+def test_block_spmm_kernel_matches_plain(cuda, b, f):
+    e = np.asarray(j_rmat(11, 8, seed=2).edges)
+    cols, blocks, n_pad = ops.build_block_csr(e, 2048, b, b)
+    tc, tb = (torch.from_numpy(a).to(cuda) for a in (cols, blocks))
+    x = torch.from_numpy(_x(n_pad, f, f)).to(cuda).requires_grad_()
+    before = ops.launches["block_spmm"]
+    got = ops.block_spmm(tc, tb, x)
+    torch.cuda.synchronize()
+    assert ops.launches["block_spmm"] == before + 1
+    _assert_spmm_close(got, ref.block_spmm_ref(tc, tb, x.detach()), tc, tb,
+                       x.detach())
+    g = torch.from_numpy(_x(n_pad, f, f + 1)).to(cuda)
+    got.backward(g)
+    assert ops.launches["block_spmm"] == before + 2
+    _assert_spmm_close(x.grad, ref.block_spmm_ref(tc, tb, g), tc, tb, g)
+
+
+@pytest.mark.gpu
+def test_block_spmm_kernel_rejects_what_it_does_not_take(cuda):
+    cols = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    blocks = torch.zeros((1, 1, 16, 16), device=cuda)
+    with pytest.raises(TypeError):
+        ops.block_spmm(cols, blocks.double(),
+                       torch.zeros((16, 2), dtype=torch.float64,
+                                   device=cuda))
+    with pytest.raises(ValueError):
+        ops.block_spmm(cols, blocks, torch.zeros((17, 2), device=cuda))
+    with pytest.raises(ValueError):
+        ops.block_spmm(cols.cpu(), blocks, torch.zeros((16, 2), device=cuda))

@@ -186,8 +186,14 @@ def test_port_imports_no_jax_and_no_repro():
     code = (
         "import sys\n"
         "import repro_torch.core.partitioner, repro_torch.graphs.rmat\n"
-        "import repro_torch.kernels.ne_round.build\n"
+        "import repro_torch.kernels.build\n"
         "import repro_torch.dist.compat, repro_torch.dist.partitioner_sm\n"
+        "import repro_torch.launch.gnn_engine, repro_torch.apps.engine\n"
+        "import repro_torch.kernels.block_spmm.ops\n"
+        "import repro_torch.tools.block_csr_tiles\n"
+        "import repro_torch.models.gnn.gin, repro_torch.train.optimizer\n"
+        "import repro_torch.configs.gin_tu, repro_torch.configs.shapes\n"
+        "import repro_torch.graphs.generators\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -203,9 +209,12 @@ def test_port_sources_name_no_jax_and_no_repro():
     bad = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)\b)",
                      re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    assert ROOT / "src" / "repro_torch" / "dist" / "partitioner_sm.py" in files
+    for mod in ("dist/partitioner_sm.py", "launch/gnn_engine.py",
+                "kernels/block_spmm/ops.py", "apps/engine.py",
+                "models/gnn/gin.py", "train/optimizer.py"):
+        assert ROOT / "src" / "repro_torch" / mod in files
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_spmd_ranks.py"]
-    assert len(files) > 10
+    assert len(files) > 25
     for f in files:
         hits = bad.findall(f.read_text())
         assert not hits, f"{f} imports {hits}"

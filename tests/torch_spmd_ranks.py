@@ -1,4 +1,4 @@
-"""Rank bodies for tests/test_torch_spmd.py.
+"""Rank bodies for tests/test_torch_spmd.py and tests/test_torch_gnn_engine.py.
 
 ``repro_torch.dist.compat.spawn`` runs them in gloo processes, one per
 rank.  This module imports nothing of jax or ``repro``, so a rank starts
@@ -7,10 +7,14 @@ quickly; it is not a test module itself.
 import numpy as np
 import torch
 
+from repro_torch.apps import engine as eng
 from repro_torch.core.epilogue import alpha_limit
 from repro_torch.core.graph import from_edges, shard_edges
 from repro_torch.dist import compat
 from repro_torch.dist import partitioner_sm as sm
+from repro_torch.launch import gnn_engine as ge
+from repro_torch.models.gnn import gin
+from repro_torch.tree import tree_map
 
 
 def spmd_checks(edges, n, cfg, carried, steps, or_rows):
@@ -43,3 +47,41 @@ def fail_on_last_rank():
     if rank == world - 1:
         raise ValueError(f"rank {rank} fails on purpose")
     torch.distributed.barrier()
+
+
+def engine_checks(edges, n, edge_part, feats, labels, label_mask, prim_vals,
+                  models, ocfg, steps):
+    """On this rank, over the vertex-cut engine of ``edge_part`` (one part
+    per rank): the primitives on row ``rank`` of ``prim_vals`` (mirror
+    values (R, F) and master values (O, F) per rank); for each
+    ``(cfg, params)`` of ``models`` the loss and the rank-summed
+    gradients; and ``steps`` optimizer steps of ``train_engine_gin`` from
+    the last model's params.  Returns host arrays only."""
+    rank, world = compat.process_env()
+    sg = eng.build_sharded_graph(edges, edge_part, n, world)
+    mirror_vals, owned_vals = (torch.from_numpy(v[rank]) for v in prim_vals)
+    a = ge.engine_arrays(sg, feats, labels, label_mask, rank, "cpu")
+    lanes = (a["send_idx"], a["send_mask"], a["recv_owned"])
+    caps = sg.caps
+    m2m = {op: eng.mirror_to_master(mirror_vals, *lanes, caps["O"], op,
+                                    ident).numpy()
+           for op, ident in (("sum", 0.0), ("min", np.inf),
+                             ("max", -np.inf))}
+    out = {"m2m": m2m,
+           "bcast": eng.master_to_mirror(owned_vals, *lanes,
+                                         caps["R"]).numpy(),
+           "models": []}
+    for cfg, params in models:
+        model = gin.params_from_numpy(gin.GIN(cfg), params)
+        tcaps = ge.caps_from_sharded_graph(sg, feats.shape[1], cfg.n_classes)
+        loss = ge.loss_and_grads(model, a, tcaps)
+        out["models"].append({
+            "loss": float(loss),
+            "grads": tree_map(lambda p: p.grad.numpy().copy(),
+                              model.param_tree())})
+    model = gin.params_from_numpy(gin.GIN(cfg), params)
+    out["losses"] = ge.train_engine_gin(edges, edge_part, n, feats, labels,
+                                        label_mask, model, ocfg, steps,
+                                        device="cpu")
+    out["params"] = gin.params_to_numpy(model)
+    return out
