@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port of Distributed NE on one NVIDIA card.
 
     python3 chip_smoke.py                 # the full run (RMAT scale 22)
-    python3 chip_smoke.py --scale 16      # a quicker rehearsal
+    python3 chip_smoke.py --scale 16      # a quicker rehearsal of 1-6
 
 Phases, each printing its lines; any failed check exits non-zero:
 
@@ -13,8 +13,9 @@ Phases, each printing its lines; any failed check exits non-zero:
    bit-packing kernels also at a ragged P = 37 and at the two-hop chunk
    shape), exactly: the kernels are integer math, so the tolerance is 0;
 3. the main path: ``partition`` of the RMAT graph (edge factor 16,
-   P = 64, the NEConfig defaults) on the card, with the kernel launch
-   counts set to 0 just before and read just after, and its invariants;
+   P = 64, the other NEConfig fields at their defaults) on the card, with
+   the kernel launch counts set to 0 just before and read just after, and
+   its invariants;
 3b. the SPMD path: ``partition_spmd`` of the same graph and config in a
    world-1 NCCL group on the card, with the counts set to 0 just before
    and read just after; it must equal phase 3's result bit for bit, and
@@ -37,7 +38,26 @@ Phases, each printing its lines; any failed check exits non-zero:
    (gloo, plain versions), 20 steps of ``train_engine_gin`` with the
    launch counts set to 0 just before and read just after (steps x
    (2L - 1) launches), and the kernel's times beside its bound, its plain
-   version's and a library call's.  Its row joins phase 5's JSON line.
+   version's and a library call's.  Its row joins phase 5's JSON line;
+7. DeepFM serving at full width (deepfm: 39 fields x 1,048,576 rows,
+   D 10, MLP 400-400-400, 10^6 candidates, float32, seeded random
+   parameters made on the card): the ``embedding_bag`` kernel against its
+   plain version at the serve_p99 (B = 512) and serve_bulk (B = 262,144)
+   shapes, the card's forward against the CPU's, the time per batch and
+   rows/s of each (2 launches a forward, counts set to 0 just before and
+   read just after), the retrieval_cand time, peak memory, and the
+   kernel's times beside its bound, its plain version's and
+   ``F.embedding_bag``'s;
+8. smollm-135m serving at full width in bf16 (seeded random weights): the
+   ``flash_attention`` kernel against its plain version at a prefill and
+   the decode shape, the model in float32 on the card against the CPU
+   (prefill logits, 8 teacher-forced decode steps), ``serve_batch`` of 8
+   prompts of 64 tokens with 32 new ones (30 x 95 launches), prefill_32k
+   at batch 1 (cut from 32) and one decode_32k step at batch 32 (cut from
+   128) on a seeded random cache, each with its counts set to 0 just
+   before and read just after, and the kernel's times at the prefill_32k
+   and decode_32k layers beside its bound, the plain version's and
+   ``F.scaled_dot_product_attention``'s.  Rows 7 and 8 join the line.
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU
 fallback: without a CUDA device the script exits non-zero.
@@ -52,6 +72,7 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
@@ -60,8 +81,12 @@ PARTITIONS = 64                    # P = 64; other NEConfig fields default
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 FP32_FLOPS = 67e12                 # H100 SXM, FP32 on the CUDA cores
+BF16_FLOPS = 989e12                # H100 SXM, bf16 dense, tensor cores
 CU_SOURCE = "src/repro_torch/kernels/ne_round/csrc/ne_round.cu"
 SPMM_SOURCE = "src/repro_torch/kernels/block_spmm/csrc/block_spmm.cu"
+EB_SOURCE = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
+FA_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention.cu")
 GNN_SHAPE = "full_graph_sm"        # Cora's size (configs/shapes.py)
 ER_DEGREE = 6.5                    # |E| after dedup 10,545 (10,556 - 0.1 %)
 GNN_STEPS = 20                     # examples/train_gnn_partitioned.py:
@@ -75,8 +100,10 @@ REPLACES = {
     "unpack_bits": "src/repro/kernels/ne_round/ne_round.py:313",
     "or_words": "src/repro/kernels/ne_round/ne_round.py:330",
     "block_spmm": "src/repro/kernels/block_spmm/block_spmm.py:41",
+    "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:34",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:63",
 }
-KERNEL_FAMILIES = ("ne_round", "block_spmm")
 SINGLE_KERNELS = ("one_hop", "select", "claim_scatter")
 BIT_KERNELS = ("pack_bits", "unpack_bits", "or_words")
 
@@ -632,6 +659,16 @@ def library_spmm(torch, cols, blocks, x):
     return (lambda: dense @ x), "torch.matmul(dense adjacency)"
 
 
+def no_tf32(torch, label: str) -> None:
+    """Full float32 matmuls and convolutions for a card-against-CPU check,
+    and a line that says so."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"{label}: allow_tf32 matmul="
+          f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
+          f"{torch.backends.cudnn.allow_tf32}", flush=True)
+
+
 def phase_gnn(torch, np, compat, ne_ops, args):
     """Phase 6: the GNN cell.  Returns block_spmm's row of the kernels
     line."""
@@ -645,11 +682,7 @@ def phase_gnn(torch, np, compat, ne_ops, args):
     from repro_torch.train import optimizer as opt
 
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"phase 6: allow_tf32 matmul="
-          f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
-          f"{torch.backends.cudnn.allow_tf32}", flush=True)
+    no_tf32(torch, "phase 6")
     shape = GNN_SHAPES[GNN_SHAPE]
     data = gnn_data(np, shape, seed=0)
     edges, feats, labels, label_mask = data
@@ -758,6 +791,532 @@ def phase_gnn(torch, np, compat, ne_ops, args):
     return row
 
 
+def all_counts():
+    """Every kernel's launch count, by name."""
+    from repro_torch.kernels.block_spmm import ops as spmm
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ne_round import ops as ne
+
+    return {**ne.launches, **spmm.launches, **eb.launches, **fa.launches}
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels.block_spmm import ops as spmm
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ne_round import ops as ne
+
+    for mod in (ne, spmm, eb, fa):
+        mod.reset_launches()
+
+
+def check_counts(label: str, want: dict) -> dict:
+    """The counts since ``reset_counts``: ``want``'s kernels at their
+    numbers, every other kernel at 0."""
+    got = all_counts()
+    check(all(got[k] == want.get(k, 0) for k in got),
+          f"{label}: launch counts {got}, want {want} and 0 elsewhere")
+    return got
+
+
+def within(got, want, rtol: float, atol: float):
+    """(max |got - want|, whether |got - want| <= atol + rtol |want|
+    everywhere, NaN where both are NaN)."""
+    g, w = got.float(), want.float()
+    both_nan = g.isnan() & w.isnan()
+    err = (g - w).abs().masked_fill(both_nan, 0)
+    ok = bool(((err <= atol + rtol * w.abs()) | both_nan).all())
+    return float(err.max()), ok
+
+
+def plain_bag(ebref, table, ids, weights, mode):
+    """The plain version of ``ops.embedding_bag`` on the same inputs."""
+    import torch
+
+    w = weights if weights is not None else torch.ones(
+        ids.shape, device=ids.device)
+    out = ebref.embedding_bag_ref(table, ids, w)
+    if mode == "mean":
+        out = out / torch.clamp(w.sum(1, keepdim=True), min=1e-9)
+    return out
+
+
+def bag_bound(b, k, d, size, weighted):
+    """(bound ms, 'bytes') of one bag call: the rows, the ids (and the
+    weights) and the output, each once."""
+    return bound_ms(b * k * d * size + b * k * 4 * (1 + weighted)
+                    + b * d * size), "bytes"
+
+
+def phase_deepfm_kernel(torch, eb, ebref, model, ids):
+    """Phase 7, check 1: the embedding_bag kernel against its plain version
+    on the card at the serve shapes, for the table (D = 10) and w1 (D = 1),
+    sum and mean, weighted (a tenth of the slots padding) and not, float32
+    and bfloat16.  float32: 1e-6 + 1e-5 |plain| (sums in another order);
+    bfloat16: 1e-6 + 2^-7 |plain| (one bf16 rounding of float32 sums that
+    differ in the last bits may land one bf16 step apart).  Returns the
+    largest float32 error."""
+    gen = torch.Generator(device=ids["serve_p99"].device).manual_seed(71)
+    tables = {"table": model.table.detach(), "w1": model.w1.detach()}
+    tables.update({f"{k} bf16": t.to(torch.bfloat16)
+                   for k, t in list(tables.items())})
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for shape, i in ids.items():
+        w = (torch.rand(i.shape, generator=gen, device=i.device)
+             >= 0.1).float()
+        for name, tab in tables.items():
+            kind = "bfloat16" if tab.dtype == torch.bfloat16 else "float32"
+            rtol = 2.0 ** -7 if kind == "bfloat16" else 1e-5
+            for mode in ("sum", "mean"):
+                for weights in (None, w):
+                    got = eb.embedding_bag(tab, i, weights, mode)
+                    torch.cuda.synchronize()
+                    err, ok = within(got, plain_bag(ebref, tab, i, weights,
+                                                    mode), rtol, 1e-6)
+                    check(ok, f"embedding_bag differs from plain at "
+                          f"{shape}, {name}, {mode}, weighted="
+                          f"{weights is not None}: max abs err {err!r}")
+                    worst[kind] = max(worst[kind], err)
+        print(f"phase 7: embedding_bag == plain at {shape} (B={i.shape[0]}, "
+              f"K={i.shape[1]}): table D=10 and w1 D=1, sum and mean, "
+              f"weighted and not, float32 and bfloat16", flush=True)
+    print(f"phase 7: embedding_bag max abs err float32 "
+          f"{worst['float32']!r} (tol 1e-6 + 1e-5|plain|), bfloat16 "
+          f"{worst['bfloat16']!r} (tol 1e-6 + 2^-7|plain|)", flush=True)
+    return worst["float32"]
+
+
+def phase_deepfm(torch, args):
+    """Phase 7: DeepFM serving at full width (deepfm: 39 fields of
+    1,048,576 rows, D 10, MLP 400-400-400, 10^6 candidates, float32), with
+    seeded random parameters made on the card and ids uniform over each
+    field's rows.  Returns embedding_bag's row of the kernels line."""
+    import copy
+
+    from repro_torch.configs import deepfm as dcfg
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.embedding_bag import ref as ebref
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import deepfm as dfm
+
+    dev = torch.device("cuda")
+    cfg = dcfg.CONFIG
+    no_tf32(torch, "phase 7")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = dfm.DeepFM(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    torch.cuda.synchronize()
+    nparam = sum(p.numel() for p in model.parameters())
+    print(f"phase 7: {cfg.name}: {cfg.n_fields} fields x "
+          f"{cfg.rows_per_field} rows, D={cfg.embed_dim}, MLP "
+          f"{cfg.mlp_dims}, {cfg.n_candidates} candidates; {nparam} "
+          f"float32 parameters made on the card in "
+          f"{time.perf_counter() - t0!r} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(72)
+    xs = {s: torch.randint(0, cfg.rows_per_field,
+                           (RECSYS_SHAPES[s]["batch"], cfg.n_fields),
+                           generator=gen, device=dev, dtype=torch.int32)
+          for s in ("serve_p99", "serve_bulk")}
+    ids = {s: dfm._field_ids(x, cfg) for s, x in xs.items()}
+    worst = phase_deepfm_kernel(torch, eb, ebref, model, ids)
+
+    # check 2: the card's forward against the CPU's on the same parameters
+    cpu = copy.deepcopy(model).to("cpu")
+    x = xs["serve_p99"]
+    got = steps.recsys_serve_fn(model, x).cpu()
+    want = steps.recsys_serve_fn(cpu, x.cpu())
+    scale = float(want.abs().max())
+    err, ok = within(got, want, 0.0, 1e-5 * scale)
+    print(f"phase 7: forward card vs CPU at serve_p99: max abs err {err!r} "
+          f"of max |logit| {scale!r} (tol 1e-5 x max: float32 sums in "
+          f"another order)", flush=True)
+    check(ok and bool(got.isfinite().all()),
+          f"DeepFM forward differs between card and CPU: {err}")
+    del cpu
+
+    # --- the main path: counts 0 just before, read just after ------------
+    out = {}
+    for shape, x in xs.items():
+        b = x.shape[0]
+        steps.recsys_serve_fn(model, x)               # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(args.reps):
+            logits = steps.recsys_serve_fn(model, x)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / args.reps
+        counts = check_counts(f"phase 7 {shape}",
+                              {"embedding_bag": 2 * args.reps})
+        peak = torch.cuda.max_memory_allocated() - base
+        check(logits.shape == (b,) and bool(logits.isfinite().all()),
+              f"{shape}: logits {tuple(logits.shape)} not finite")
+        out[shape] = counts["embedding_bag"]
+        print(f"phase 7: {shape} B={b}: {wall * 1e3!r} ms a batch, "
+              f"{b / wall!r} rows/s; peak {peak} B above the {base} B "
+              f"held; embedding_bag launches {counts['embedding_bag']} = "
+              f"2 x {args.reps} forwards", flush=True)
+        profile_round(torch, f"phase 7: profiled {shape} forward",
+                      lambda: steps.recsys_serve_fn(model, x), top=8,
+                      host_top=6)
+    q = xs["serve_p99"][:1]
+    steps.retrieval_fn(model, q)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(args.reps):
+        scores = steps.retrieval_fn(model, q)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / args.reps
+    check_counts("phase 7 retrieval_cand", {})
+    check(scores.shape == (cfg.n_candidates,)
+          and bool(scores.isfinite().all()), "retrieval scores")
+    print(f"phase 7: retrieval_cand: {wall * 1e3!r} ms a query against "
+          f"{cfg.n_candidates} candidates", flush=True)
+
+    # --- the kernel's times at the forward's calls ------------------------
+    fe = torch.nn.functional.embedding_bag
+    row = {"name": "embedding_bag", "route": "cuda", "source": EB_SOURCE,
+           "replaces": REPLACES["embedding_bag"],
+           "launches": out["serve_bulk"],
+           "launches_serve_p99": out["serve_p99"], "max_abs_err": worst}
+    for shape, i in ids.items():
+        b, k = i.shape
+        ones = torch.ones(i.shape, device=dev)
+        for name, tab in (("table", model.table.detach()),
+                          ("w1", model.w1.detach())):
+            d = tab.shape[1]
+            lib_out = fe(i, tab, mode="sum")
+            err, ok = within(lib_out, ebref.embedding_bag_ref(tab, i, ones),
+                             1e-5, 1e-6)
+            check(ok, f"F.embedding_bag differs from plain: {err}")
+            bound, by = bag_bound(b, k, d, 4, False)
+            tag = "" if (shape, name) == ("serve_bulk", "table") else \
+                f"_{shape}_{name}"
+            row.update({
+                "ms" + tag: time_ms(lambda: eb.embedding_bag(tab, i),
+                                    args.reps),
+                "plain_ms" + tag: time_ms(
+                    lambda: ebref.embedding_bag_ref(tab, i, ones),
+                    args.reps),
+                "bound_ms" + tag: bound, "bound_by" + tag: by,
+                "library_ms" + tag: time_ms(lambda: fe(i, tab, mode="sum"),
+                                            args.reps)})
+            print(f"phase 7: embedding_bag at {shape} {name} (B={b}, K={k}, "
+                  f"D={d}): ms {row['ms' + tag]!r}, bound "
+                  f"{row['bound_ms' + tag]!r} (bytes), plain "
+                  f"{row['plain_ms' + tag]!r}, F.embedding_bag "
+                  f"{row['library_ms' + tag]!r}", flush=True)
+    del model
+    return row
+
+
+def top2_margin(logits):
+    """Each row's gap between its largest and second-largest logit."""
+    top = logits.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def phase_lm_kernel(torch, fa, faref, dev):
+    """Phase 8, check 1: the flash kernel against its plain version on the
+    card in bfloat16, at a prefill shape (9 heads over 3 kv heads, S = T =
+    4,096, and a ragged 4,000, causal), the decode_32k shape (batch 32, one
+    query against a 32,768-row cache, ragged kv_len 20,001) and every
+    decode step of phase 8's serve_batch (batch 8, one query against a
+    256-row cache, kv_len 1 to 95).  Both compute in float32 and round
+    once to bf16, in different orders: 1e-5 + 2^-7 |plain| (one bf16
+    step).  Returns the largest error."""
+    gen = torch.Generator(device=dev).manual_seed(81)
+    bf = torch.bfloat16
+    cases = []
+    for s in (4096, 4000):
+        q = torch.randn((1, s, 9, 64), generator=gen, device=dev, dtype=bf)
+        k = torch.randn((1, s, 3, 64), generator=gen, device=dev, dtype=bf)
+        v = torch.randn((1, s, 3, 64), generator=gen, device=dev, dtype=bf)
+        cases.append((f"prefill S=T={s}", q, k, v, True, None))
+    q = torch.randn((32, 1, 9, 64), generator=gen, device=dev, dtype=bf)
+    k = torch.randn((32, 32768, 3, 64), generator=gen, device=dev, dtype=bf)
+    v = torch.randn((32, 32768, 3, 64), generator=gen, device=dev, dtype=bf)
+    cases.append(("decode B=32 T=32768 kv_len=20001", q, k, v, False, 20001))
+    worst = 0.0
+    for name, q, k, v, causal, kv_len in cases:
+        got = fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+        torch.cuda.synchronize()
+        err, ok = within(got, faref.attention_ref(q, k, v, causal, kv_len),
+                         2.0 ** -7, 1e-5)
+        check(ok, f"flash_attention differs from plain at {name}: {err!r}")
+        worst = max(worst, err)
+        print(f"phase 8: flash_attention == plain (bf16) at {name}: max abs "
+              f"err {err!r} (tol 1e-5 + 2^-7|plain|)", flush=True)
+    # serve_batch's decode steps: a layer's (B, Smax, HK, D) cache slice
+    q = torch.randn((8, 1, 9, 64), generator=gen, device=dev, dtype=bf)
+    kc, vc = (torch.randn((2, 8, 256, 3, 64), generator=gen, device=dev,
+                          dtype=bf) for _ in range(2))
+    errs = []
+    for kv_len in range(1, 96):
+        got = fa.flash_attention(q, kc[1], vc[1], causal=False,
+                                 kv_len=kv_len)
+        err, ok = within(got, faref.attention_ref(q, kc[1], vc[1], False,
+                                                  kv_len), 2.0 ** -7, 1e-5)
+        check(ok, f"flash_attention differs from plain at the serve_batch "
+              f"decode shape, kv_len {kv_len}: {err!r}")
+        errs.append(err)
+    worst = max(worst, *errs)
+    print(f"phase 8: flash_attention == plain (bf16) at serve_batch's decode "
+          f"B=8 T=256, kv_len 1..95: max abs err {max(errs)!r} (tol 1e-5 + "
+          f"2^-7|plain|)", flush=True)
+    return worst
+
+
+def phase_lm_card_vs_cpu(torch, cfg, steps, dev):
+    """Phase 8, check 2: the model in float32 at full width on the card and
+    on the CPU (plain attention), from the same parameters: the last
+    position's logits of a 2 x 64-token prefill, then 8 decode steps that
+    the CPU takes on the card's greedy tokens.  Logits within 1e-4 of the
+    largest (float32 through 30 layers, sums in other orders); the CPU's
+    greedy token must be the card's at every step whose top-2 margin is
+    above that tolerance, and the steps where it is not are named."""
+    import copy
+
+    from repro_torch.models.lm.transformer import Transformer
+
+    tol = 1e-4
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    card = Transformer(c32, torch.Generator(device=dev).manual_seed(1),
+                       device=dev)
+    cpu = copy.deepcopy(card).to("cpu")
+    tok = torch.randint(0, cfg.vocab, (2, 64),
+                        generator=torch.Generator().manual_seed(82),
+                        dtype=torch.int32)
+    runs = {}
+    for name, model, d in (("card", card, dev), ("CPU", cpu, "cpu")):
+        last, caches = steps.prefill_fn(model, tok.to(d))
+        full = tuple(torch.zeros((c32.n_layers, 2, 72, c32.n_kv_heads,
+                                  c32.hd), device=d) for _ in range(2))
+        for f, c in zip(full, caches):
+            f[:, :, :64] = c
+        runs[name] = (last.cpu(), full)
+
+    def close(got, want):
+        scale = float(want.abs().max())
+        err, ok = within(got, want, 0.0, tol * scale)
+        return err / scale, ok
+
+    err, ok = close(runs["card"][0], runs["CPU"][0])
+    rows = [("prefill", err, ok, runs["card"][0], runs["CPU"][0])]
+    nxt = runs["card"][0].argmax(-1).to(torch.int32)[:, None]
+    for i in range(8):
+        lc = steps.lm_serve_fn(card, nxt.to(dev), *runs["card"][1], 64 + i)[0]
+        lh = steps.lm_serve_fn(cpu, nxt, *runs["CPU"][1], 64 + i)[0]
+        lc = lc[:, -1].cpu()
+        lh = lh[:, -1]
+        err, ok = close(lc, lh)
+        rows.append((f"decode {i}", err, ok, lc, lh))
+        nxt = lc.argmax(-1).to(torch.int32)[:, None]
+    near = []
+    for name, err, ok, lc, lh in rows:
+        check(ok, f"card vs CPU logits at {name}: {err!r} > {tol}")
+        scale = float(lh.abs().max())
+        margin = top2_margin(lh)
+        same = lc.argmax(-1) == lh.argmax(-1)
+        tied = margin <= tol * scale
+        check(bool((same | tied).all()),
+              f"card vs CPU greedy tokens differ at {name} with a clear "
+              f"margin: {margin.tolist()}")
+        near += [f"{name} row {r} (margin {float(margin[r])!r})"
+                 for r in torch.nonzero(tied).flatten().tolist()]
+    print(f"phase 8: card vs CPU (float32, full width): logits max err / "
+          f"max {[r[1] for r in rows]} (tol {tol}); greedy tokens equal "
+          f"wherever the top-2 margin is above the tolerance; "
+          f"steps with a top-2 margin under the tolerance: {near or 'none'}",
+          flush=True)
+    return max(r[1] for r in rows)
+
+
+def phase_lm(torch, args):
+    """Phase 8: smollm-135m serving at full width in bf16 (30 layers,
+    d_model 576, 9 heads over 3 kv heads, head_dim 64, d_ff 1,536, vocab
+    49,152, tied), seeded random weights.  Returns flash_attention's row
+    of the kernels line."""
+    from repro_torch.configs import smollm_135m
+    from repro_torch.configs.shapes import LM_SHAPES
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as faref
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import serve
+    from repro_torch.models.lm.transformer import Transformer
+
+    dev = torch.device("cuda")
+    cfg = smollm_135m.CONFIG
+    no_tf32(torch, "phase 8")
+    worst = phase_lm_kernel(torch, fa, faref, dev)
+    phase_lm_card_vs_cpu(torch, cfg, steps, dev)
+    torch.cuda.empty_cache()
+    model = Transformer(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    nparam = sum(p.numel() for p in model.parameters())
+    print(f"phase 8: {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
+          f"H={cfg.n_heads} HK={cfg.n_kv_heads} hd={cfg.hd} "
+          f"d_ff={cfg.d_ff} V={cfg.vocab}: {nparam} bf16 parameters",
+          flush=True)
+    L = cfg.n_layers
+
+    # --- main path 1: serve_batch, greedy ---------------------------------
+    prompts = torch.randint(0, cfg.vocab, (8, 64),
+                            generator=torch.Generator().manual_seed(83),
+                            dtype=torch.int32).numpy()
+    scfg = serve.ServeConfig(max_new_tokens=32, cache_len=256)
+    serve.serve_batch(model, prompts, scfg)               # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = serve.serve_batch(model, prompts, scfg)
+    wall = time.perf_counter() - t0
+    n_steps = prompts.shape[1] - 1 + scfg.max_new_tokens
+    want = L * n_steps
+    counts = check_counts("phase 8 serve_batch", {"flash_attention": want})
+    check(out.shape == (8, 96) and (out[:, :64] == prompts).all()
+          and ((out >= 0) & (out < cfg.vocab)).all(),
+          f"serve_batch output {out.shape}")
+    served = counts["flash_attention"]
+    caches = tuple(torch.zeros((L, 8, scfg.cache_len, cfg.n_kv_heads,
+                                cfg.hd), dtype=cfg.dtype, device=dev)
+                   for _ in range(2))
+    tok8 = torch.from_numpy(out[:, 64:65]).to(dev)
+    profile_round(torch, "phase 8: profiled serve_batch decode step "
+                  "(B=8, cache 256, position 80)",
+                  lambda: steps.lm_serve_fn(model, tok8, *caches, 80),
+                  top=8, host_top=8)
+    del caches
+    print(f"phase 8: serve_batch 8 x 64 prompts, 32 new tokens, cache 256, "
+          f"greedy: {wall!r} s, {wall / n_steps * 1e3!r} ms a step, "
+          f"{8 * scfg.max_new_tokens / wall!r} new tokens/s, "
+          f"{8 * n_steps / wall!r} tokens/s through the decode step; "
+          f"flash_attention launches {served} = {L} x ({prompts.shape[1] - 1}"
+          f" + {scfg.max_new_tokens})", flush=True)
+
+    # --- main path 2: prefill_32k at batch 1 (cut from 32) ----------------
+    s = LM_SHAPES["prefill_32k"]["seq_len"]
+    tok = torch.randint(0, cfg.vocab, (1, s), device=dev, dtype=torch.int32,
+                        generator=torch.Generator(device=dev).manual_seed(84))
+    steps.prefill_fn(model, tok)                          # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    last, caches = steps.prefill_fn(model, tok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_counts("phase 8 prefill_32k", {"flash_attention": L})
+    peak = torch.cuda.max_memory_allocated() - base
+    check(last.shape == (1, cfg.vocab) and bool(last.isfinite().all())
+          and caches[0].shape == (L, 1, s, cfg.n_kv_heads, cfg.hd),
+          "prefill_32k outputs")
+    print(f"phase 8: prefill_32k batch 1 (cut from 32): {wall!r} s, "
+          f"{s / wall!r} tokens/s, peak {peak} B above the {base} B held; "
+          f"flash_attention launches {L}", flush=True)
+    del last, caches
+    profile_round(torch, "phase 8: profiled prefill_32k",
+                  lambda: steps.prefill_fn(model, tok), top=8)
+
+    # --- main path 3: one decode step at decode_32k, batch 32 (cut from 128)
+    smax = LM_SHAPES["decode_32k"]["seq_len"]
+    b = 32
+    g = torch.Generator(device=dev).manual_seed(85)
+    shape = (L, b, smax, cfg.n_kv_heads, cfg.hd)
+    kc = torch.randn(shape, generator=g, device=dev, dtype=cfg.dtype)
+    vc = torch.randn(shape, generator=g, device=dev, dtype=cfg.dtype)
+    token = torch.randint(0, cfg.vocab, (b, 1), device=dev,
+                          dtype=torch.int32, generator=g)
+    steps.lm_serve_fn(model, token, kc, vc, smax - 1)     # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, _, _, new_len = steps.lm_serve_fn(model, token, kc, vc, smax - 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_counts("phase 8 decode_32k", {"flash_attention": L})
+    peak = torch.cuda.max_memory_allocated() - base
+    check(logits.shape == (b, 1, cfg.vocab) and new_len == smax
+          and bool(logits.isfinite().all()), "decode_32k outputs")
+    print(f"phase 8: decode_32k one step, batch {b} (cut from 128), cache "
+          f"{2 * kc.numel() * kc.element_size()} B: {wall * 1e3!r} ms, "
+          f"{b / wall!r} tokens/s; peak {peak} B above the {base} B held; "
+          f"flash_attention launches {L}", flush=True)
+    profile_round(torch, "phase 8: profiled decode_32k step",
+                  lambda: steps.lm_serve_fn(model, token, kc, vc, smax - 1),
+                  top=8)
+
+    # --- the kernel's times at the prefill_32k and decode_32k layers ------
+    row = {"name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+           "replaces": REPLACES["flash_attention"], "launches": served,
+           "launches_prefill_32k": L, "launches_decode_32k": L,
+           "max_abs_err": worst}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(86)
+    q = torch.randn((1, s, 9, 64), generator=gen, device=dev, dtype=cfg.dtype)
+    k = torch.randn((1, s, 3, 64), generator=gen, device=dev, dtype=cfg.dtype)
+    v = torch.randn((1, s, 3, 64), generator=gen, device=dev, dtype=cfg.dtype)
+    dq = torch.randn((b, 1, 9, 64), generator=gen, device=dev,
+                     dtype=cfg.dtype)
+    for tag, (qq, kk, vv, causal) in (("", (q, k, v, True)),
+                                      ("_decode_32k", (dq, kc[0], vc[0],
+                                                       False))):
+        bq, sq, h, d = qq.shape
+        t = kk.shape[1]
+        pairs = sq * (sq + 1) // 2 if causal else sq * t
+        ops_ms = 4 * bq * h * d * pairs / BF16_FLOPS * 1e3
+        bytes_ms = bound_ms(2 * d * (2 * bq * sq * h + 2 * bq * t * kk.shape[2]))
+        # the library call on the same inputs, kv heads repeated for it
+        qh = qq.transpose(1, 2).contiguous()
+        kh = kk.repeat_interleave(h // kk.shape[2], 2).transpose(1, 2) \
+            .contiguous()
+        vh = vv.repeat_interleave(h // kk.shape[2], 2).transpose(1, 2) \
+            .contiguous()
+        plain = (lambda: faref.attention_chunked_ref(qq, kk, vv, causal)) \
+            if causal else (lambda: faref.attention_ref(qq, kk, vv, causal))
+        name = "prefill_32k" if causal else "decode_32k"
+        want = plain()
+        got = fa.flash_attention(qq, kk, vv, causal=causal)
+        err, ok = within(got, want, 2.0 ** -7, 1e-5)
+        check(ok, f"flash_attention differs from plain at {name}: {err!r}")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        print(f"phase 8: flash_attention == plain (bf16) at {name}: max abs "
+              f"err {err!r} (tol 1e-5 + 2^-7|plain|)", flush=True)
+        # SDPA rounds its probabilities to bf16 before the product with v:
+        # held to plain only as a check that it computes the same function
+        lib = sdpa(qh, kh, vh, is_causal=causal).transpose(1, 2)
+        err, ok = within(lib, want, 2e-2, 2e-2)
+        check(ok, f"SDPA and plain disagree at {name}: {err!r}")
+        del lib, got, want
+        row.update({
+            "ms" + tag: time_ms(lambda: fa.flash_attention(
+                qq, kk, vv, causal=causal), 3 if causal else args.reps, 1),
+            "plain_ms" + tag: time_ms(plain, 1, 1),
+            "bound_ms" + tag: max(ops_ms, bytes_ms),
+            "bound_by" + tag: "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms" + tag: time_ms(
+                lambda: sdpa(qh, kh, vh, is_causal=causal),
+                3 if causal else args.reps, 1)})
+        del qh, kh, vh
+        print(f"phase 8: flash_attention at {name} layer (B={bq}, S={sq}, "
+              f"T={t}, H={h}, HK={kk.shape[2]}, D={d}): ms {row['ms' + tag]!r}, bound "
+              f"{row['bound_ms' + tag]!r} ({row['bound_by' + tag]}), plain "
+              f"{'chunked ' if causal else ''}{row['plain_ms' + tag]!r}, "
+              f"SDPA {row['library_ms' + tag]!r}", flush=True)
+    del kc, vc, model
+    torch.cuda.empty_cache()
+    return row
+
+
 def same_result(np, a, b) -> bool:
     """Two PartitionResults equal bit for bit."""
     return (all(np.array_equal(getattr(a, f), getattr(b, f))
@@ -824,10 +1383,10 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
           flush=True)
     t0 = time.perf_counter()
-    build.load(*KERNEL_FAMILIES)
-    print(f"phase 1: built {', '.join(KERNEL_FAMILIES)} (one nvcc each, "
+    build.load(*build.FAMILIES)
+    print(f"phase 1: built {', '.join(build.FAMILIES)} (one nvcc each, "
           f"together) in {time.perf_counter() - t0:.2f} s", flush=True)
-    for fam in KERNEL_FAMILIES:
+    for fam in build.FAMILIES:
         for line in build.build_logs.get(fam, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {fam}: {line.strip()}", file=sys.stderr)
@@ -959,7 +1518,15 @@ def main() -> None:
 
     # --- phase 6: GIN training over the vertex-cut engine -------------------
     spmm_row = phase_gnn(torch, np, compat, ops, args)
-    print(json.dumps({"kernels": rows + bit_rows + [spmm_row]}), flush=True)
+
+    # --- phases 7 and 8: DeepFM and smollm-135m serving ---------------------
+    t0 = time.perf_counter()
+    bag_row = phase_deepfm(torch, args)
+    flash_row = phase_lm(torch, args)
+    print(f"phases 7-8: {time.perf_counter() - t0:.1f} s; the script: "
+          f"{time.perf_counter() - T_START:.1f} s", flush=True)
+    print(json.dumps({"kernels": rows + bit_rows + [spmm_row, bag_row,
+                                                   flash_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,78 @@
+"""Plain PyTorch versions of the attention that the flash kernel computes.
+
+The kernel's function, on q (B, S, H, D) and k, v (B, T, HK, D) with HK
+dividing H (query head h reads kv head h // (H // HK)): float32 scores
+scaled by 1 / sqrt(D), the keys j < kv_len kept (and j <= i when causal),
+a softmax and the product with v in float32, cast to q's type.
+:func:`attention_ref` forms the whole (S, T) score matrix;
+:func:`attention_chunked_ref` walks the keys in chunks with an online
+softmax, for lengths where that matrix does not fit.  Both need
+kv_len >= 1 (no row has every key masked).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _mask(s: int, t0: int, t1: int, kv_len: int, causal: bool, device):
+    """(S, t1 - t0) bool: key t0 + j is kept for query i."""
+    kj = torch.arange(t0, t1, device=device)
+    keep = (kj < kv_len)[None, :].expand(s, -1)
+    if causal:
+        keep = keep & (kj[None, :] <= torch.arange(s, device=device)[:, None])
+    return keep
+
+
+def _grouped(q, k):
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    if h % hk:
+        raise ValueError(f"{hk} kv heads do not divide {h} query heads")
+    return q.float().reshape(b, s, hk, h // hk, d)
+
+
+def attention_ref(q, k, v, causal: bool = True, kv_len: int | None = None):
+    """q (B, S, H, D), k and v (B, T, HK, D) → (B, S, H, D) in q's type."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    kv_len = t if kv_len is None else int(kv_len)
+    qg = _grouped(q, k)
+    scale = 1.0 / math.sqrt(d)
+    sc = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    sc = sc.masked_fill(~_mask(s, 0, t, kv_len, causal, q.device),
+                        float("-inf"))
+    p = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    return o.reshape(b, s, h, d).to(q.dtype)
+
+
+def attention_chunked_ref(q, k, v, causal: bool = True,
+                          kv_len: int | None = None, chunk: int = 2048):
+    """:func:`attention_ref` by an online softmax over key chunks of
+    ``chunk``: peak memory O(S · chunk) instead of O(S · T)."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    kv_len = t if kv_len is None else int(kv_len)
+    qg = _grouped(q, k)
+    hk, g = qg.shape[2], qg.shape[3]
+    scale = 1.0 / math.sqrt(d)
+    m = torch.full((b, hk, g, s), float("-inf"), device=q.device)
+    l = torch.zeros((b, hk, g, s), device=q.device)
+    acc = torch.zeros((b, hk, g, s, d), device=q.device)
+    for t0 in range(0, kv_len, chunk):
+        t1 = min(t0 + chunk, kv_len)
+        sc = torch.einsum("bskgd,btkd->bkgst", qg,
+                          k[:, t0:t1].float()) * scale
+        sc = sc.masked_fill(~_mask(s, t0, t1, kv_len, causal, q.device),
+                            float("-inf"))
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgst,btkd->bkgsd", p, v[:, t0:t1].float())
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]       # (B, HK, G, S, D)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)

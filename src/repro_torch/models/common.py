@@ -9,15 +9,45 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.tree import tree_map
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                device=None) -> torch.Tensor:
-    """(d_in, d_out) normal weights scaled by 1 / sqrt(d_in)."""
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32)
+    """(d_in, d_out) normal weights scaled by 1 / sqrt(d_in), drawn on the
+    generator's device."""
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=gen.device)
     return (w / math.sqrt(d_in)).to(device)
+
+
+def normal_init(gen: torch.Generator, shape, std: float, device=None,
+                dtype=torch.float32) -> torch.Tensor:
+    """Normal values times ``std``, drawn in float32 on the generator's
+    device (a full-size table is made where it will live)."""
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return w.mul_(std).to(device=device, dtype=dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, device=None,
+               dtype=torch.float32) -> torch.Tensor:
+    """(vocab, d) normal embeddings scaled by 0.02."""
+    return normal_init(gen, (vocab, d), 0.02, device, dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """x / rms(x) · scale over the last axis, computed in float32 and cast
+    back to x's type."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+    return (x * scale.float()).to(dt)
 
 
 class MLP(nn.Module):
@@ -53,3 +83,28 @@ def cross_entropy(logits, labels, mask=None):
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
     return nll.mean()
+
+
+def params_to_numpy(model: nn.Module) -> dict:
+    """The model's parameters as the reference's pytree of numpy arrays
+    (bfloat16 ones widened to float32, which numpy holds exactly)."""
+    def get(p):
+        p = p.detach().cpu()
+        return (p.float() if p.dtype == torch.bfloat16 else p).numpy().copy()
+
+    return tree_map(get, model.param_tree())
+
+
+@torch.no_grad()
+def params_from_numpy(model: nn.Module, tree) -> nn.Module:
+    """Copy a pytree of arrays (the reference's layout) into the model's
+    parameters, in place; shapes must match."""
+    def put(p, a):
+        a = torch.tensor(np.asarray(a), dtype=p.dtype)
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"shape {tuple(a.shape)} for a parameter of "
+                             f"shape {tuple(p.shape)}")
+        p.copy_(a)
+
+    tree_map(put, model.param_tree(), tree)
+    return model

@@ -10,14 +10,13 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models.common import MLP
+from repro_torch.models.common import (MLP, params_from_numpy,  # noqa: F401
+                                      params_to_numpy)
 from repro_torch.models.gnn.common import (GraphData, graph_readout,
                                            segment_agg)
-from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,24 +64,3 @@ class GIN(nn.Module):
             pooled = graph_readout(h, g.graph_ids, g.n_graphs)
             return self.head(pooled)
         return self.head(h)
-
-
-def params_to_numpy(model: nn.Module) -> dict:
-    """The model's parameters as the reference's pytree of numpy arrays."""
-    return tree_map(lambda p: p.detach().cpu().numpy().copy(),
-                    model.param_tree())
-
-
-@torch.no_grad()
-def params_from_numpy(model: nn.Module, tree) -> nn.Module:
-    """Copy a pytree of arrays (the reference's layout) into the model's
-    parameters, in place; shapes must match."""
-    def put(p, a):
-        a = torch.tensor(np.asarray(a), dtype=p.dtype)
-        if tuple(a.shape) != tuple(p.shape):
-            raise ValueError(f"shape {tuple(a.shape)} for a parameter of "
-                             f"shape {tuple(p.shape)}")
-        p.copy_(a)
-
-    tree_map(put, model.param_tree(), tree)
-    return model

@@ -96,3 +96,29 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     bits = ((y0 ^ y1) >> 9) | 0x3F800000        # 23 mantissa bits in [1, 2)
     out = bits.to(torch.int32).view(torch.float32) - 1.0
     return out.reshape(*batch, *shape)
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """float32 Gumbel noise, ``jax.random.gumbel(key, shape)`` in its
+    default "low" mode: -log(-log(u)) of a uniform u in [tiny, 1).  The
+    uniform bits are JAX's exactly; XLA's float32 ``log`` is not always
+    correctly rounded, so a value may differ from JAX's in the last bit."""
+    tiny = torch.tensor(torch.finfo(torch.float32).tiny, device=key.device)
+    one = torch.tensor(1.0, device=key.device)
+    u = torch.maximum(tiny, uniform(key, shape) * (one - tiny) + tiny)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                axis: int = -1) -> torch.Tensor:
+    """Samples of softmax(logits) along ``axis`` by the Gumbel-max trick,
+    ``jax.random.categorical(key, logits, axis)`` (sampling with
+    replacement, no ``shape``): argmax of logits + ``gumbel(key,
+    logits.shape)``, the first index on a tie.  The draws equal JAX's
+    unless two perturbed logits lie within the last bit of each other.
+    Takes float32 logits (JAX draws the noise in the logits' type)."""
+    if logits.dtype != torch.float32:
+        raise TypeError(f"categorical takes float32 logits, got "
+                        f"{logits.dtype}")
+    g = gumbel(key, tuple(logits.shape))
+    return torch.argmax(g + logits, dim=axis)

@@ -1,0 +1,179 @@
+"""The port's flash attention against the reference package.
+
+The plain versions (the CPU route of ``ops``) are held to the reference's
+Pallas kernel (interpret mode, bq = bk = 32), its ``flash_attention``
+front door and its ``attention_ref``, on the same numpy-made inputs, at
+the reference's tolerances: 2e-5 in float32 (sums in another order), 2e-2
+in bfloat16 (one rounding of the output, in places that may differ).
+Grouped-query heads (HK < H) are held to the reference on repeated k and
+v, a ragged ``kv_len`` to the reference on the first kv_len keys, and
+the decode shape (S = 1 against a cache) to the transformer's
+``decode_attention``.  The chunked plain version equals the whole-matrix
+one.  The ``gpu`` cases hold the CUDA kernel against the plain version on
+the card and skip without one.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.flash_attention import \
+    flash_attention_bhsd as j_bhsd
+from repro.kernels.flash_attention.ops import flash_attention as j_flash
+from repro.kernels.flash_attention.ops import flash_attention_reference
+from repro.kernels.flash_attention.ref import attention_ref as j_ref
+from repro.models.lm.transformer import decode_attention as j_decode
+from repro_torch.kernels.flash_attention import ops, ref
+
+SWEEP = [(64, 64, 32, True), (64, 64, 32, False), (100, 100, 64, True),
+         (8, 72, 16, False), (256, 256, 128, True)]
+
+
+def _normal(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(np.float32) for s in shapes]
+
+
+def _both(arrays, dtype):
+    """The arrays for JAX and for torch, both rounded to ``dtype``."""
+    return ([jnp.asarray(a).astype(dtype) for a in arrays],
+            [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays])
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,t,d,causal", SWEEP)
+def test_flash_attention_sweep(s, t, d, causal, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _both(
+        _normal(s * t + d, (3, s, d), (3, t, d), (3, t, d)), dtype)
+    got = ops.flash_attention_bhsd(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == (3, s, d)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    _close(got, j_bhsd(jq, jk, jv, causal=causal, bq=32, bk=32), tol)
+    _close(got, j_ref(jq, jk, jv, causal=causal), tol)
+
+
+def test_flash_attention_bshd_layout():
+    q, k, v = _normal(0, (2, 48, 4, 32), (2, 48, 4, 32), (2, 48, 4, 32))
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=True)
+    args = [jnp.asarray(a) for a in (q, k, v)]
+    _close(got, j_flash(*args, causal=True, bq=16, bk=16), 2e-5)
+    _close(got, flash_attention_reference(*args, causal=True), 2e-5)
+
+
+@pytest.mark.parametrize("h,hk,causal", [(9, 3, True), (4, 1, False),
+                                         (6, 2, True)])
+def test_grouped_kv_heads(h, hk, causal):
+    q, k, v = _normal(h, (2, 40, h, 16), (2, 40, hk, 16), (2, 40, hk, 16))
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal)
+    rep = h // hk
+    want = flash_attention_reference(
+        jnp.asarray(q), jnp.asarray(np.repeat(k, rep, axis=2)),
+        jnp.asarray(np.repeat(v, rep, axis=2)), causal=causal)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("s,t,kv_len", [(1, 100, 37), (16, 80, 80),
+                                        (5, 64, 1)])
+def test_ragged_kv_len(s, t, kv_len):
+    q, k, v = _normal(kv_len, (3, s, 32), (3, t, 32), (3, t, 32))
+    got = ops.flash_attention_bhsd(*map(torch.from_numpy, (q, k, v)),
+                                   causal=False, kv_len=kv_len)
+    want = j_ref(jnp.asarray(q), jnp.asarray(k[:, :kv_len]),
+                 jnp.asarray(v[:, :kv_len]), causal=False)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("cache_len", [0, 17, 63])
+def test_decode_shape_matches_decode_attention(cache_len):
+    q, kc, vc = _normal(cache_len, (2, 1, 9, 64), (2, 64, 3, 64),
+                        (2, 64, 3, 64))
+    got = ops.flash_attention(*map(torch.from_numpy, (q, kc, vc)),
+                              causal=False, kv_len=cache_len + 1)
+    want = j_decode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                    jnp.int32(cache_len + 1))
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("causal,kv_len,chunk", [(True, None, 16),
+                                                 (True, None, 64),
+                                                 (False, 50, 7)])
+def test_chunked_plain_version(causal, kv_len, chunk):
+    q, k, v = _normal(chunk, (2, 64, 6, 16), (2, 64, 2, 16), (2, 64, 2, 16))
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    got = ref.attention_chunked_ref(*args, causal=causal, kv_len=kv_len,
+                                    chunk=chunk)
+    _close(got, ref.attention_ref(*args, causal=causal, kv_len=kv_len),
+           2e-5)
+
+
+def test_bad_inputs_raise():
+    q = torch.zeros((1, 4, 2, 16))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    with pytest.raises(ValueError):
+        ref.attention_ref(q, q[:, :, :1].expand(1, 4, 3, 16).contiguous(),
+                          q[:, :, :1].expand(1, 4, 3, 16).contiguous())
+
+
+# --------------------------------------------------------------------------
+# the CUDA kernel (on a card only)
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,hk,d,causal,kv_len", [
+    (3, 64, 64, 1, 1, 32, True, None), (3, 100, 100, 1, 1, 64, True, None),
+    (3, 8, 72, 1, 1, 16, False, None), (3, 256, 256, 1, 1, 128, True, None),
+    (2, 300, 300, 9, 3, 64, True, None), (2, 1, 1000, 9, 3, 64, False, 777),
+    (4, 1, 96, 4, 4, 128, False, 1), (1, 130, 200, 6, 2, 32, False, 150)])
+def test_flash_kernel_matches_plain(cuda, b, s, t, h, hk, d, causal, kv_len,
+                                    dtype):
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in _normal(
+        s + t + d, (b, s, h, d), (b, t, hk, d), (b, t, hk, d)))
+    before = ops.launches["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before + 1
+    want = ref.attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_reads_strided_caches(cuda):
+    kc, vc = (torch.randn((2, 3, 64, 2, 32), device=cuda) for _ in range(2))
+    q = torch.randn((3, 1, 4, 32), device=cuda)
+    got = ops.flash_attention(q, kc[1], vc[1], causal=False, kv_len=40)
+    want = ref.attention_ref(q, kc[1], vc[1], causal=False, kv_len=40)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 16), device=cuda)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError):
+        ops.flash_attention(torch.zeros((1, 8, 2, 24), device=cuda),
+                            torch.zeros((1, 8, 2, 24), device=cuda),
+                            torch.zeros((1, 8, 2, 24), device=cuda))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q, kv_len=9)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q.cpu(), q)

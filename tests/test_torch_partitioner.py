@@ -194,6 +194,14 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.models.gnn.gin, repro_torch.train.optimizer\n"
         "import repro_torch.configs.gin_tu, repro_torch.configs.shapes\n"
         "import repro_torch.graphs.generators\n"
+        "import repro_torch.kernels.embedding_bag.ops\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.models.recsys.embedding\n"
+        "import repro_torch.models.recsys.deepfm\n"
+        "import repro_torch.models.lm.transformer\n"
+        "import repro_torch.models.lm.serve\n"
+        "import repro_torch.configs.deepfm, repro_torch.configs.smollm_135m\n"
+        "import repro_torch.launch.steps\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -211,7 +219,13 @@ def test_port_sources_name_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     for mod in ("dist/partitioner_sm.py", "launch/gnn_engine.py",
                 "kernels/block_spmm/ops.py", "apps/engine.py",
-                "models/gnn/gin.py", "train/optimizer.py"):
+                "models/gnn/gin.py", "train/optimizer.py",
+                "kernels/embedding_bag/ops.py",
+                "kernels/flash_attention/ops.py",
+                "models/recsys/embedding.py", "models/recsys/deepfm.py",
+                "models/lm/transformer.py", "models/lm/serve.py",
+                "configs/deepfm.py", "configs/smollm_135m.py",
+                "launch/steps.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_spmd_ranks.py"]
     assert len(files) > 25
