@@ -49,12 +49,18 @@ Phases, each printing its lines; any failed check exits non-zero:
    kernel's times beside its bound, its plain version's and
    ``F.embedding_bag``'s;
 8. smollm-135m serving at full width in bf16 (seeded random weights): the
-   ``flash_attention`` kernel against its plain version at a prefill and
-   the decode shape, the model in float32 on the card against the CPU
+   ``flash_attention`` kernel against its plain version at prefill shapes
+   and every head dim and group size on the tensor-core route, at the
+   decode_32k shape (one chunk, several, a chunk boundary) on the split-KV
+   route and at serve_batch's decode shapes, each bit for bit from call to
+   call; the tensor-core and TMA instructions that ``cuobjdump -sass``
+   counts in the built prefill kernel; the model in float32 on the card
+   against the CPU
    (prefill logits, 8 teacher-forced decode steps), ``serve_batch`` of 8
    prompts of 64 tokens with 32 new ones (30 x 95 launches), prefill_32k
    at batch 1 (cut from 32) and one decode_32k step at batch 32 (cut from
-   128) on a seeded random cache, each with its counts set to 0 just
+   128; 30 flash_attention and 30 combine launches) on a seeded random
+   cache, each with its counts set to 0 just
    before and read just after, and the kernel's times at the prefill_32k
    and decode_32k layers beside its bound, the plain version's and
    ``F.scaled_dot_product_attention``'s.  Rows 7 and 8 join the line.
@@ -339,7 +345,9 @@ def phase_times(torch, tp, ops, ref, g, cfg, limit, state, reps):
     oh_args = (claims, u, v, state.edge_part, p_num)
     cs_args = (sel_idx, sel_valid, state.edges_per_part, n, p_num)
 
-    # the library yardsticks: one PyTorch call each, never used by the port
+    # the library yardsticks, never used by the port: one PyTorch call each,
+    # and for claim_scatter the fill and the scatter, as the kernel's call
+    # fills its output before it scatters
     bnd = (sel_args[0] & (state.degree_rest > 0)[None, :]
            & active[:c, None])
     comp = ((torch.where(bnd, state.degree_rest[None, :],
@@ -367,7 +375,8 @@ def phase_times(torch, tp, ops, ref, g, cfg, limit, state, reps):
          c * n + 4 * n + 13 * c + 5 * c * cfg.k_sel),
         ("claim_scatter", lambda: ops.claim_scatter(*cs_args),
          lambda: ref.claim_scatter_ref(*cs_args),
-         lambda: buf.scatter_reduce_(0, flat_v, enc, reduce="amin"),
+         lambda: buf.fill_(ref.I32_INF).scatter_reduce_(
+             0, flat_v, enc, reduce="amin"),
          5 * p_num * cfg.k_sel + 4 * p_num + 4 * n),
     ):
         got, want = kern(), plain()
@@ -482,18 +491,18 @@ def phase_spmm_checks(torch, spmm, sref, a, local, r_mirrors, d_feat, dev):
     blocks) at layer 1's F and at d_hidden 64, and on 16 x 16 blocks of
     the same adjacency.  Returns the largest error."""
     gen = torch.Generator(device=dev).manual_seed(14)
-    c16, b16, _ = spmm.build_block_csr(local, r_mirrors, 16, 16)
-    cases = [(128, a["cols"], a["blocks"], d_feat),
-             (128, a["cols"], a["blocks"], 64),
-             (16, torch.from_numpy(c16).to(dev),
-              torch.from_numpy(b16).to(dev), 64)]
+    csr16 = spmm.build_block_csr(local, r_mirrors, 16, 16)
+    cases = [(128, a["cols"], a["blocks"], a["symmetric"], d_feat),
+             (128, a["cols"], a["blocks"], a["symmetric"], 64),
+             (16, torch.from_numpy(csr16[0]).to(dev),
+              torch.from_numpy(csr16[1]).to(dev), csr16.symmetric, 64)]
     worst = 0.0
-    for b, cols, blocks, f in cases:
+    for b, cols, blocks, symmetric, f in cases:
         rows = cols.shape[0] * b
         x = torch.randn((rows, f), generator=gen, device=dev)
         g = torch.randn((rows, f), generator=gen, device=dev)
         xg = x.clone().requires_grad_()
-        out = spmm.block_spmm(cols, blocks, xg)
+        out = spmm.block_spmm(cols, blocks, xg, symmetric)
         out.backward(g)
         torch.cuda.synchronize()
         for what, got, xx in (("forward", out.detach(), x),
@@ -1022,55 +1031,138 @@ def top2_margin(logits):
     return top[..., 0] - top[..., 1]
 
 
+def check_flash(torch, fa, faref, name, q, k, v, causal, kv_len,
+                combines: int) -> float:
+    """The flash kernel against its plain version on the card in bfloat16:
+    both compute in float32 and round once to bf16, in different orders:
+    1e-5 + 2^-7 |plain| (one bf16 step).  A second call must give the same
+    bits, each call one flash_attention launch and ``combines`` combine
+    launches.  Returns the largest error."""
+    before = dict(fa.launches)
+    got = fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    again = fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again),
+          f"flash_attention differs from call to call at {name}")
+    check(fa.launches["flash_attention"] == before["flash_attention"] + 2
+          and fa.launches["flash_attention_combine"]
+          == before["flash_attention_combine"] + 2 * combines,
+          f"flash_attention launches at {name}: {fa.launches}, before "
+          f"{before}, want {combines} combine launches a call")
+    err, ok = within(got, faref.attention_ref(q, k, v, causal, kv_len),
+                     2.0 ** -7, 1e-5)
+    check(ok, f"flash_attention differs from plain at {name}: {err!r}")
+    return err
+
+
 def phase_lm_kernel(torch, fa, faref, dev):
     """Phase 8, check 1: the flash kernel against its plain version on the
-    card in bfloat16, at a prefill shape (9 heads over 3 kv heads, S = T =
-    4,096, and a ragged 4,000, causal), the decode_32k shape (batch 32, one
-    query against a 32,768-row cache, ragged kv_len 20,001) and every
-    decode step of phase 8's serve_batch (batch 8, one query against a
-    256-row cache, kv_len 1 to 95).  Both compute in float32 and round
-    once to bf16, in different orders: 1e-5 + 2^-7 |plain| (one bf16
-    step).  Returns the largest error."""
+    card in bfloat16 (``check_flash``).  The tensor-core route (more than
+    16 rows a kv head): a prefill shape (9 heads over 3 kv heads, S = T =
+    4,096, and a ragged 4,000, causal), every head dim (16, 32, 64, 128)
+    at 1 to 4 query heads a kv head with 150 queries against 333 keys
+    (causal, or kv_len 300), and 333 queries against 150 keys.  The
+    split-KV route: the decode_32k shape (batch 32, one query against a
+    32,768-row cache) at kv_len 1, one chunk, one key past a chunk and a
+    ragged 20,001, and every decode step of phase 8's serve_batch (batch
+    8, one query against a 256-row cache, kv_len 1 to 95).  Returns the
+    largest error."""
     gen = torch.Generator(device=dev).manual_seed(81)
     bf = torch.bfloat16
-    cases = []
-    for s in (4096, 4000):
-        q = torch.randn((1, s, 9, 64), generator=gen, device=dev, dtype=bf)
-        k = torch.randn((1, s, 3, 64), generator=gen, device=dev, dtype=bf)
-        v = torch.randn((1, s, 3, 64), generator=gen, device=dev, dtype=bf)
-        cases.append((f"prefill S=T={s}", q, k, v, True, None))
-    q = torch.randn((32, 1, 9, 64), generator=gen, device=dev, dtype=bf)
-    k = torch.randn((32, 32768, 3, 64), generator=gen, device=dev, dtype=bf)
-    v = torch.randn((32, 32768, 3, 64), generator=gen, device=dev, dtype=bf)
-    cases.append(("decode B=32 T=32768 kv_len=20001", q, k, v, False, 20001))
+
+    def qkv(b, s, t, h, hk, d):
+        return tuple(torch.randn(shape, generator=gen, device=dev, dtype=bf)
+                     for shape in ((b, s, h, d), (b, t, hk, d), (b, t, hk, d)))
+
+    cases = [(f"prefill S=T={s}", *qkv(1, s, s, 9, 3, 64), True, None)
+             for s in (4096, 4000)]
+    for d in fa.HEAD_DIMS:
+        for g in (1, 2, 3, 4):
+            q, k, v = qkv(2, 150, 333, 2 * g, 2, d)
+            cases += [(f"D={d} G={g} S=150 T=333 causal", q, k, v, True,
+                       None),
+                      (f"D={d} G={g} S=150 T=333 kv_len=300", q, k, v,
+                       False, 300)]
+    cases.append(("S=333 T=150 causal", *qkv(1, 333, 150, 9, 3, 64), True,
+                  None))
     worst = 0.0
     for name, q, k, v, causal, kv_len in cases:
-        got = fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
-        torch.cuda.synchronize()
-        err, ok = within(got, faref.attention_ref(q, k, v, causal, kv_len),
-                         2.0 ** -7, 1e-5)
-        check(ok, f"flash_attention differs from plain at {name}: {err!r}")
+        err = check_flash(torch, fa, faref, name, q, k, v, causal, kv_len, 0)
         worst = max(worst, err)
-        print(f"phase 8: flash_attention == plain (bf16) at {name}: max abs "
-              f"err {err!r} (tol 1e-5 + 2^-7|plain|)", flush=True)
+        print(f"phase 8: flash_attention == plain (bf16, tensor cores) at "
+              f"{name}: max abs err {err!r} (tol 1e-5 + 2^-7|plain|)",
+              flush=True)
+    q, k, v = qkv(32, 1, 32768, 9, 3, 64)
+    for kv_len in (1, fa.DECODE_CHUNK, fa.DECODE_CHUNK + 1, 20001):
+        chunks = fa.split_chunks(bf, 1, 3, kv_len, False)
+        err = check_flash(torch, fa, faref,
+                          f"decode B=32 T=32768 kv_len={kv_len}", q, k, v,
+                          False, kv_len, int(chunks > 1))
+        worst = max(worst, err)
+        print(f"phase 8: flash_attention == plain (bf16, split-KV, {chunks} "
+              f"chunks) at decode B=32 T=32768 kv_len={kv_len}: max abs err "
+              f"{err!r} (tol 1e-5 + 2^-7|plain|)", flush=True)
+    del q, k, v
     # serve_batch's decode steps: a layer's (B, Smax, HK, D) cache slice
     q = torch.randn((8, 1, 9, 64), generator=gen, device=dev, dtype=bf)
     kc, vc = (torch.randn((2, 8, 256, 3, 64), generator=gen, device=dev,
                           dtype=bf) for _ in range(2))
-    errs = []
-    for kv_len in range(1, 96):
-        got = fa.flash_attention(q, kc[1], vc[1], causal=False,
-                                 kv_len=kv_len)
-        err, ok = within(got, faref.attention_ref(q, kc[1], vc[1], False,
-                                                  kv_len), 2.0 ** -7, 1e-5)
-        check(ok, f"flash_attention differs from plain at the serve_batch "
-              f"decode shape, kv_len {kv_len}: {err!r}")
-        errs.append(err)
+    errs = [check_flash(torch, fa, faref, f"the serve_batch decode shape, "
+                        f"kv_len {kv_len}", q, kc[1], vc[1], False, kv_len, 0)
+            for kv_len in range(1, 96)]
     worst = max(worst, *errs)
     print(f"phase 8: flash_attention == plain (bf16) at serve_batch's decode "
           f"B=8 T=256, kv_len 1..95: max abs err {max(errs)!r} (tol 1e-5 + "
           f"2^-7|plain|)", flush=True)
     return worst
+
+
+def prefill_instructions(subprocess, build) -> None:
+    """Phase 8: count the tensor-core and TMA instructions of the built
+    prefill kernel (``cuobjdump -sass`` of the flash library, from the CUDA
+    toolkit or Triton's package); fails if the tool is found and the
+    kernel has no HGMMA or HMMA."""
+    import shutil
+
+    tools = [shutil.which("cuobjdump"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "cuobjdump")]
+    try:
+        import triton
+        tools.append(os.path.join(os.path.dirname(triton.__file__),
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((t for t in tools if t and os.path.exists(t)), None)
+    if tool is None:
+        print("phase 8: prefill kernel instructions: no cuobjdump found (CUDA "
+              "toolkit or triton/backends/nvidia/bin), not counted",
+              flush=True)
+        return
+    lib = str(build._library("flash_attention"))
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fn = fn if "prefill_kernel" in fn else None
+            if fn:
+                counts[fn] = dict.fromkeys(("HGMMA", "HMMA", "UTMALDG"), 0)
+        elif fn:
+            for ins in counts[fn]:
+                counts[fn][ins] += f" {ins}." in line or f" {ins} " in line
+    check(bool(counts), f"no prefill_kernel in {lib}'s SASS ({tool})")
+    total = {ins: sum(c[ins] for c in counts.values())
+             for ins in ("HGMMA", "HMMA", "UTMALDG")}
+    print(f"phase 8: prefill kernel instructions ({tool} -sass, "
+          f"{len(counts)} head-dim instances): " + "; ".join(
+              f"D={d}: {c}" for d, c in sorted(
+                  (int(f.split("prefill_kernelILi")[1].split("E")[0]), c)
+                  for f, c in counts.items())) + f"; total {total}",
+          flush=True)
+    check(all(c["HGMMA"] + c["HMMA"] > 0 for c in counts.values()),
+          f"a prefill kernel without tensor-core instructions: {counts}")
 
 
 def phase_lm_card_vs_cpu(torch, cfg, steps, dev):
@@ -1145,6 +1237,7 @@ def phase_lm(torch, args):
     of the kernels line."""
     from repro_torch.configs import smollm_135m
     from repro_torch.configs.shapes import LM_SHAPES
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention import ref as faref
     from repro_torch.launch import steps
@@ -1155,6 +1248,7 @@ def phase_lm(torch, args):
     cfg = smollm_135m.CONFIG
     no_tf32(torch, "phase 8")
     worst = phase_lm_kernel(torch, fa, faref, dev)
+    prefill_instructions(subprocess, build)
     phase_lm_card_vs_cpu(torch, cfg, steps, dev)
     torch.cuda.empty_cache()
     model = Transformer(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -1243,14 +1337,16 @@ def phase_lm(torch, args):
     logits, _, _, new_len = steps.lm_serve_fn(model, token, kc, vc, smax - 1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    check_counts("phase 8 decode_32k", {"flash_attention": L})
+    check_counts("phase 8 decode_32k", {"flash_attention": L,
+                                        "flash_attention_combine": L})
     peak = torch.cuda.max_memory_allocated() - base
     check(logits.shape == (b, 1, cfg.vocab) and new_len == smax
           and bool(logits.isfinite().all()), "decode_32k outputs")
     print(f"phase 8: decode_32k one step, batch {b} (cut from 128), cache "
           f"{2 * kc.numel() * kc.element_size()} B: {wall * 1e3!r} ms, "
           f"{b / wall!r} tokens/s; peak {peak} B above the {base} B held; "
-          f"flash_attention launches {L}", flush=True)
+          f"flash_attention launches {L}, flash_attention_combine "
+          f"launches {L}", flush=True)
     profile_round(torch, "phase 8: profiled decode_32k step",
                   lambda: steps.lm_serve_fn(model, token, kc, vc, smax - 1),
                   top=8)
@@ -1259,6 +1355,7 @@ def phase_lm(torch, args):
     row = {"name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
            "replaces": REPLACES["flash_attention"], "launches": served,
            "launches_prefill_32k": L, "launches_decode_32k": L,
+           "combine_launches_decode_32k": L,
            "max_abs_err": worst}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device=dev).manual_seed(86)

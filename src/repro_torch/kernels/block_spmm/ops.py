@@ -41,8 +41,21 @@ def _lib():
     return lib
 
 
+class BlockCSR(tuple):
+    """``build_block_csr``'s (cols, blocks, n_pad), with ``symmetric``:
+    whether A equals A^T, which the gradient of :func:`block_spmm` needs
+    (it takes A^T as A's own block-CSR)."""
+
+    symmetric: bool
+
+    def __new__(cls, cols, blocks, n_pad, symmetric: bool):
+        self = super().__new__(cls, (cols, blocks, n_pad))
+        self.symmetric = bool(symmetric)
+        return self
+
+
 def build_block_csr(edges: np.ndarray, num_nodes: int, bm: int = 128,
-                    bn: int = 128, directed_both: bool = True):
+                    bn: int = 128, directed_both: bool = True) -> BlockCSR:
     """Host-side: edge list → block-CSR (cols, blocks) with padding.
 
     Returns (cols (R, NB) int32, blocks (R, NB, bm, bn) f32, n_pad), with
@@ -50,7 +63,9 @@ def build_block_csr(edges: np.ndarray, num_nodes: int, bm: int = 128,
     edge when ``directed_both``).  Row tile i lists its nonzero column
     blocks in increasing order; NB is the most any row tile has (at least
     1); the other slots are padding, column block 0 with a zero block.
-    An entry counts its edge's copies, self loops included.
+    An entry counts its edge's copies, self loops included.  The result's
+    ``symmetric`` is True for ``directed_both`` (by construction) and
+    otherwise says whether every (u, v) is listed as often as (v, u).
     """
     e = np.asarray(edges)
     if directed_both:
@@ -59,6 +74,9 @@ def build_block_csr(edges: np.ndarray, num_nodes: int, bm: int = 128,
     else:
         src, dst = e[:, 0], e[:, 1]
     n_pad = -(-num_nodes // max(bm, bn)) * max(bm, bn)
+    symmetric = directed_both or np.array_equal(
+        np.sort(dst.astype(np.int64) * n_pad + src),
+        np.sort(src.astype(np.int64) * n_pad + dst))
     r, c = n_pad // bm, n_pad // bn
     key = (dst // bm).astype(np.int64) * c + src // bn   # the edge's tile
     uniq, inv = np.unique(key, return_inverse=True)
@@ -70,7 +88,7 @@ def build_block_csr(edges: np.ndarray, num_nodes: int, bm: int = 128,
     cols[row_of, slot] = uniq % c
     blocks = np.zeros((r, nb, bm, bn), np.float32)
     np.add.at(blocks, (row_of[inv], slot[inv], dst % bm, src % bn), 1.0)
-    return cols, blocks, n_pad
+    return BlockCSR(cols, blocks, n_pad, symmetric)
 
 
 def _route(*tensors) -> str:
@@ -122,30 +140,35 @@ class BlockSpmm(torch.autograd.Function):
     take no gradient."""
 
     @staticmethod
-    def forward(ctx, cols, blocks, x):
+    def forward(ctx, cols, blocks, x, symmetric):
         ctx.save_for_backward(cols, blocks)
+        ctx.symmetric = symmetric
         return _spmm(cols, blocks, x)
 
     @staticmethod
     def backward(ctx, grad):
         if not ctx.needs_input_grad[2]:
-            return None, None, None
+            return None, None, None, None
         cols, blocks = ctx.saved_tensors
         bm, bn = blocks.shape[2:]
         if bm != bn:
             raise ValueError(f"the gradient of block_spmm takes A^T as A's "
                              f"own block-CSR, which needs bm == bn, not "
                              f"{bm} x {bn}")
-        return None, None, _spmm(cols, blocks, grad.contiguous())
+        if not ctx.symmetric:
+            raise ValueError("the gradient of block_spmm takes A^T as A's "
+                             "own block-CSR, which needs a symmetric A: "
+                             "pass build_block_csr(...).symmetric")
+        return None, None, _spmm(cols, blocks, grad.contiguous()), None
 
 
-def block_spmm(cols, blocks, x):
+def block_spmm(cols, blocks, x, symmetric: bool = False):
     """out = A @ x for block-CSR A (``build_block_csr``'s cols and blocks
     as tensors); x is (C·bn, F), out (R·bm, F).  The gradient in x runs the
-    kernel on A^T taken as A itself, so A must be symmetric with
-    bm == bn (the backward raises otherwise), as the block-CSR of
-    ``directed_both=True`` is."""
-    return BlockSpmm.apply(cols, blocks, x)
+    kernel on A^T taken as A itself, so it needs bm == bn and
+    ``symmetric`` (``build_block_csr``'s record, True for
+    ``directed_both=True``); the backward raises otherwise."""
+    return BlockSpmm.apply(cols, blocks, x, symmetric)
 
 
 def aggregate_neighbors(edges: np.ndarray, x: torch.Tensor, num_nodes: int,
@@ -153,8 +176,10 @@ def aggregate_neighbors(edges: np.ndarray, x: torch.Tensor, num_nodes: int,
     """Sum-aggregate neighbor features (both directions of each edge) with
     the block-sparse kernel: a host block build (one-off per graph), then
     one kernel call on ``x``'s device."""
-    cols, blocks, n_pad = build_block_csr(edges, num_nodes, bm, bn)
+    csr = build_block_csr(edges, num_nodes, bm, bn)
+    cols, blocks, n_pad = csr
     xp = torch.nn.functional.pad(x, (0, 0, 0, n_pad - x.shape[0]))
     out = block_spmm(torch.from_numpy(cols).to(x.device),
-                     torch.from_numpy(blocks).to(x.device), xp)
+                     torch.from_numpy(blocks).to(x.device), xp,
+                     csr.symmetric)
     return out[:num_nodes]

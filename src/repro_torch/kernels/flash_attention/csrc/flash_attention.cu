@@ -24,28 +24,59 @@
 //   Prefill at S = T = 32,768 is bound by operations; decode (S = 1
 //   against a long cache) by the bytes of k and v.
 //
-//   Design (simple first; wgmma, TMA and warp specialisation are later
-//   work): the rows of a block are the (position, head) pairs of one
-//   (batch, kv head): row r is position r / G of query head hk·G + r % G,
-//   G = H / HK.  A block of 256 threads (16 x 16) owns BQ = 16·RM such
-//   rows (RM = 4 rows a thread, or RM = 1 when a (batch, kv head) has at
-//   most 16 rows, as in decode, where G query heads share each k and v
-//   tile) and walks the kv tiles of BK = 64 keys in order, up to kv_len
-//   and, when causal, up to its last row's position (tiles wholly above
-//   the diagonal would add exp(-1e30 - m) = 0).  q, k (both transposed)
-//   and v tiles are staged in dynamic shared memory as float32 (16-byte
-//   global loads); each thread computes a RM x 4 block of scores with
-//   FMAs, the 16 threads of a row reduce its max and sum by shuffles, the
-//   probabilities go through shared memory, and each thread keeps a
-//   RM x D/16 block of the float32 accumulator in registers.  Blocks take
-//   the last (longest, under a causal mask) row tiles first.
+//   The rows of a (batch, kv head) are its (position, head) pairs: row r
+//   is position r / G of query head hk·G + r % G, G = H / HK, so one k
+//   and v tile serves all G query heads of its kv head.  Three designs:
+//
+//   flash_kernel (float32, any row count): 256 threads (16 x 16) own
+//   16·RM rows (RM = 4, or 1 for at most 16 rows) and walk the kv tiles
+//   of 64 keys in order, up to kv_len and, when causal, up to the last
+//   row's position; q, k and v are staged in shared memory as float32,
+//   scores and the product with v are FMAs, the probabilities go through
+//   shared memory, and each thread keeps RM x D/16 of the float32
+//   accumulator in registers.
+//
+//   prefill_kernel (bfloat16, more than 16 rows): the tensor cores.  A
+//   block of three consumer warpgroups (two at D = 128, for registers),
+//   64 rows each, and a producer warpgroup (one thread issues the loads,
+//   the rest of its registers go to the consumers by setmaxnreg) walks the
+//   kv tiles of 64 keys.
+//   The producer keeps a ring of three k and v tiles in flight by TMA
+//   (tensor maps built in the entry point from the strides, swizzled as
+//   wgmma reads them), completed on mbarriers; each consumer takes
+//   S = Q·K^T by wgmma (bf16 operands from shared memory, float32 sums: q
+//   and k are bf16, so each product is exact), masks, scales and takes the
+//   online softmax of its rows in registers, and adds P·V by wgmma with P
+//   from registers.  P enters as two bf16 terms, p_hi = bf16(p) and
+//   p_lo = bf16(p - p_hi), two products on the same v tile: about 16 bits
+//   of p are kept, where bf16(p) alone would miss the plain version's
+//   2^-7 tolerance at long rows.  The denominator takes the unrounded
+//   float32 p.  A warpgroup takes tile i's scores while tile i - 1's
+//   product with v runs, and releases a tile with one arrival.  Tiles
+//   wholly above a warpgroup's diagonal are skipped; blocks take the
+//   longest row tiles first.
+//
+//   decode_kernel + combine_kernel (bfloat16, at most 16 rows, as at a
+//   decode step): split-KV.  The keys up to kv_len are cut into chunks
+//   of `chunk`; a block of four warps takes one (batch, kv head, chunk)
+//   and streams its k and v tiles (bf16, 64 keys) through a four-stage
+//   cp.async ring.  Each warp takes 16 keys of every tile for all the
+//   rows with FMAs (decode does ~1.5 operations a byte) and keeps its own
+//   online softmax; the warps merge in order at the end.  With one chunk
+//   the block writes the output; otherwise it writes its float32
+//   (m, l, acc) to scratch and combine_kernel merges a row's chunks in
+//   chunk order (no atomics: the same result every run).
 //
 // Plain C interface: device pointers and a cudaStream_t passed as void*;
 // launches on that stream, does not synchronise, allocates nothing, and
-// returns the cudaError_t of the launch (0 on success).
+// returns the cudaError_t of the launch (0 on success).  The tensor maps
+// come from the driver's cuTensorMapEncodeTiled, found through
+// cudaGetDriverEntryPoint (the library links no libcuda).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -76,23 +107,6 @@ struct Ld<float> {
     o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
   }
   __device__ static void put(float* p, float x) { *p = x; }
-};
-template <>
-struct Ld<__nv_bfloat16> {
-  static constexpr int VEC = 8;
-  __device__ static void get(const __nv_bfloat16* p, float (&o)[8]) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void put(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);     // round to nearest even, as torch's cast
-  }
 };
 
 // N consecutive floats of shared memory (16-, 8- or 4-byte aligned).
@@ -298,34 +312,984 @@ int launch_rm(const Params& p, long long b, cudaStream_t s) {
   return launch<T, HD, 4>(p, b, s);
 }
 
-template <typename T>
-int launch_hd(const Params& p, int hd, long long b, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch_rm<T, 16>(p, b, s);
-    case 32: return launch_rm<T, 32>(p, b, s);
-    case 64: return launch_rm<T, 64>(p, b, s);
-    case 128: return launch_rm<T, 128>(p, b, s);
-    default: return (int)cudaErrorInvalidValue;
+
+// --------------------------------------------------------------------------
+// PTX helpers: shared-memory addresses, mbarriers, TMA, cp.async, wgmma
+// --------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// returns once the phase of parity `parity` has completed; a wait of
+// more than ~2^34 cycles (seconds) traps, so a lost arrival fails the
+// launch instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1LL << 34)) __trap();
   }
+}
+
+// one box of a 4-d tensor map (coordinates innermost first) into shared
+// memory, completing `bytes` on the mbarrier
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
+                                          int c0, int c1, int c2, int c3,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// 16 bytes global -> shared; zeros where !ok (src-size 0 reads nothing)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits until at most N committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// 2^x by the special-function unit (relative error ~2^-22; results below
+// 2^-126 flush to 0, which a row's sum of at least 1 cannot see)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// wgmma's shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units) and the swizzle (1: 128 B, 2: 64 B,
+// 3: 32 B)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+// The byte offset `o` of a tile whose rows are SW bytes, after the swizzle
+// that TMA's CU_TENSOR_MAP_SWIZZLE_{32,64,128}B applies and wgmma reads:
+// the 16-byte chunk index is XORed with address bits 7 and up.
+template <int SW>
+__device__ __forceinline__ uint32_t swizzle(uint32_t o) {
+  return o ^ (((o >> 7) & (SW / 16 - 1)) << 4);
+}
+
+// D (64 x N, float32, in the accumulator layout) (+)= A · B with A (64 x
+// 16) and B (16 x N) both K-major in shared memory; scale_d = 0 overwrites
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+
+// D (64 x N) += A · B with A (64 x 16 bf16) from registers (the
+// accumulator layout of a 64 x 16 tile, two bf16 a register) and B (16 x
+// N) N-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      "%10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// --------------------------------------------------------------------------
+// prefill_kernel: bfloat16, wgmma and TMA
+// --------------------------------------------------------------------------
+
+namespace pf {
+
+constexpr int BM = 64;                    // rows a consumer warpgroup
+constexpr int BN = 64;                    // keys a kv tile
+constexpr int STAGES = 3;                 // kv tiles in the ring
+
+// Shared-memory tiles are TMA's boxes: rows of SW bytes (one swizzle
+// span), so D = 128 takes two column atoms of 64 values, stored one after
+// the other.
+template <int HD>
+struct Tile {
+  // consumer warpgroups a block (three, or two where D = 128 needs the
+  // registers), and the threads with the producer warpgroup, which gives
+  // its registers up to the consumers (setmaxnreg)
+  static constexpr int NC = HD < 128 ? 3 : 2;
+  static constexpr int THREADS = NC * 128 + 128;
+  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;
+  static constexpr int ATOM = SW / 2;             // values a row of an atom
+  static constexpr int ATOMS = HD / ATOM;
+  static constexpr int LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static constexpr int Q_BYTES = BM * HD * 2;
+  static constexpr int KV_BYTES = BN * HD * 2;
+  static constexpr int SMEM =
+      1024 + NC * Q_BYTES + 2 * STAGES * KV_BYTES + 2 * STAGES * 8;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(Tile<HD>::THREADS, 1)
+prefill_kernel(const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, Params p) {
+  using TL = Tile<HD>;
+  constexpr int SW = TL::SW;
+  constexpr int NC = TL::NC;
+  extern __shared__ uint8_t smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t q_s = (raw + 1023) & ~1023u;      // swizzle atoms: 1 KB
+  const uint32_t k_s = q_s + NC * TL::Q_BYTES;
+  const uint32_t v_s = k_s + STAGES * TL::KV_BYTES;
+  const uint32_t full = v_s + STAGES * TL::KV_BYTES;   // STAGES mbarriers
+  const uint32_t empty = full + STAGES * 8;            // STAGES mbarriers
+
+  const int g = p.h / p.hk;
+  const long long rows = p.s * g;
+  const int b = (int)(blockIdx.x / p.hk);
+  const int hk = (int)(blockIdx.x % p.hk);
+  const long long r0 = (long long)(gridDim.y - 1 - blockIdx.y) * (NC * BM);
+  long long kv_end = p.kv_len;
+  if (p.causal) {
+    const long long last = (r0 + NC * BM < rows ? r0 + NC * BM : rows) - 1;
+    if (last / g + 1 < kv_end) kv_end = last / g + 1;
+  }
+  const int n_tiles = (int)((kv_end + BN - 1) / BN);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, NC);      // one arrival a warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= NC * 4) {                   // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == NC * 4 && lane == 0) {
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + 8 * s, (i / STAGES - 1) & 1);
+        mbar_expect_tx(full + 8 * s, 2 * TL::KV_BYTES);
+        for (int a = 0; a < TL::ATOMS; ++a) {
+          const uint32_t off = s * TL::KV_BYTES + a * BN * SW;
+          tma_load4(k_s + off, &tk, a * TL::ATOM, i * BN, hk, b, full + 8 * s);
+          tma_load4(v_s + off, &tv, a * TL::ATOM, i * BN, hk, b, full + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows rw0 .. rw0 + 63.  65,536 registers over
+  // the block's threads at launch (128 each with three consumers, 168 with
+  // two); the producer's 24 leave the consumers 160 or 232.
+  if constexpr (NC == 3)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
+  else
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp / 4;
+  const int tid = threadIdx.x % 128;
+  const long long rw0 = r0 + wg * BM;
+  const uint32_t qw = q_s + wg * TL::Q_BYTES;
+  const bf16* q = static_cast<const bf16*>(p.q);
+  for (int e = tid; e < BM * HD / 8; e += 128) {
+    const int rr = e / (HD / 8);
+    const int c = e % (HD / 8);           // 16-byte chunk of the row
+    const long long r = rw0 + rr;
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (r < rows) {
+      const long long pos = r / g;
+      const int head = hk * g + (int)(r % g);
+      x = *reinterpret_cast<const uint4*>(
+          q + (long long)b * p.q_sb + pos * p.q_ss + head * p.q_sh + c * 8);
+    }
+    const uint32_t o = (c / (TL::ATOM / 8)) * (BM * SW) + rr * SW +
+                       (c % (TL::ATOM / 8)) * 16;
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                 :: "r"(qw + swizzle<SW>(o)), "r"(x.x), "r"(x.y), "r"(x.z),
+                    "r"(x.w) : "memory");
+  }
+  // the q tile is read by wgmma (the async proxy): fence, then wait for
+  // the warpgroup's 128 threads
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+
+  // this thread's two rows of the accumulator layout
+  const long long ra = rw0 + 16 * (warp % 4) + lane / 4;
+  const long long rb = ra + 8;
+  const long long pos_a = ra / g;
+  const long long pos_b = rb / g;
+  const int col = 2 * (lane % 4);
+  int wg_tiles = 0;                     // kv tiles this warpgroup needs
+  if (rw0 < rows) {
+    long long wg_end = p.kv_len;
+    const long long last = (rw0 + BM < rows ? rw0 + BM : rows) - 1;
+    if (p.causal && last / g + 1 < wg_end) wg_end = last / g + 1;
+    wg_tiles = (int)((wg_end + BN - 1) / BN);
+  }
+  const long long first_pos = rw0 / g;
+  const float scale = p.scale * LOG2E;  // scores in log2 units: exp2
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float sc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+  uint32_t hi[BN / 16][4], lo[BN / 16][4];
+  float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;
+  float corr_a = 1.f, corr_b = 1.f;
+
+  // S = Q K^T of tile i, K-major operands, 16 of D a step (issued, not
+  // waited for)
+  auto qk = [&](int i) {
+    const int s = i % STAGES;
+    mbar_wait(full + 8 * s, (i / STAGES) & 1);
+    const uint32_t kt = k_s + s * TL::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t qo = (kk * 16 / TL::ATOM) * (BM * SW) +
+                          (kk * 16 % TL::ATOM) * 2;
+      const uint32_t ko = (kk * 16 / TL::ATOM) * (BN * SW) +
+                          (kk * 16 % TL::ATOM) * 2;
+      wgmma_ss<BN>(sc, smem_desc(qw + qo, 16, 8 * SW, TL::LAYOUT),
+                   smem_desc(kt + ko, 16, 8 * SW, TL::LAYOUT), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P_hi V + P_lo V of tile i, V N-major, 16 keys a step (issued)
+  auto pv = [&](int i) {
+    const uint32_t vt = v_s + (i % STAGES) * TL::KV_BYTES;
+#pragma unroll
+    for (int c = 0; c < BN / 16; ++c) {
+      const uint64_t dv = smem_desc(vt + c * 16 * SW, BN * SW, 8 * SW,
+                                    TL::LAYOUT);
+      wgmma_rs<HD>(o, hi[c], dv);
+      wgmma_rs<HD>(o, lo[c], dv);
+    }
+    wgmma_commit();
+  };
+  // tile i's scores -> float32 p in sc, the row maxima, the correction of
+  // the earlier tiles and l (this thread's share of each row)
+  auto softmax = [&](int i) {
+    const long long k0 = (long long)i * BN;
+    const bool whole = k0 + BN <= p.kv_len &&
+                       (!p.causal || k0 + BN - 1 <= first_pos);
+    float mx_a = NEG, mx_b = NEG;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * j + e];          // scaled below, by fmaf
+        if (!whole) {
+          const long long key = k0 + 8 * j + col + (e & 1);
+          const long long pos = e < 2 ? pos_a : pos_b;
+          if (key >= p.kv_len || (p.causal && key > pos)) x = NEG;
+        }
+        sc[4 * j + e] = x;
+      }
+      mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, x));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, x));
+    }
+    const float mn_a = fmaxf(m_a, mx_a * scale);   // scale > 0
+    const float mn_b = fmaxf(m_b, mx_b * scale);
+    corr_a = ex2(m_a - mn_a);
+    corr_b = ex2(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      sc[4 * j] = ex2(fmaf(sc[4 * j], scale, -mn_a));
+      sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale, -mn_a));
+      sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale, -mn_b));
+      sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], scale, -mn_b));
+      sum_a += sc[4 * j] + sc[4 * j + 1];
+      sum_b += sc[4 * j + 2] + sc[4 * j + 3];
+    }
+    l_a = l_a * corr_a + sum_a;
+    l_b = l_b * corr_b + sum_b;
+  };
+  // p -> p_hi + p_lo (bf16, the A operand of pv), and O *= the correction
+  auto split = [&]() {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const __nv_bfloat162 h01 =
+          __floats2bfloat162_rn(sc[4 * j], sc[4 * j + 1]);
+      const __nv_bfloat162 h23 =
+          __floats2bfloat162_rn(sc[4 * j + 2], sc[4 * j + 3]);
+      const float2 f01 = __bfloat1622float2(h01);
+      const float2 f23 = __bfloat1622float2(h23);
+      const __nv_bfloat162 l01 =
+          __floats2bfloat162_rn(sc[4 * j] - f01.x, sc[4 * j + 1] - f01.y);
+      const __nv_bfloat162 l23 =
+          __floats2bfloat162_rn(sc[4 * j + 2] - f23.x, sc[4 * j + 3] - f23.y);
+      // keys 8j .. 8j + 7 are half (j % 2) of the k16 step j / 2
+      hi[j / 2][2 * (j % 2)] = *reinterpret_cast<const uint32_t*>(&h01);
+      hi[j / 2][2 * (j % 2) + 1] = *reinterpret_cast<const uint32_t*>(&h23);
+      lo[j / 2][2 * (j % 2)] = *reinterpret_cast<const uint32_t*>(&l01);
+      lo[j / 2][2 * (j % 2) + 1] = *reinterpret_cast<const uint32_t*>(&l23);
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= corr_a;
+      o[4 * j + 1] *= corr_a;
+      o[4 * j + 2] *= corr_b;
+      o[4 * j + 3] *= corr_b;
+    }
+  };
+  auto release = [&](int i) {           // the warpgroup is done with tile i
+    if (tid == 0) mbar_arrive(empty + 8 * (i % STAGES));
+  };
+
+  // tile i's scores are taken while tile i - 1's product with v runs
+  if (wg_tiles > 0) {
+    wgmma_fence();
+    qk(0);
+    wgmma_wait<0>();
+    softmax(0);
+    split();
+    for (int i = 1; i < wg_tiles; ++i) {
+      wgmma_fence();
+      qk(i);
+      pv(i - 1);
+      wgmma_wait<1>();                  // qk(i) is done
+      softmax(i);
+      wgmma_wait<0>();                  // pv(i - 1) is done
+      release(i - 1);
+      split();
+    }
+    wgmma_fence();
+    pv(wg_tiles - 1);
+    wgmma_wait<0>();
+    release(wg_tiles - 1);
+  }
+  for (int i = wg_tiles; i < n_tiles; ++i) {  // tiles past this diagonal
+    mbar_wait(full + 8 * (i % STAGES), (i / STAGES) & 1);
+    release(i);
+  }
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, x);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, x);
+  }
+  const float den_a = fmaxf(l_a, 1e-30f);
+  const float den_b = fmaxf(l_b, 1e-30f);
+  bf16* out = static_cast<bf16*>(p.out);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const long long r = half ? rb : ra;
+    if (r >= rows) continue;
+    const float den = half ? den_b : den_a;
+    const int head = hk * g + (int)(r % g);
+    bf16* dst = out + (long long)b * p.o_sb + (r / g) * p.o_ss +
+                head * p.o_sh + col;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * half] / den,
+                                o[4 * j + 2 * half + 1] / den);
+  }
+}
+
+}  // namespace pf
+
+// --------------------------------------------------------------------------
+// decode_kernel and combine_kernel: bfloat16, split-KV
+// --------------------------------------------------------------------------
+
+namespace dec {
+
+constexpr int ROWS = 16;                  // rows a (batch, kv head), at most
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int BK = 64;                    // keys a kv tile, 16 a warp
+constexpr int STAGES = 4;                 // kv tiles in the cp.async ring
+
+template <int HD>
+struct Tile {
+  static constexpr int R = HD + 8;        // padded bf16 row: no bank clash
+  static constexpr int RING = 2 * STAGES * BK * R * 2;
+  static constexpr int SMEM = RING + ROWS * HD * 4;
+};
+
+// A block takes one (batch, kv head, chunk) and RM >= S·G rows.  Each
+// warp takes 16 keys of every tile for all rows and keeps its own online
+// softmax state (lane l dots key l % 16 over half of D, then owns D/32
+// output columns); the four warps' states merge at the end in warp order.
+template <int HD, int RM>
+__global__ void __launch_bounds__(THREADS)
+decode_kernel(Params p, long long chunk, float* part) {
+  constexpr int R = Tile<HD>::R;
+  constexpr int CPR = HD / 8;             // 16-byte chunks a row
+  constexpr int HALF = HD / 2;            // values a lane dots
+  constexpr int DPL = HD >= 32 ? HD / 32 : 1;   // output columns a lane
+  extern __shared__ float4 smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);    // [STAGES][BK][R]
+  bf16* vs = ks + STAGES * BK * R;                  // [STAGES][BK][R]
+  float* qs = reinterpret_cast<float*>(vs + STAGES * BK * R);  // [RM][HD]
+
+  const int g = p.h / p.hk;
+  const int rows = (int)(p.s * g);
+  const long long b = blockIdx.x / p.hk;
+  const int hk = (int)(blockIdx.x % p.hk);
+  const int t = threadIdx.x;
+  const int w = t / 32;
+  const int lane = t % 32;
+  long long kv_end = p.kv_len;
+  if (p.causal && p.s < kv_end) kv_end = p.s;
+  const long long c0 = (long long)blockIdx.y * chunk;
+  const long long c1 = c0 + chunk < kv_end ? c0 + chunk : kv_end;
+  const int n_tiles = (int)((c1 - c0 + BK - 1) / BK);
+  const bf16* q = static_cast<const bf16*>(p.q);
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  for (int e = t; e < RM * HD; e += THREADS) {
+    const int r = e / HD;
+    float x = 0.f;
+    if (r < rows)
+      x = __bfloat162float(q[b * p.q_sb + (r / g) * p.q_ss +
+                             (hk * g + r % g) * p.q_sh + e % HD]);
+    qs[e] = x;
+  }
+
+  auto issue = [&](int i) {         // tile i of the chunk into its stage
+    if (i < n_tiles) {
+      const int s = i % STAGES;
+      const long long k0 = c0 + (long long)i * BK;
+      for (int e = t; e < 2 * BK * CPR; e += THREADS) {
+        const int kv = e / (BK * CPR);
+        const int jj = (e % (BK * CPR)) / CPR;
+        const int cc = e % CPR;
+        const long long j = k0 + jj;
+        const bool ok = j < p.t;
+        const bf16* src = kv ? v + (ok ? j : 0) * p.v_st
+                             : k + (ok ? j : 0) * p.k_st;
+        bf16* dst = (kv ? vs : ks) + (s * BK + jj) * R;
+        cp_async16(smem_u32(dst + cc * 8), src + cc * 8, ok);
+      }
+    }
+    cp_async_commit();              // an empty group past the last tile
+  };
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) issue(i);
+
+  const int kl = 16 * w + lane % 16;      // this lane's key in a tile
+  const int dh = (lane / 16) * HALF;      // and the half of D it dots
+  const int d0 = (lane * DPL) % HD;       // its output columns
+  const float scale = p.scale * LOG2E;
+  long long pos[RM];
+  float m[RM], l[RM], acc[RM][DPL];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    pos[r] = r / g;
+    m[r] = NEG;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
+  }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<STAGES - 2>();    // tile i has landed (this thread's part)
+    __syncthreads();                // ... everyone's; tile i - 1 consumed
+    issue(i + STAGES - 1);
+    const int s = i % STAGES;
+    const long long j = c0 + (long long)i * BK + kl;
+    const bf16* kr = ks + (s * BK + kl) * R + dh;
+    const bf16* vt = vs + (s * BK + 16 * w) * R + d0;
+
+    float sc[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) sc[r] = 0.f;
+#pragma unroll
+    for (int d = 0; d < HALF; d += 8) {
+      const uint4 x = *reinterpret_cast<const uint4*>(kr + d);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+      float kf[8];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 f = __bfloat1622float2(h[u]);
+        kf[2 * u] = f.x;
+        kf[2 * u + 1] = f.y;
+      }
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const float4 qa =
+            *reinterpret_cast<const float4*>(qs + r * HD + dh + d);
+        const float4 qb =
+            *reinterpret_cast<const float4*>(qs + r * HD + dh + d + 4);
+        float a = sc[r];
+        a = fmaf(qa.x, kf[0], a);
+        a = fmaf(qa.y, kf[1], a);
+        a = fmaf(qa.z, kf[2], a);
+        a = fmaf(qa.w, kf[3], a);
+        a = fmaf(qb.x, kf[4], a);
+        a = fmaf(qb.y, kf[5], a);
+        a = fmaf(qb.z, kf[6], a);
+        sc[r] = fmaf(qb.w, kf[7], a);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const float full = sc[r] + __shfl_xor_sync(0xffffffffu, sc[r], 16);
+      const bool ok = j < p.kv_len && (!p.causal || j <= pos[r]);
+      const float x = ok ? full * scale : NEG;
+      float mx = x;
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[r], mx);
+      const float corr = exp2f(m[r] - m_new);
+      const float pr = exp2f(x - m_new);
+      float sum = pr;
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      l[r] = l[r] * corr + sum;
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < DPL; ++c) acc[r][c] *= corr;
+      sc[r] = pr;
+    }
+
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      float vf[DPL];
+      if constexpr (DPL == 1) {
+        vf[0] = __bfloat162float(vt[jj * R]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < DPL; c += 2) {
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(vt + jj * R + c));
+          vf[c] = f.x;
+          vf[c + 1] = f.y;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const float pj = __shfl_sync(0xffffffffu, sc[r], jj);
+#pragma unroll
+        for (int c = 0; c < DPL; ++c) acc[r][c] = fmaf(pj, vf[c], acc[r][c]);
+      }
+    }
+  }
+
+  // the warps' states, through the ring's memory, merged in warp order
+  cp_async_wait<0>();
+  __syncthreads();
+  float* ws = reinterpret_cast<float*>(smem_raw);  // [WARPS][RM][HD + 2]
+  if (lane * DPL < HD) {
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      float* wr = ws + (w * RM + r) * (HD + 2);
+      if (lane == 0) {
+        wr[0] = m[r];
+        wr[1] = l[r];
+      }
+#pragma unroll
+      for (int c = 0; c < DPL; ++c) wr[2 + d0 + c] = acc[r][c];
+    }
+  }
+  __syncthreads();
+  for (int e = t; e < rows * HD; e += THREADS) {
+    const int r = e / HD;
+    const int d = e % HD;
+    float mg = NEG;
+#pragma unroll
+    for (int u = 0; u < WARPS; ++u)
+      mg = fmaxf(mg, ws[(u * RM + r) * (HD + 2)]);
+    float sum = 0.f, o = 0.f;
+#pragma unroll
+    for (int u = 0; u < WARPS; ++u) {
+      const float* wr = ws + (u * RM + r) * (HD + 2);
+      const float f = exp2f(wr[0] - mg);
+      sum = fmaf(wr[1], f, sum);
+      o = fmaf(wr[2 + d], f, o);
+    }
+    if (part == nullptr) {          // one chunk: the output itself
+      static_cast<bf16*>(p.out)[b * p.o_sb + (r / g) * p.o_ss +
+                                (hk * g + r % g) * p.o_sh + d] =
+          __float2bfloat16(o / fmaxf(sum, 1e-30f));
+    } else {                        // (m, l, acc[HD]) of (block, chunk, row)
+      float* pw = part + (((long long)blockIdx.x * gridDim.y + blockIdx.y) *
+                              rows + r) * (HD + 2);
+      pw[2 + d] = o;
+      if (d == 0) {
+        pw[0] = mg;
+        pw[1] = sum;
+      }
+    }
+  }
+}
+
+// out[row] = Σ_c acc_c · 2^(m_c - M) / max(Σ_c l_c · 2^(m_c - M), 1e-30),
+// M = max_c m_c, summed in chunk order
+__global__ void __launch_bounds__(256)
+combine_kernel(const float* part, int n_chunks, int hd, Params p) {
+  const int g = p.h / p.hk;
+  const int rows = (int)(p.s * g);
+  const long long b = blockIdx.x / p.hk;
+  const int hk = (int)(blockIdx.x % p.hk);
+  const long long per = (long long)rows * (hd + 2);     // a chunk's floats
+  const float* base = part + (long long)blockIdx.x * n_chunks * per;
+  for (int e = threadIdx.x; e < rows * hd; e += blockDim.x) {
+    const int r = e / hd;
+    const int d = e % hd;
+    const float* w = base + (long long)r * (hd + 2);
+    float mg = NEG;
+    for (int c = 0; c < n_chunks; ++c) mg = fmaxf(mg, w[c * per]);
+    float l = 0.f, o = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      const float f = exp2f(w[c * per] - mg);
+      l = fmaf(w[c * per + 1], f, l);
+      o = fmaf(w[c * per + 2 + d], f, o);
+    }
+    static_cast<bf16*>(p.out)[b * p.o_sb + (r / g) * p.o_ss +
+                              (hk * g + r % g) * p.o_sh + d] =
+        __float2bfloat16(o / fmaxf(l, 1e-30f));
+  }
+}
+
+}  // namespace dec
+
+// --------------------------------------------------------------------------
+// launchers
+// --------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The tensor map of k or v (B, T, HK, D) from its element strides: boxes
+// of (ATOM values, BN keys, 1, 1), swizzled as the wgmma descriptors read
+// them, zeros past T.  A dimension of size 1 takes a stride of the span
+// below it, whatever its own (TMA wants strides that are multiples of 16
+// bytes).
+template <int HD>
+bool kv_map(CUtensorMap* map, const void* base, long long b, long long t,
+            int hk, long long sb, long long st, long long sh) {
+  using TL = pf::Tile<HD>;
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)t, (cuuint64_t)hk,
+                              (cuuint64_t)b};
+  cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2,
+                           (cuuint64_t)sb * 2};
+  cuuint64_t span = HD * 2;
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1) strides[i] = (span + 15) / 16 * 16;
+    span = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {(cuuint32_t)TL::ATOM, (cuuint32_t)pf::BN, 1, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = TL::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : TL::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(base), dims, strides, box, one,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_prefill(const Params& p, long long b, cudaStream_t s) {
+  CUtensorMap tk, tv;
+  if (!kv_map<HD>(&tk, p.k, b, p.t, p.hk, p.k_sb, p.k_st, p.k_sh) ||
+      !kv_map<HD>(&tv, p.v, b, p.t, p.hk, p.v_sb, p.v_st, p.v_sh))
+    return (int)cudaErrorInvalidValue;
+  const int bytes = pf::Tile<HD>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      pf::prefill_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int rows_a_block = pf::Tile<HD>::NC * pf::BM;
+  const long long tiles =
+      (p.s * (p.h / p.hk) + rows_a_block - 1) / rows_a_block;
+  if (tiles > 65535 || b * p.hk > 0x7fffffffLL || b > 0x7fffffffLL ||
+      p.t > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)(b * p.hk), (unsigned)tiles);
+  pf::prefill_kernel<HD><<<grid, pf::Tile<HD>::THREADS, bytes, s>>>(
+      tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+template <int HD, int RM>
+int launch_decode_rm(const Params& p, long long b, long long n_chunks,
+                     long long chunk, void* part, cudaStream_t s) {
+  const int bytes = dec::Tile<HD>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      dec::decode_kernel<HD, RM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)(b * p.hk), (unsigned)n_chunks);
+  dec::decode_kernel<HD, RM><<<grid, dec::THREADS, bytes, s>>>(
+      p, chunk, static_cast<float*>(part));
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_decode(const Params& p, long long b, long long chunk, void* part,
+                  cudaStream_t s) {
+  long long kv_end = p.kv_len;
+  if (p.causal && p.s < kv_end) kv_end = p.s;
+  const long long n_chunks = (kv_end + chunk - 1) / chunk;
+  if (chunk <= 0 || n_chunks > 65535 || b * p.hk > 0x7fffffffLL ||
+      (n_chunks > 1) != (part != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const long long rows = p.s * (p.h / p.hk);     // 1 .. dec::ROWS
+  if (rows <= 1) return launch_decode_rm<HD, 1>(p, b, n_chunks, chunk, part,
+                                                s);
+  if (rows <= 2) return launch_decode_rm<HD, 2>(p, b, n_chunks, chunk, part,
+                                                s);
+  if (rows <= 4) return launch_decode_rm<HD, 4>(p, b, n_chunks, chunk, part,
+                                                s);
+  if (rows <= 8) return launch_decode_rm<HD, 8>(p, b, n_chunks, chunk, part,
+                                                s);
+  return launch_decode_rm<HD, 16>(p, b, n_chunks, chunk, part, s);
+}
+
+template <int HD>
+int launch_bf16(const Params& p, long long b, long long chunk, void* part,
+                cudaStream_t s) {
+  if (p.s * (p.h / p.hk) <= dec::ROWS)
+    return launch_decode<HD>(p, b, chunk, part, s);
+  return launch_prefill<HD>(p, b, s);
+}
+
+int launch_hd(const Params& p, int dtype, int hd, long long b,
+              long long chunk, void* part, cudaStream_t s) {
+  if (dtype == 0) {
+    switch (hd) {
+      case 16: return launch_rm<float, 16>(p, b, s);
+      case 32: return launch_rm<float, 32>(p, b, s);
+      case 64: return launch_rm<float, 64>(p, b, s);
+      case 128: return launch_rm<float, 128>(p, b, s);
+    }
+  } else if (dtype == 1) {
+    switch (hd) {
+      case 16: return launch_bf16<16>(p, b, chunk, part, s);
+      case 32: return launch_bf16<32>(p, b, chunk, part, s);
+      case 64: return launch_bf16<64>(p, b, chunk, part, s);
+      case 128: return launch_bf16<128>(p, b, chunk, part, s);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v and out alike); strides in
-// elements; hd one of 16, 32, 64, 128; 1 <= kv_len <= t.
+// elements; hd one of 16, 32, 64, 128; 1 <= kv_len <= t.  A bfloat16 call
+// with at most 16 rows a (batch, kv head) (S·H/HK <= 16) takes the split-KV
+// route with `chunk` keys a block: with more than one chunk up to kv_len
+// (and up to S when causal), `part` is float32 scratch of B·HK·chunks·
+// S·(H/HK)·(hd + 2) values that flash_attention_combine then reads;
+// otherwise `part` is null and the output is written here.
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, void* out, int dtype,
     int hd, long long b, long long s, int h, int hk, long long t,
     long long kv_len, int causal, float scale, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh, void* stream) {
+    long long o_sb, long long o_ss, long long o_sh, long long chunk,
+    void* part, void* stream) {
   if (h <= 0 || hk <= 0 || h % hk) return (int)cudaErrorInvalidValue;
   Params p{q, k, v, out, s, t, kv_len, h, hk, causal, scale,
            q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
            o_sb, o_ss, o_sh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_hd<float>(p, hd, b, st);
-  if (dtype == 1) return launch_hd<__nv_bfloat16>(p, hd, b, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_hd(p, dtype, hd, b, chunk, part,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// The second launch of a split-KV call: merges the n_chunks partial
+// results in `part` into out (bfloat16, strides in elements).
+extern "C" int flash_attention_combine(
+    const void* part, void* out, int hd, long long b, long long s, int h,
+    int hk, long long n_chunks, long long o_sb, long long o_ss,
+    long long o_sh, void* stream) {
+  if (h <= 0 || hk <= 0 || h % hk || s * (h / hk) > dec::ROWS ||
+      n_chunks < 1 || b * hk > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  Params p{nullptr, nullptr, nullptr, out, s, 0, 0, h, hk, 0, 0.f,
+           0, 0, 0, 0, 0, 0, 0, 0, 0, o_sb, o_ss, o_sh};
+  dec::combine_kernel<<<(unsigned)(b * hk), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), (int)n_chunks, hd, p);
+  return (int)cudaGetLastError();
 }

@@ -8,10 +8,15 @@ version in ``ref.py``; a CUDA tensor goes to the hand-written kernel in
 else raises.  There is no fallback from the kernel to the plain version.
 The wrapper checks its inputs, allocates the output, launches on the
 current stream and adds one to ``launches["flash_attention"]`` per
-kernel call.  ``models/lm/transformer.py`` calls it only with CUDA
-tensors: on the CPU the model runs the reference's own plain attention
-(whose decode and short-sequence branches round the probabilities to the
-model's type), so the CPU branch here serves the kernel's tests.
+call.  A bfloat16 call with at most :data:`DECODE_ROWS` rows a (batch, kv
+head) (S·H/HK, as at a decode step) splits its keys into chunks of
+:data:`DECODE_CHUNK`; with more than one chunk the wrapper allocates the
+chunks' float32 scratch, and a second launch merges them in order and
+adds one to ``launches["flash_attention_combine"]``.
+``models/lm/transformer.py`` calls it only with CUDA tensors: on the CPU
+the model runs the reference's own plain attention (whose decode and
+short-sequence branches round the probabilities to the model's type), so
+the CPU branch here serves the kernel's tests.
 """
 from __future__ import annotations
 
@@ -22,14 +27,18 @@ import torch
 
 from repro_torch.kernels.flash_attention import ref
 
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_combine": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
+DECODE_ROWS = 16        # bf16 calls with at most this many rows split KV
+DECODE_CHUNK = 1024     # keys a block of the split-KV route
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _ARGTYPES = ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _LL, _LL,
               ctypes.c_int, ctypes.c_int, _LL, _LL, ctypes.c_int,
-              ctypes.c_float] + [_LL] * 12 + [_P])
+              ctypes.c_float] + [_LL] * 13 + [_P, _P])
+_COMBINE_ARGTYPES = [_P, _P, ctypes.c_int, _LL, _LL, ctypes.c_int,
+                     ctypes.c_int, _LL, _LL, _LL, _LL, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -46,6 +55,8 @@ def _lib():
     if lib.flash_attention.argtypes is None:
         lib.flash_attention.argtypes = _ARGTYPES
         lib.flash_attention.restype = ctypes.c_int
+        lib.flash_attention_combine.argtypes = _COMBINE_ARGTYPES
+        lib.flash_attention_combine.restype = ctypes.c_int
     return lib
 
 
@@ -98,19 +109,46 @@ def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None):
         return ref.attention_ref(q, k, v, causal=causal, kv_len=kv_len)
     _check(q, k, v, kv_len)
     b, s, h, d = q.shape
+    hk = k.shape[2]
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    err = _lib().flash_attention(
+    chunks = split_chunks(q.dtype, s, h // hk, kv_len, causal)
+    part = None
+    if chunks > 1:
+        part = torch.empty(b * hk * chunks * s * (h // hk) * (d + 2),
+                           dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _lib()
+    err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], d, b, s, h, k.shape[2], t, kv_len, int(causal),
+        _DTYPES[q.dtype], d, b, s, h, hk, t, kv_len, int(causal),
         1.0 / math.sqrt(d), *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *out.stride()[:3],
-        torch.cuda.current_stream().cuda_stream)
+        *v.stride()[:3], *out.stride()[:3], DECODE_CHUNK,
+        None if part is None else part.data_ptr(), stream)
     if err:
         raise RuntimeError(f"flash_attention failed with cudaError_t {err}")
     launches["flash_attention"] += 1
+    if part is not None:
+        err = lib.flash_attention_combine(
+            part.data_ptr(), out.data_ptr(), d, b, s, h, hk, chunks,
+            *out.stride()[:3], stream)
+        if err:
+            raise RuntimeError(f"flash_attention_combine failed with "
+                               f"cudaError_t {err}")
+        launches["flash_attention_combine"] += 1
     return out
+
+
+def split_chunks(dtype, s: int, g: int, kv_len: int, causal: bool) -> int:
+    """Chunks of :data:`DECODE_CHUNK` keys that a card call with S
+    queries over G = H / HK heads a kv head takes on the split-KV route
+    (bfloat16, S·G <= :data:`DECODE_ROWS`), up to kv_len and, when
+    causal, up to S; 0 for the other routes."""
+    if dtype != torch.bfloat16 or s * g > DECODE_ROWS:
+        return 0
+    kv_end = min(kv_len, s) if causal else kv_len
+    return -(-kv_end // DECODE_CHUNK)
 
 
 def flash_attention_bhsd(q, k, v, causal: bool = True,

@@ -62,7 +62,8 @@ def engine_arrays(sg: eng.ShardedGraph, feats: np.ndarray,
     """Rank ``rank``'s engine arrays as tensors on ``device``: its slice
     of the ShardedGraph, its masters' features, labels and label mask,
     and its mirror block-CSR (``cols``, ``blocks``) over R mirrors padded
-    to a multiple of :data:`BLOCK`."""
+    to a multiple of :data:`BLOCK`, with ``symmetric``, the block-CSR's
+    record that its gradient may reuse it (a bool, not a tensor)."""
     o = sg.caps["O"]
     sel = sg.owned_mask[rank]
     ids = sg.owned_glob[rank][sel]
@@ -73,14 +74,17 @@ def engine_arrays(sg: eng.ShardedGraph, feats: np.ndarray,
     y_o[sel] = labels[ids]
     m_o[sel] = label_mask[ids]
     local = sg.edges_ml[rank][sg.emask[rank]]
-    cols, blocks, _ = spmm.build_block_csr(local, sg.caps["R"], BLOCK, BLOCK)
+    csr = spmm.build_block_csr(local, sg.caps["R"], BLOCK, BLOCK)
+    cols, blocks, _ = csr
     out = dict(edges_ml=sg.edges_ml[rank], emask=sg.emask[rank],
                send_idx=sg.send_idx[rank], send_mask=sg.send_mask[rank],
                recv_owned=sg.recv_owned[rank],
                owned_mask=sg.owned_mask[rank], feats=f_o, labels=y_o,
                label_mask=m_o, cols=cols, blocks=blocks)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in out.items()}
+    arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+              for k, v in out.items()}
+    arrays["symmetric"] = csr.symmetric
+    return arrays
 
 
 def _bcast(x_o, a, caps, group):
@@ -102,7 +106,8 @@ def gin_forward(model, a, caps: EngineCaps, group=None):
     for lp in model.layers:
         h_m = _bcast(h, a, caps, group)
         xp = torch.nn.functional.pad(h_m, (0, 0, 0, n_pad - r))
-        agg_m = spmm.block_spmm(a["cols"], a["blocks"], xp)[:r]
+        agg_m = spmm.block_spmm(a["cols"], a["blocks"], xp,
+                                a["symmetric"])[:r]
         agg = _reduce(agg_m, a, caps, group)
         h = torch.relu(lp.mlp((1.0 + lp.eps) * h + agg, act=torch.relu))
     return model.head(h)

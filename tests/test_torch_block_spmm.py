@@ -7,7 +7,8 @@ are held to the reference's Pallas kernel (interpret mode) and
 tolerance: the sums run in another order, and A's entries are small
 integers, so |got - want| <= 1e-5 * (|A| @ |x|) + 1e-6.  The gradient of
 ``block_spmm`` is the same product on A^T, which for the symmetric A it
-takes is A's own block-CSR.  The
+takes is A's own block-CSR: ``build_block_csr`` records whether A is
+symmetric, and the backward raises for an A that is not.  The
 ``gpu`` cases hold the CUDA kernel against the plain version on the card
 (the same tolerance and reason) and skip without one.
 """
@@ -170,27 +171,73 @@ def test_block_spmm_grad_equals_autograd_through_spmm_ref(directed_both):
     e, n = _edges("ba300")
     if not directed_both:
         e = np.concatenate([e, e[:, ::-1]])
-    cols, blocks, n_pad = ops.build_block_csr(e, n, 32, 32, directed_both)
+    csr = ops.build_block_csr(e, n, 32, 32, directed_both)
+    cols, blocks, n_pad = csr
+    assert csr.symmetric
     tc, tb = torch.from_numpy(cols), torch.from_numpy(blocks)
     x = torch.from_numpy(_x(n_pad, 6, 3)).requires_grad_()
     w = torch.from_numpy(_x(n_pad, 6, 4))
     launches = dict(ops.launches)
-    (ops.block_spmm(tc, tb, x) * w).sum().backward()
+    (ops.block_spmm(tc, tb, x, csr.symmetric) * w).sum().backward()
     x2 = x.detach().clone().requires_grad_()
     (ref.spmm_ref(e, x2, n_pad, directed_both) * w).sum().backward()
     _assert_spmm_close(x.grad, x2.grad, tc, tb, w)
     assert ops.launches == launches          # the CPU launches no kernel
     # cols and blocks take no gradient
     tb2 = tb.clone().requires_grad_()
-    ops.block_spmm(tc, tb2, x.detach()).sum().backward()
+    ops.block_spmm(tc, tb2, x.detach(), csr.symmetric).sum().backward()
     assert tb2.grad is None
+
+
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_block_csr_records_symmetry(graph):
+    """True for ``directed_both`` and for edges listed both ways, False for
+    one-directional edges; the record is the matrix's own symmetry."""
+    e, n = _edges(graph)
+    both = np.concatenate([e, e[:, ::-1]])
+    for edges, directed_both, want in ((e, True, True), (both, False, True),
+                                       (e, False, False)):
+        csr = ops.build_block_csr(edges, n, 32, 32, directed_both)
+        assert csr.symmetric is want
+        dense = ops.block_spmm(*(torch.from_numpy(t) for t in csr[:2]),
+                               torch.eye(csr[2]))
+        assert bool((dense == dense.T).all()) is want
+
+
+def test_block_spmm_grad_raises_for_one_directional_edges():
+    """A one-directional A is not its own transpose: the backward raises
+    rather than return A @ grad, the forward still matches the reference,
+    and the same edges with ``directed_both=True`` get the gradient that
+    autograd through ``spmm_ref`` gives."""
+    e, n = _edges("rmat8")
+    csr = ops.build_block_csr(e, n, 32, 32, directed_both=False)
+    cols, blocks, n_pad = csr
+    tc, tb = torch.from_numpy(cols), torch.from_numpy(blocks)
+    x = torch.from_numpy(_x(n_pad, 5, 6))
+    want = np.array(jbs.block_spmm(cols, blocks, x.numpy(), interpret=True))
+    _assert_spmm_close(ops.block_spmm(tc, tb, x, csr.symmetric),
+                       torch.from_numpy(want), tc, tb, x)
+    with pytest.raises(ValueError, match="symmetric"):
+        ops.block_spmm(tc, tb, x.clone().requires_grad_(),
+                       csr.symmetric).sum().backward()
+    with pytest.raises(ValueError, match="symmetric"):   # no record given
+        ops.block_spmm(tc, tb, x.clone().requires_grad_()).sum().backward()
+    csr = ops.build_block_csr(e, n, 32, 32, directed_both=True)
+    tc, tb = torch.from_numpy(csr[0]), torch.from_numpy(csr[1])
+    w = torch.from_numpy(_x(n_pad, 5, 7))
+    xg = x.clone().requires_grad_()
+    (ops.block_spmm(tc, tb, xg, csr.symmetric) * w).sum().backward()
+    x2 = x.clone().requires_grad_()
+    (ref.spmm_ref(e, x2, n_pad, True) * w).sum().backward()
+    _assert_spmm_close(xg.grad, x2.grad, tc, tb, w)
 
 
 def test_block_spmm_grad_needs_square_blocks():
     """With bm != bn A's block-CSR is not A^T's, so the backward raises
     rather than return a wrong gradient; the forward is the reference's."""
     e, n = _edges("rmat8")
-    cols, blocks, n_pad = ops.build_block_csr(e, n, 16, 32)
+    csr = ops.build_block_csr(e, n, 16, 32)
+    cols, blocks, n_pad = csr
     tc, tb = torch.from_numpy(cols), torch.from_numpy(blocks)
     x = torch.from_numpy(_x(n_pad, 4, 5))
     want = np.array(jbs.block_spmm(cols, blocks, x.numpy(),
@@ -198,7 +245,8 @@ def test_block_spmm_grad_needs_square_blocks():
     _assert_spmm_close(ops.block_spmm(tc, tb, x), torch.from_numpy(want),
                        tc, tb, x)
     with pytest.raises(ValueError, match="bm == bn"):
-        ops.block_spmm(tc, tb, x.requires_grad_()).sum().backward()
+        ops.block_spmm(tc, tb, x.requires_grad_(),
+                       csr.symmetric).sum().backward()
 
 
 def test_block_spmm_routes_by_device():
@@ -226,11 +274,12 @@ def cuda():
                                  (32, 7), (16, 1)])
 def test_block_spmm_kernel_matches_plain(cuda, b, f):
     e = np.asarray(j_rmat(11, 8, seed=2).edges)
-    cols, blocks, n_pad = ops.build_block_csr(e, 2048, b, b)
+    csr = ops.build_block_csr(e, 2048, b, b)
+    cols, blocks, n_pad = csr
     tc, tb = (torch.from_numpy(a).to(cuda) for a in (cols, blocks))
     x = torch.from_numpy(_x(n_pad, f, f)).to(cuda).requires_grad_()
     before = ops.launches["block_spmm"]
-    got = ops.block_spmm(tc, tb, x)
+    got = ops.block_spmm(tc, tb, x, csr.symmetric)
     torch.cuda.synchronize()
     assert ops.launches["block_spmm"] == before + 1
     _assert_spmm_close(got, ref.block_spmm_ref(tc, tb, x.detach()), tc, tb,

@@ -9,9 +9,16 @@ Grouped-query heads (HK < H) are held to the reference on repeated k and
 v, a ragged ``kv_len`` to the reference on the first kv_len keys, and
 the decode shape (S = 1 against a cache) to the transformer's
 ``decode_attention``.  The chunked plain version equals the whole-matrix
-one.  The ``gpu`` cases hold the CUDA kernel against the plain version on
-the card and skip without one.
+one.  An emulation of the bf16 kernel's arithmetic in plain torch shows
+why its P·V product takes p as two bf16 terms (hi + lo): with bf16(p)
+alone it misses the card checks' 1e-5 + 2^-7·|plain| (one bf16 step) at
+long rows.  The ``gpu`` cases hold the CUDA kernel against the plain
+version on the card and skip without one: the existing cases at their
+tolerances (2e-5 float32, 2e-2 bf16), the bf16 tensor-core and split-KV
+routes at 1e-5 + 2^-7·|plain|, and each bit for bit from call to call.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -113,6 +120,58 @@ def test_chunked_plain_version(causal, kv_len, chunk):
            2e-5)
 
 
+def _emulate_bf16_kernel(q, k, v, causal, kv_len, split):
+    """The bf16 kernel's arithmetic in plain torch: float32 scores, p =
+    exp(s - max) in float32, l summed from the unrounded p, P·V with p
+    rounded to bf16 (``split``: plus the bf16 rounding of the remainder,
+    a second product), products of bf16 values summed in float32, the
+    output rounded once to bf16."""
+    b, s, h, d = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, s, hk, h // hk, d)
+    sc = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(d)
+    sc = sc.masked_fill(~ref._mask(s, 0, t, kv_len, causal, q.device),
+                        float("-inf"))
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    hi = p.bfloat16().float()
+    acc = torch.einsum("bkgst,btkd->bskgd", hi, v.float())
+    if split:
+        lo = (p - hi).bfloat16().float()
+        acc = acc + torch.einsum("bkgst,btkd->bskgd", lo, v.float())
+    l = p.sum(-1).permute(0, 3, 1, 2)[..., None]           # (B, S, HK, G, 1)
+    return (acc / l).reshape(b, s, h, d).bfloat16()
+
+
+@pytest.mark.parametrize("b,s,t,causal", [(2, 1, 20_001, False),
+                                          (1, 1024, 1024, True)])
+def test_bf16_probabilities_need_hi_plus_lo(b, s, t, causal):
+    """At a decode shape (kv_len 20,001) and a causal S = T = 1,024 shape
+    (9 heads over 3, D = 64, random bf16), p split as hi + lo keeps the
+    output within 1e-5 + 2^-7·|plain| of the plain version, and bf16(p)
+    alone does not: the kernel runs two P·V products for that reason."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _normal(
+        t, (b, s, 9, 64), (b, t, 3, 64), (b, t, 3, 64)))
+    want = ref.attention_ref(q, k, v, causal=causal).float()
+    tol = 1e-5 + 2.0 ** -7 * want.abs()
+    for split, ok in ((True, True), (False, False)):
+        got = _emulate_bf16_kernel(q, k, v, causal, t, split).float()
+        assert bool(((got - want).abs() <= tol).all()) is ok
+
+
+def test_split_kv_chunks():
+    """Which card calls take the split-KV route, and in how many chunks:
+    bf16 with at most 16 rows a kv head, keys up to kv_len (up to S when
+    causal) in chunks of DECODE_CHUNK."""
+    bf, c = torch.bfloat16, ops.DECODE_CHUNK
+    assert ops.split_chunks(bf, 1, 3, 95, False) == 1       # serve_batch
+    assert ops.split_chunks(bf, 1, 3, 32_768, False) == 32_768 // c
+    assert ops.split_chunks(bf, 1, 3, c, False) == 1
+    assert ops.split_chunks(bf, 1, 3, c + 1, False) == 2
+    assert ops.split_chunks(bf, 4, 4, 5000, True) == 1      # 16 rows
+    assert ops.split_chunks(bf, 17, 1, 5000, False) == 0    # tensor cores
+    assert ops.split_chunks(torch.float32, 1, 3, 5000, False) == 0
+
+
 def test_bad_inputs_raise():
     q = torch.zeros((1, 4, 2, 16))
     with pytest.raises(ValueError):
@@ -177,3 +236,57 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         ops.flash_attention(q, q, q, kv_len=9)
     with pytest.raises(ValueError):
         ops.flash_attention(q, q.cpu(), q)
+
+
+def _bf16_case(cuda, b, s, t, h, hk, d, seed):
+    return (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _normal(
+        seed, (b, s, h, d), (b, t, hk, d), (b, t, hk, d)))
+
+
+def _check_bf16_route(q, k, v, causal, kv_len, combines):
+    """The kernel within 1e-5 + 2^-7·|plain| (one bf16 step: both compute
+    in float32 and round once, in different orders), equal bit for bit on
+    a second call, with one flash_attention launch a call and
+    ``combines`` combine launches."""
+    before = dict(ops.launches)
+    got = ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    again = ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before["flash_attention"] + 2
+    assert ops.launches["flash_attention_combine"] == \
+        before["flash_attention_combine"] + 2 * combines
+    assert torch.equal(got, again)
+    want = ref.attention_ref(q, k, v, causal=causal, kv_len=kv_len).float()
+    err = (got.float() - want).abs()
+    assert bool((err <= 1e-5 + 2.0 ** -7 * want.abs()).all()), \
+        float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 2, 3, 4])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_kernel_tensor_core_route(cuda, d, g, causal):
+    """The bf16 wgmma route (more than 16 rows a kv head) at every head
+    dim and group size, 150 queries (rows not a multiple of a block's)
+    against 333 keys, causal or with kv_len 300."""
+    q, k, v = _bf16_case(cuda, 2, 150, 333, 2 * g, 2, d, 16 * d + g)
+    _check_bf16_route(q, k, v, causal, None if causal else 300, 0)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_tensor_core_route_more_queries_than_keys(cuda):
+    q, k, v = _bf16_case(cuda, 1, 333, 150, 9, 3, 64, 7)
+    _check_bf16_route(q, k, v, True, None, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_len", [1, ops.DECODE_CHUNK,
+                                    ops.DECODE_CHUNK + 1, 20_001])
+def test_flash_kernel_split_kv_route(cuda, kv_len):
+    """The bf16 split-KV route (3 rows a kv head: one query, 9 heads over
+    3) against a 32,768-row cache: one chunk writes the output, more take
+    one combine launch."""
+    q, k, v = _bf16_case(cuda, 2, 1, 32_768, 9, 3, 64, kv_len)
+    chunks = ops.split_chunks(q.dtype, 1, 3, kv_len, False)
+    _check_bf16_route(q, k, v, False, kv_len, int(chunks > 1))
