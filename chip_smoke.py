@@ -28,16 +28,21 @@ Phases, each printing its lines; any failed check exits non-zero:
    time on inputs taken from a real round (single-controller kernels) or
    a real SPMD round (bit-packing kernels) beside its plain version's, a
    library call's and the bound from the bytes it must move, as one JSON
-   line;
+   line; for ``claim_scatter`` also the device time of its own kernels
+   and of the library call's (torch.profiler), and its one launch a call;
 6. full-graph GIN training (gin-tu, 5 layers, d_hidden 64) over the
    vertex-cut engine in a world-1 NCCL group, on a graph of Cora's size
    (``full_graph_sm``: 2,708 vertices, ~10,556 edges, 1,433 features,
-   7 classes) made from a seed: the ``block_spmm`` kernel against its
-   plain version (forward and backward, at the main path's shapes and at
-   16 x 16 blocks), three steps on the card against three on the CPU
+   7 classes) made from a seed: the registers, shared memory and spills
+   of the ``block_spmm`` kernels and the HMMA count of the tensor-core
+   one (``cuobjdump -sass``); each ``block_spmm`` kernel against its
+   plain version (forward and backward; the tensor-core kernel at the
+   main path's 128 x 128 blocks, the FMA kernel at 16 x 16) and bit for
+   bit from call to call, three steps on the card against three on the CPU
    (gloo, plain versions), 20 steps of ``train_engine_gin`` with the
    launch counts set to 0 just before and read just after (steps x
-   (2L - 1) launches), and the kernel's times beside its bound, its plain
+   (2L - 1) launches), and the kernel's times (events, and its own
+   kernels' device time) beside its FP32 and 3xTF32 bounds, its plain
    version's and a library call's.  Its row joins phase 5's JSON line;
 7. DeepFM serving at full width (deepfm: 39 fields x 1,048,576 rows,
    D 10, MLP 400-400-400, 10^6 candidates, float32, seeded random
@@ -88,6 +93,7 @@ PARTITIONS = 64                    # P = 64; other NEConfig fields default
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 FP32_FLOPS = 67e12                 # H100 SXM, FP32 on the CUDA cores
 BF16_FLOPS = 989e12                # H100 SXM, bf16 dense, tensor cores
+TF32_FLOPS = 495e12                # H100 SXM, TF32 dense, tensor cores
 CU_SOURCE = "src/repro_torch/kernels/ne_round/csrc/ne_round.cu"
 SPMM_SOURCE = "src/repro_torch/kernels/block_spmm/csrc/block_spmm.cu"
 EB_SOURCE = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
@@ -141,8 +147,85 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps: int):
+    """(ms, kernels) per call of ``fn``'s own kernels on the device, from
+    the self device time that torch.profiler records over ``reps`` calls
+    after a warm-up call: for each kernel name, its mean time an instance
+    times its instances a call (its count over ``reps``, rounded: the
+    profiler loses an instance now and then), summed; and the kernel
+    launches a call.  Fails if the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and e.count]
+    per_call = [(max(1, round(e.count / reps)),
+                 e.self_device_time_total / e.count) for e in rows]
+    us = sum(n * t for n, t in per_call)
+    check(us > 0, "torch.profiler recorded no device time")
+    return us / 1e3, sum(n for n, _ in per_call)
+
+
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def cuobjdump():
+    """The cuobjdump of the CUDA toolkit or of Triton's package, or None."""
+    import shutil
+
+    tools = [shutil.which("cuobjdump"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "cuobjdump")]
+    try:
+        import triton
+        tools.append(os.path.join(os.path.dirname(triton.__file__),
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    return next((t for t in tools if t and os.path.exists(t)), None)
+
+
+def sass_counts(tool, build, family: str, match: str, instrs) -> dict:
+    """{kernel: {instruction: count}} from ``tool -sass`` (cuobjdump) of a
+    built family, for the kernels whose mangled name holds ``match``."""
+    sass = subprocess.run([tool, "-sass", str(build._library(family))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fn = fn if match in fn else None
+            if fn:
+                counts[fn] = dict.fromkeys(instrs, 0)
+        elif fn:
+            for ins in counts[fn]:
+                counts[fn][ins] += f" {ins}." in line or f" {ins} " in line
+    return counts
+
+
+def ptxas_report(build, family: str, kernels, label: str) -> None:
+    """Print ``nvcc -Xptxas -v``'s registers, static shared memory and
+    spills of the named kernels of a family built in this run."""
+    name, seen = None, set()
+    for line in build.build_logs.get(family, "").splitlines():
+        if ("Compiling entry function" in line
+                or "Function properties for" in line):
+            name = next((k for k in kernels if k in line), None)
+        elif name and ("spill" in line or "Used" in line):
+            seen.add(name)
+            print(f"{label}: ptxas {name}: {line.split(':', 1)[-1].strip()}",
+                  flush=True)
+    if set(kernels) - seen:
+        print(f"{label}: ptxas: no report for {sorted(set(kernels) - seen)} "
+              f"in the build log of {family}", flush=True)
 
 
 def max_abs_err(got, want) -> int:
@@ -394,6 +477,19 @@ def phase_times(torch, tp, ops, ref, g, cfg, limit, state, reps):
             "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
             "library_ms": None if lib is None else time_ms(lib, reps),
         })
+        if name == "claim_scatter":
+            dev_ms, kernels = device_ms(torch, kern, reps)
+            lib_dev_ms, lib_kernels = device_ms(torch, lib, reps)
+            check(kernels == 1, f"claim_scatter ran {kernels} kernels a "
+                  "call, not 1")
+            rows[-1].update({"device_ms": dev_ms,
+                             "library_device_ms": lib_dev_ms,
+                             "cuda_launches_per_call": kernels})
+            print(f"phase 5: claim_scatter device time (profiler) {dev_ms!r} "
+                  f"ms, {kernels} kernel a call; fill_ + scatter_reduce_ "
+                  f"{lib_dev_ms!r} ms, {lib_kernels} kernels a call; event "
+                  f"time {rows[-1]['ms']!r} / {rows[-1]['library_ms']!r} ms",
+                  flush=True)
     print(f"phase 5: timed on round {int(state.rounds)}'s inputs "
           f"(chunk 0 boundary |B| = {bsize} over {c} rows)", flush=True)
 
@@ -457,11 +553,13 @@ def spmm_close(ref, got, want, cols, blocks, x):
     return float(err.max()), bool((err <= 1e-5 * scale + 1e-6).all())
 
 
-def spmm_bound(r, nb, bm, bn, f, x_rows):
-    """(bound ms, what bounds it) of one block_spmm call: 2 R NB bm bn F
-    operations at the FP32 rate, or the bytes of blocks, x, out and cols
-    at the memory rate, whichever takes longer."""
-    ops_ms = 2 * r * nb * bm * bn * f / FP32_FLOPS * 1e3
+def spmm_bound(r, nb, bm, bn, f, x_rows, products=1, flops=FP32_FLOPS):
+    """(bound ms, what bounds it) of one block_spmm call: ``products`` x 2
+    R NB bm bn F operations at ``flops`` (FP32 on the CUDA cores; the
+    tensor-core kernel's three TF32 products at the TF32 rate), or the
+    bytes of blocks, x, out and cols at the memory rate, whichever takes
+    longer."""
+    ops_ms = products * 2 * r * nb * bm * bn * f / flops * 1e3
     bytes_ms = bound_ms(4 * (r * nb * bm * bn + x_rows * f + r * bm * f
                              + r * nb))
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
@@ -488,8 +586,9 @@ def gnn_data(np, shape, seed):
 def phase_spmm_checks(torch, spmm, sref, a, local, r_mirrors, d_feat, dev):
     """Phase 6, check 1: block_spmm against its plain version on the card,
     forward and backward, on the main path's mirror block-CSR (128 x 128
-    blocks) at layer 1's F and at d_hidden 64, and on 16 x 16 blocks of
-    the same adjacency.  Returns the largest error."""
+    blocks: the tensor-core kernel) at layer 1's F and at d_hidden 64, and
+    on 16 x 16 blocks of the same adjacency (the FMA kernel), each forward
+    bit for bit from call to call.  Returns the largest error."""
     gen = torch.Generator(device=dev).manual_seed(14)
     csr16 = spmm.build_block_csr(local, r_mirrors, 16, 16)
     cases = [(128, a["cols"], a["blocks"], a["symmetric"], d_feat),
@@ -504,7 +603,11 @@ def phase_spmm_checks(torch, spmm, sref, a, local, r_mirrors, d_feat, dev):
         xg = x.clone().requires_grad_()
         out = spmm.block_spmm(cols, blocks, xg, symmetric)
         out.backward(g)
+        again = spmm.block_spmm(cols, blocks, x)
         torch.cuda.synchronize()
+        check(torch.equal(out.detach().view(torch.int32),
+                          again.view(torch.int32)),
+              f"block_spmm at {b}x{b} blocks, F={f}: two calls differ")
         for what, got, xx in (("forward", out.detach(), x),
                               ("backward", xg.grad, g)):
             err, ok = spmm_close(sref, got,
@@ -513,9 +616,10 @@ def phase_spmm_checks(torch, spmm, sref, a, local, r_mirrors, d_feat, dev):
             check(ok, f"block_spmm {what} differs from plain at {b}x{b} "
                   f"blocks, F={f}: max abs err {err!r}")
             worst = max(worst, err)
-        print(f"phase 6: block_spmm == plain (forward and backward) at "
-              f"{b}x{b} blocks, R={cols.shape[0]}, NB={cols.shape[1]}, "
-              f"F={f}; tolerance 1e-5*(|A|@|x|)+1e-6", flush=True)
+        print(f"phase 6: block_spmm ({spmm.design(b, b)} kernel) == plain "
+              f"(forward and backward) at {b}x{b} blocks, R={cols.shape[0]}, "
+              f"NB={cols.shape[1]}, F={f}; tolerance 1e-5*(|A|@|x|)+1e-6; "
+              "the same bits from call to call", flush=True)
     return worst
 
 
@@ -668,6 +772,24 @@ def library_spmm(torch, cols, blocks, x):
     return (lambda: dense @ x), "torch.matmul(dense adjacency)"
 
 
+def fma_spmm(torch, spmm, cols, blocks, x):
+    """A call of the FMA kernel (the first design, which the wrapper runs
+    for small blocks) on the tensor-core kernel's shapes, for comparison:
+    ``block_spmm_fma`` into a fresh output.  Never called by the port at
+    these shapes."""
+    r, nb, bm, bn = blocks.shape
+
+    def call():
+        out = torch.empty((r * bm, x.shape[1]), device=x.device)
+        err = spmm._lib().block_spmm_fma(
+            cols.data_ptr(), blocks.data_ptr(), x.data_ptr(), r, nb, bm, bn,
+            x.shape[0], x.shape[1], out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"block_spmm_fma failed with cudaError_t {err}")
+        return out
+    return call
+
+
 def no_tf32(torch, label: str) -> None:
     """Full float32 matmuls and convolutions for a card-against-CPU check,
     and a line that says so."""
@@ -684,6 +806,7 @@ def phase_gnn(torch, np, compat, ne_ops, args):
     from repro_torch.apps import engine as eng
     from repro_torch.configs import gin_tu
     from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.kernels import build
     from repro_torch.kernels.block_spmm import ops as spmm
     from repro_torch.kernels.block_spmm import ref as sref
     from repro_torch.launch import gnn_engine as ge
@@ -716,6 +839,20 @@ def phase_gnn(torch, np, compat, ne_ops, args):
           f"of {r * nb}, blocks {blocks.nbytes} B + cols {cols.nbytes} B",
           flush=True)
 
+    ptxas_report(build, "block_spmm",
+                 ("spmm_tc_kernel", "spmm_reduce_kernel", "spmm_kernel"),
+                 "phase 6")
+    tool = cuobjdump()
+    if tool is None:
+        print("phase 6: spmm_tc_kernel instructions: no cuobjdump found, "
+              "not counted", flush=True)
+    else:
+        hmma = sass_counts(tool, build, "block_spmm", "spmm_tc_kernel",
+                           ("HMMA", "HGMMA"))
+        print(f"phase 6: spmm_tc_kernel instructions ({tool} -sass): "
+              f"{hmma}", flush=True)
+        check(bool(hmma) and all(c["HMMA"] > 0 for c in hmma.values()),
+              f"spmm_tc_kernel without HMMA instructions: {hmma}")
     worst = phase_spmm_checks(torch, spmm, sref, a, local, caps.r_mirrors,
                               shape["d_feat"], dev)
     phase_gnn_card_vs_cpu(torch, np, compat, ge, gin, opt, data, cfg, p0,
@@ -754,7 +891,7 @@ def phase_gnn(torch, np, compat, ne_ops, args):
     want = GNN_STEPS * (2 * cfg.n_layers - 1)
     busy = sum(e.self_device_time_total for e in prof)
     spmm_us = sum(e.self_device_time_total for e in prof
-                  if "spmm_kernel" in e.key)
+                  if "spmm_" in e.key)
     print(f"phase 6: train_engine_gin {GNN_STEPS} steps: losses {losses}; "
           f"wall {wall!r} s (host build included); steady step "
           f"{step_s!r} s; peak device memory {peak} B above the "
@@ -781,22 +918,46 @@ def phase_gnn(torch, np, compat, ne_ops, args):
                              cols, blocks, x)
         check(ok, f"the library yardstick {lib_name} differs: {err}")
         bound, by = spmm_bound(r, nb, bm, bn, f, x.shape[0])
+        bound_tc, by_tc = spmm_bound(r, nb, bm, bn, f, x.shape[0], 3,
+                                     TF32_FLOPS)
+        kern = lambda: spmm.block_spmm(cols, blocks, x)    # noqa: E731
+        dev_ms, kernels = device_ms(torch, kern, args.reps)
+        lib_dev_ms, _ = device_ms(torch, lib, args.reps)
+        fma = fma_spmm(torch, spmm, cols, blocks, x)
+        err, ok = spmm_close(sref, fma(), sref.block_spmm_ref(cols, blocks, x),
+                             cols, blocks, x)
+        check(ok, f"the FMA kernel differs at F={f}: {err}")
         row.update({
-            "ms" + tag: time_ms(lambda: spmm.block_spmm(cols, blocks, x),
-                                args.reps),
+            "design" + tag: spmm.design(bm, bn),
+            "ms" + tag: time_ms(kern, args.reps),
+            "device_ms" + tag: dev_ms,
+            "cuda_launches_per_call" + tag: kernels,
             "plain_ms" + tag: time_ms(
                 lambda: sref.block_spmm_ref(cols, blocks, x),
                 max(1, args.reps // 4)),
             "bound_ms" + tag: bound, "bound_by" + tag: by,
+            "bound_tc_ms" + tag: bound_tc, "bound_tc_by" + tag: by_tc,
             "library_ms" + tag: time_ms(lib, args.reps),
+            "library_device_ms" + tag: lib_dev_ms,
+            "fma_ms" + tag: time_ms(fma, args.reps),
+            "fma_device_ms" + tag: device_ms(torch, fma, args.reps)[0],
             "library_call" + tag: lib_name, "F" + tag: f})
-    print(f"phase 6: block_spmm times (F={shape['d_feat']} / F=64): "
-          f"ms {row['ms']!r} / {row['ms_f64']!r}, bound "
+    print(f"phase 6: block_spmm times (F={shape['d_feat']} / F=64, "
+          f"{row['design']} / {row['design_f64']} kernel): ms "
+          f"{row['ms']!r} / {row['ms_f64']!r}, device_ms "
+          f"{row['device_ms']!r} / {row['device_ms_f64']!r} "
+          f"(profiler; {row['cuda_launches_per_call']} / "
+          f"{row['cuda_launches_per_call_f64']} kernels a call), FP32 bound "
           f"{row['bound_ms']!r} / {row['bound_ms_f64']!r} "
-          f"({row['bound_by']} / {row['bound_by_f64']}), plain "
+          f"({row['bound_by']} / {row['bound_by_f64']}), 3xTF32 bound "
+          f"{row['bound_tc_ms']!r} / {row['bound_tc_ms_f64']!r}, plain "
           f"{row['plain_ms']!r} / {row['plain_ms_f64']!r}, library "
-          f"{row['library_ms']!r} / {row['library_ms_f64']!r} "
-          f"({row['library_call']})", flush=True)
+          f"{row['library_ms']!r} / {row['library_ms_f64']!r}, library "
+          f"device_ms {row['library_device_ms']!r} / "
+          f"{row['library_device_ms_f64']!r} ({row['library_call']}); the "
+          f"FMA kernel at the same shapes: ms {row['fma_ms']!r} / "
+          f"{row['fma_ms_f64']!r}, device_ms {row['fma_device_ms']!r} / "
+          f"{row['fma_device_ms_f64']!r}", flush=True)
     return row
 
 
@@ -1117,44 +1278,22 @@ def phase_lm_kernel(torch, fa, faref, dev):
     return worst
 
 
-def prefill_instructions(subprocess, build) -> None:
+def prefill_instructions(build) -> None:
     """Phase 8: count the tensor-core and TMA instructions of the built
     prefill kernel (``cuobjdump -sass`` of the flash library, from the CUDA
     toolkit or Triton's package); fails if the tool is found and the
     kernel has no HGMMA or HMMA."""
-    import shutil
-
-    tools = [shutil.which("cuobjdump"),
-             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                          "bin", "cuobjdump")]
-    try:
-        import triton
-        tools.append(os.path.join(os.path.dirname(triton.__file__),
-                                  "backends", "nvidia", "bin", "cuobjdump"))
-    except ImportError:
-        pass
-    tool = next((t for t in tools if t and os.path.exists(t)), None)
+    tool = cuobjdump()
     if tool is None:
         print("phase 8: prefill kernel instructions: no cuobjdump found (CUDA "
               "toolkit or triton/backends/nvidia/bin), not counted",
               flush=True)
         return
-    lib = str(build._library("flash_attention"))
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, check=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            fn = fn if "prefill_kernel" in fn else None
-            if fn:
-                counts[fn] = dict.fromkeys(("HGMMA", "HMMA", "UTMALDG"), 0)
-        elif fn:
-            for ins in counts[fn]:
-                counts[fn][ins] += f" {ins}." in line or f" {ins} " in line
-    check(bool(counts), f"no prefill_kernel in {lib}'s SASS ({tool})")
-    total = {ins: sum(c[ins] for c in counts.values())
-             for ins in ("HGMMA", "HMMA", "UTMALDG")}
+    instrs = ("HGMMA", "HMMA", "UTMALDG")
+    counts = sass_counts(tool, build, "flash_attention", "prefill_kernel",
+                         instrs)
+    check(bool(counts), "no prefill_kernel in the flash library's SASS")
+    total = {ins: sum(c[ins] for c in counts.values()) for ins in instrs}
     print(f"phase 8: prefill kernel instructions ({tool} -sass, "
           f"{len(counts)} head-dim instances): " + "; ".join(
               f"D={d}: {c}" for d, c in sorted(
@@ -1248,7 +1387,7 @@ def phase_lm(torch, args):
     cfg = smollm_135m.CONFIG
     no_tf32(torch, "phase 8")
     worst = phase_lm_kernel(torch, fa, faref, dev)
-    prefill_instructions(subprocess, build)
+    prefill_instructions(build)
     phase_lm_card_vs_cpu(torch, cfg, steps, dev)
     torch.cuda.empty_cache()
     model = Transformer(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -1503,6 +1642,7 @@ def main() -> None:
     cfg = tp.NEConfig(num_partitions=PARTITIONS).clamped(n)
     p_num = cfg.num_partitions
     c = min(cfg.sel_chunk, p_num)
+    ptxas_report(build, "ne_round", ("claim_kernel",), "phase 2")
     phase_kernels(torch, ops, ref, g, dev, p_num, c, cfg.k_sel)
     phase_bit_kernels(torch, ops, ref, n, dev, p_num, min(cfg.edge_chunk, m))
 

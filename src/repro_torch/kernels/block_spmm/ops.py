@@ -3,15 +3,21 @@ kernel wrapper ``block_spmm`` (differentiable in ``x``) and
 ``aggregate_neighbors``, with the reference package's signatures.
 
 The tensor's device decides the route: a CPU tensor goes to the plain
-version in ``ref.py``; a CUDA tensor goes to the hand-written kernel in
+version in ``ref.py``; a CUDA tensor goes to a hand-written kernel in
 ``csrc/block_spmm.cu`` (built with ``nvcc`` at first use); anything else
-raises.  There is no fallback from the kernel to the plain version.  The
-wrapper checks its inputs, allocates the output, launches on the current
-stream and adds one to ``launches["block_spmm"]`` per kernel call.
+raises.  There is no fallback from the kernel to the plain version.  On
+the card, :func:`design` picks one of the source's two kernels by shape:
+``"tc"`` (split-TF32 tensor cores, slots split over blocks and summed in
+a fixed order) or ``"fma"`` (FP32 CUDA cores).  The wrapper checks its
+inputs, allocates the output (and the tensor-core kernel's workspace of
+partial sums), launches on the current stream and adds one to
+``launches["block_spmm"]`` per kernel call (the tensor-core kernel's
+second launch, which sums the partials, is part of that call).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -21,8 +27,14 @@ from repro_torch.kernels.block_spmm import ref
 launches = {"block_spmm": 0}
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P, _P]
+_I, _L = ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    "block_spmm_fma": [_P, _P, _P, _L, _I, _I, _I, _L, _I, _P, _P],
+    "block_spmm_tc": [_P, _P, _P, _L, _I, _I, _I, _L, _I, _I, _I, _P, _P,
+                      _P],
+}
+TC_ROWS = 128                  # rows of the tensor-core kernel's block
+MAX_SPLITS = 64                # slot ranges of one row tile, at most
 
 
 def reset_launches() -> None:
@@ -35,10 +47,46 @@ def _lib():
     from repro_torch.kernels import build
 
     lib = build.load("block_spmm")
-    if lib.block_spmm.argtypes is None:
-        lib.block_spmm.argtypes = _ARGTYPES
-        lib.block_spmm.restype = ctypes.c_int
+    if lib.block_spmm_tc.argtypes is None:
+        for fn, argtypes in _ARGTYPES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def design(bm: int, bn: int) -> str:
+    """The card's kernel for (bm, bn) blocks: ``"tc"``, the split-TF32
+    tensor-core kernel, for bm >= 64 a multiple of 16 and bn a multiple of
+    32 (the GNN path's 128 x 128); ``"fma"``, the FP32 CUDA-core kernel,
+    for the rest (16 x 16, 32 x 32 and ragged blocks)."""
+    return "tc" if bm >= 64 and bm % 16 == 0 and bn % 32 == 0 else "fma"
+
+
+def tc_cols(f: int) -> int:
+    """Columns of F a tensor-core block covers: 64 (4 warps, two blocks an
+    SM) for F <= 64, else 128 (8 warps, one block an SM: half the re-reads
+    of A at F = 1,433)."""
+    return 64 if f <= 64 else 128
+
+
+def tc_slots_per_split(r: int, nb: int, bm: int, f: int, sms: int) -> int:
+    """Slots per block of the tensor-core kernel: all NB when the (row
+    tile, 128 rows, ``tc_cols(f)`` columns of F) blocks fill the SMs on
+    their own (two blocks an SM at 64 columns, one at 128), else the slots
+    split into enough ranges to do so (at most ``MAX_SPLITS``), each range
+    a block whose partial sums a second launch adds in range order.  The
+    split depends on the shape and the card only, so the same inputs give
+    the same bits."""
+    cols = tc_cols(f)
+    units = r * -(-bm // TC_ROWS) * -(-f // cols)
+    per_sm = 2 if cols == 64 else 1
+    splits = min(max(-(-per_sm * sms // units), 1), nb, MAX_SPLITS)
+    return -(-nb // splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 class BlockCSR(tuple):
@@ -124,10 +172,28 @@ def _spmm(cols, blocks, x):
     out = torch.empty((r * bm, f), dtype=x.dtype, device=x.device)
     if out.numel() == 0 or nb == 0:
         return out.zero_()
-    err = _lib().block_spmm(cols.data_ptr(), blocks.data_ptr(),
-                            x.data_ptr(), r, nb, bm, bn, n, f,
-                            out.data_ptr(),
-                            torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    if design(bm, bn) == "tc" and blocks.data_ptr() % 16 == 0:
+        per = tc_slots_per_split(r, nb, bm, f, _sm_count(x.device.index))
+        splits = -(-nb // per)
+        part = (torch.empty((splits, r * bm, f), dtype=x.dtype,
+                            device=x.device) if splits > 1 else None)
+        ldx = -(-f // 4) * 4
+        if ldx != f or x.data_ptr() % 16:
+            # the kernel copies x 16 bytes at a time: rows of a multiple of
+            # 4 floats, 16-byte aligned (F = 1,433: a 16 MB copy); the pad
+            # columns only reach output columns that are not written
+            xp = torch.empty((n, ldx), dtype=x.dtype, device=x.device)
+            xp[:, :f].copy_(x)
+            x = xp
+        err = _lib().block_spmm_tc(
+            cols.data_ptr(), blocks.data_ptr(), x.data_ptr(), r, nb, bm, bn,
+            n, f, ldx, per, 0 if part is None else part.data_ptr(),
+            out.data_ptr(), stream)
+    else:
+        err = _lib().block_spmm_fma(cols.data_ptr(), blocks.data_ptr(),
+                                    x.data_ptr(), r, nb, bm, bn, n, f,
+                                    out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"block_spmm failed with cudaError_t {err}")
     launches["block_spmm"] += 1

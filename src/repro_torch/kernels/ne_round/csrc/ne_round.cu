@@ -26,9 +26,19 @@
 // claim_scatter — replaces ne_round.py::claim_scatter.
 //   vclaim[v] = min over claiming partitions of priority_enc(|E_p|, p),
 //   INT32_MAX where no partition claimed v.
-//   Bound: device memory, the 4N-byte fill; the P*K scatter is tiny.
-//   Design: one fill launch, then one thread per (p, k) slot doing an
-//   int32 atomicMin where the slot is valid.
+//   Bound: device memory, the 4N-byte output; the P*K claims are tiny.
+//   Design: one launch, no global atomics and no grid sync.  Each block
+//   owns CLAIM_RANGE = 32,768 consecutive vertices (128 KB of shared
+//   memory, one block an SM; at N = 2^22, 128 blocks): it fills its range
+//   with I32_INF in shared memory, reads all P*K slots (16-byte index and
+//   4-byte flag loads, eight of each in flight a thread; L2-resident
+//   after the first blocks), applies a shared-memory atomicMin for each
+//   valid slot whose vertex lies in its range, and writes the range once
+//   with 16-byte stores.  So the output is written once and never read,
+//   where a separate fill wrote it and the scatter then read and wrote it
+//   again.  Every block reads all the slots, so fewer, larger ranges read
+//   less (16,384 vertices a block was slower).  Slots with a vertex
+//   outside [0, N) fall in no block's range and are dropped.
 //
 // select — replaces ne_round.py::select.
 //   For a (C, N) chunk of partitions: boundary mask vparts & D_rest > 0 &
@@ -129,43 +139,97 @@ extern "C" int ne_one_hop(const int* vclaim, const int* u, const int* v,
 // claim_scatter
 // ---------------------------------------------------------------------------
 
-__global__ void fill_kernel(int* __restrict__ out, long long n, int value) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += stride)
-    out[i] = value;
+constexpr int CLAIM_RANGE = 32768;    // vertices a block owns
+constexpr int CLAIM_THREADS = 512;
+constexpr int CLAIM_UNROLL = 8;       // 16-byte index loads in flight
+
+__device__ __forceinline__ void claim_one(int vtx, bool valid, long long t,
+                                          long long base, int len, int k,
+                                          int p_num, int cap,
+                                          const int* __restrict__ epp,
+                                          int* claim_s) {
+  const long long off = (long long)vtx - base;
+  if (valid && off >= 0 && off < len) {
+    const int row = (int)(t / k);
+    atomicMin(claim_s + off, min(__ldg(epp + row), cap) * p_num + row);
+  }
 }
 
-__global__ void claim_kernel(const int* __restrict__ sel_idx,
-                             const uint8_t* __restrict__ sel_valid,
-                             const int* __restrict__ edges_per_part,
-                             int rows, int k, int p_num, long long n,
-                             int* __restrict__ out) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)rows * k || !sel_valid[t]) return;
-  const int vtx = sel_idx[t];
-  if (vtx < 0 || vtx >= n) return;               // the reference drops it
-  const int row = (int)(t / k);
+__global__ void __launch_bounds__(CLAIM_THREADS)
+claim_kernel(const int* __restrict__ sel_idx,
+             const uint8_t* __restrict__ sel_valid,
+             const int* __restrict__ edges_per_part, int rows, int k,
+             int p_num, long long n, int vec, int* __restrict__ out) {
+  extern __shared__ int4 claim_s4[];
+  int* claim_s = reinterpret_cast<int*>(claim_s4);
+  const long long base = (long long)blockIdx.x * CLAIM_RANGE;
+  const int len = (int)min((long long)CLAIM_RANGE, n - base);
+  const int4 inf4 = make_int4(I32_INF, I32_INF, I32_INF, I32_INF);
+  for (int i = threadIdx.x; i < CLAIM_RANGE / 4; i += CLAIM_THREADS)
+    claim_s4[i] = inf4;
+  __syncthreads();
+
   const int cap = (I32_INF - p_num) / p_num - 1;
-  atomicMin(out + vtx, min(edges_per_part[row], cap) * p_num + row);
+  const long long slots = (long long)rows * k;
+  const long long q = vec ? slots / 4 : 0;   // groups of 4 slots
+  const int4* idx4 = reinterpret_cast<const int4*>(sel_idx);
+  const unsigned* val4 = reinterpret_cast<const unsigned*>(sel_valid);
+  for (long long i0 = threadIdx.x; i0 < q;
+       i0 += (long long)CLAIM_THREADS * CLAIM_UNROLL) {
+    int4 iv[CLAIM_UNROLL];
+    unsigned vv[CLAIM_UNROLL];
+#pragma unroll
+    for (int u = 0; u < CLAIM_UNROLL; ++u) {
+      const long long i = i0 + (long long)u * CLAIM_THREADS;
+      vv[u] = i < q ? __ldg(val4 + i) : 0u;
+      iv[u] = i < q ? __ldg(idx4 + i) : make_int4(-1, -1, -1, -1);
+    }
+#pragma unroll
+    for (int u = 0; u < CLAIM_UNROLL; ++u) {
+      const long long t = 4 * (i0 + (long long)u * CLAIM_THREADS);
+      claim_one(iv[u].x, vv[u] & 0xFFu, t, base, len, k, p_num, cap,
+                edges_per_part, claim_s);
+      claim_one(iv[u].y, vv[u] & 0xFF00u, t + 1, base, len, k, p_num, cap,
+                edges_per_part, claim_s);
+      claim_one(iv[u].z, vv[u] & 0xFF0000u, t + 2, base, len, k, p_num,
+                cap, edges_per_part, claim_s);
+      claim_one(iv[u].w, vv[u] & 0xFF000000u, t + 3, base, len, k, p_num,
+                cap, edges_per_part, claim_s);
+    }
+  }
+  for (long long t = 4 * q + threadIdx.x; t < slots; t += CLAIM_THREADS)
+    claim_one(__ldg(sel_idx + t), sel_valid[t] != 0, t, base, len, k, p_num,
+              cap, edges_per_part, claim_s);
+  __syncthreads();
+
+  int* o = out + base;                   // 16-byte aligned: see the caller
+  for (int i = threadIdx.x; i < len / 4; i += CLAIM_THREADS)
+    reinterpret_cast<int4*>(o)[i] = claim_s4[i];
+  for (int i = (len / 4) * 4 + threadIdx.x; i < len; i += CLAIM_THREADS)
+    o[i] = claim_s[i];
 }
 
+// One launch of ceil(N / CLAIM_RANGE) blocks; none for N = 0.  `out` must
+// be 16-byte aligned (a fresh torch.empty is).
 extern "C" int ne_claim_scatter(const int* sel_idx, const uint8_t* sel_valid,
                                 const int* edges_per_part, int rows, int k,
                                 long long n, int p_num, int* out,
                                 void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0) {
-    long long blocks = (n + 255) / 256;
-    if (blocks > 132 * 16) blocks = 132 * 16;
-    fill_kernel<<<(int)blocks, 256, 0, s>>>(out, n, I32_INF);
-    cudaError_t err = cudaGetLastError();
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        claim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        CLAIM_RANGE * (int)sizeof(int));
     if (err != cudaSuccess) return (int)err;
+    configured = true;
   }
-  const long long slots = (long long)rows * k;
-  if (slots > 0 && n > 0)
-    claim_kernel<<<(int)((slots + 255) / 256), 256, 0, s>>>(
-        sel_idx, sel_valid, edges_per_part, rows, k, p_num, n, out);
+  if (n <= 0) return 0;
+  const int vec = ((uintptr_t)sel_idx % 16 == 0) &&
+                  ((uintptr_t)sel_valid % 4 == 0);
+  const long long blocks = (n + CLAIM_RANGE - 1) / CLAIM_RANGE;
+  claim_kernel<<<(unsigned)blocks, CLAIM_THREADS,
+                 CLAIM_RANGE * sizeof(int), (cudaStream_t)stream>>>(
+      sel_idx, sel_valid, edges_per_part, rows, k, p_num, n, vec, out);
   return (int)cudaGetLastError();
 }
 

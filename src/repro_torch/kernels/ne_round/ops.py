@@ -159,6 +159,8 @@ def claim_scatter(sel_idx, sel_valid, edges_per_part, num_vertices: int,
     _check(sel_valid, torch.bool, (rows, k), "sel_valid")
     _check(edges_per_part, torch.int32, (rows,), "edges_per_part")
     out = torch.empty(num_vertices, dtype=torch.int32, device=sel_idx.device)
+    if num_vertices == 0:                  # nothing to write: no launch
+        return out
     err = _lib().ne_claim_scatter(_ptr(sel_idx), _ptr(sel_valid),
                                   _ptr(edges_per_part), rows, k,
                                   num_vertices, num_partitions, _ptr(out),

@@ -80,11 +80,14 @@ def select_ref(vparts_c, active_c, degree_rest, lam: float, k_sel: int,
 def claim_scatter_ref(sel_idx, sel_valid, edges_per_part,
                       num_vertices: int, num_partitions: int):
     """``vclaim[v] = min over claiming partitions of enc(|E_p|, p)``,
-    ``I32_INF`` where nobody claimed ``v``; invalid slots are dropped."""
+    ``I32_INF`` where nobody claimed ``v``; invalid slots and slots whose
+    vertex lies outside [0, N) are dropped (the reference drops v >= N
+    and wraps v < 0; ``select`` gives neither)."""
     rows = torch.arange(sel_idx.shape[0], dtype=torch.int32,
                         device=sel_idx.device)[:, None].expand_as(sel_idx)
     keys = _enc(edges_per_part[:, None], rows, num_partitions)
-    flat_v = torch.where(sel_valid, sel_idx,
+    keep = sel_valid & (sel_idx >= 0) & (sel_idx < num_vertices)
+    flat_v = torch.where(keep, sel_idx,
                          torch.full_like(sel_idx, num_vertices)).reshape(-1)
     vclaim = torch.full((num_vertices + 1,), I32_INF, dtype=torch.int32,
                         device=sel_idx.device)

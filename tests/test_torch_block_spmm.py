@@ -8,9 +8,13 @@ tolerance: the sums run in another order, and A's entries are small
 integers, so |got - want| <= 1e-5 * (|A| @ |x|) + 1e-6.  The gradient of
 ``block_spmm`` is the same product on A^T, which for the symmetric A it
 takes is A's own block-CSR: ``build_block_csr`` records whether A is
-symmetric, and the backward raises for an A that is not.  The
-``gpu`` cases hold the CUDA kernel against the plain version on the card
-(the same tolerance and reason) and skip without one.
+symmetric, and the backward raises for an A that is not.  The card's
+tensor-core kernel splits each operand into two TF32 terms; a numpy
+emulation of that split shows why (one TF32 product misses the
+tolerance, the split passes) and that it keeps the plain version's
+non-finite pattern.  The ``gpu`` cases hold both CUDA kernels against the
+plain version on the card (the same tolerance and reason) and skip
+without one.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +22,7 @@ import pytest
 import torch
 
 from repro.graphs.generators import barabasi_albert
+from repro.graphs.generators import erdos_renyi as j_erdos_renyi
 from repro.graphs.rmat import rmat as j_rmat
 from repro.kernels.block_spmm import block_spmm as jbs
 from repro.kernels.block_spmm import ops as jops
@@ -38,14 +43,19 @@ def _x(rows, f, seed):
         np.float32)
 
 
+def _spmm_off(got, want, cols, blocks, x):
+    """The entries of ``got`` off ``want`` by more than 1e-5 * (|A| @ |x|)
+    + 1e-6, on the rows that ``got`` has."""
+    scale = ref.block_spmm_ref(cols, blocks.abs(), x.abs())[:len(got)]
+    return (got - want).abs() > 1e-5 * scale + 1e-6
+
+
 def _assert_spmm_close(got, want, cols, blocks, x):
     """|got - want| <= 1e-5 * (|A| @ |x|) + 1e-6, elementwise, on the rows
     that ``got`` has."""
-    scale = ref.block_spmm_ref(cols, blocks.abs(), x.abs())[:len(got)]
-    err = (got - want).abs()
-    bad = err > 1e-5 * scale + 1e-6
+    bad = _spmm_off(got, want, cols, blocks, x)
     assert not bad.any(), (f"{int(bad.sum())} entries off, max err "
-                           f"{float(err.max())}")
+                           f"{float((got - want).abs().max())}")
 
 
 # --------------------------------------------------------------------------
@@ -258,7 +268,126 @@ def test_block_spmm_routes_by_device():
 
 
 # --------------------------------------------------------------------------
-# on the card: the CUDA kernel against its plain version
+# the tensor-core kernel's arithmetic, emulated
+# --------------------------------------------------------------------------
+
+def _tf32_rn(bits):
+    """Round float32 bit patterns (int64) to TF32: nearest even on the 13
+    low mantissa bits."""
+    return (bits + 0xFFF + ((bits >> 13) & 1)) & 0xFFFFE000
+
+
+def _f32(bits):
+    return (bits & 0xFFFFFFFF).astype(np.uint32).view(np.float32)
+
+
+def _split_tf32(v):
+    """block_spmm.cu's ``split_tf32`` in numpy: (hi, lo, hi with non-finite
+    values set to 0), float32 arrays whose 13 low mantissa bits are 0."""
+    v = np.ascontiguousarray(v, np.float32)
+    b = v.view(np.uint32).astype(np.int64)
+    finite = (b & 0x7F800000) != 0x7F800000
+    r = _tf32_rn(b)
+    carry = (r & 0x7F800000) == 0x7F800000
+    r = np.where(carry, b & 0xFFFFE000, r)
+    nonfin = np.where(b & 0x7FFFFF, 0x7FC00000, b)
+    with np.errstate(invalid="ignore"):
+        rest = (v - _f32(r)).view(np.uint32).astype(np.int64)
+    lo = np.where(carry, rest & 0xFFFFE000, _tf32_rn(rest))
+    return (_f32(np.where(finite, r, nonfin)), _f32(np.where(finite, lo, 0)),
+            _f32(np.where(finite, r, 0)))
+
+
+def _emulate_tc(cols, blocks, x, split):
+    """The tensor-core kernel's sums on the CPU: TF32 products (exact in
+    float32) summed in float32; A_lo x_hi + A_hi x_lo + A_hi x_hi with
+    ``split``, A_hi x_hi alone without."""
+    bm, bn = blocks.shape[2:]
+    xb = x.reshape(-1, bn, x.shape[-1])[cols.astype(np.int64)]
+    ah, al, af = (torch.from_numpy(t) for t in _split_tf32(blocks))
+    xh, xl, xf = (torch.from_numpy(t) for t in _split_tf32(xb))
+    out = torch.einsum("rjab,rjbf->raf", ah, xh)
+    if split:
+        out = (torch.einsum("rjab,rjbf->raf", al, xf)
+               + torch.einsum("rjab,rjbf->raf", af, xl) + out)
+    return out.reshape(-1, x.shape[-1])
+
+
+TC_GRAPHS = {"rmat11": lambda: (np.asarray(j_rmat(11, 8, seed=2).edges),
+                                2048),
+             "er1000": lambda: (np.asarray(j_erdos_renyi(1000, 6.5,
+                                                         seed=0).edges),
+                                1000)}
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("graph", sorted(TC_GRAPHS))
+def test_one_tf32_product_misses_and_the_split_passes(graph, weighted):
+    """At 128 x 128 blocks, A_hi x_hi alone misses 1e-5 * (|A| @ |x|)
+    + 1e-6 (11 bits of x, and of A when its entries are edge counts times
+    random weights); the three-product split passes: the kernel runs the
+    split for that reason."""
+    e, n = TC_GRAPHS[graph]()
+    cols, blocks, n_pad = ops.build_block_csr(e, n, 128, 128)
+    if weighted:
+        blocks = blocks * _x(blocks.size, 1, 12).reshape(blocks.shape)
+    x = _x(n_pad, 24, 11)
+    tc, tb, tx = (torch.from_numpy(a) for a in (cols, blocks, x))
+    want = ref.block_spmm_ref(tc, tb, tx)
+    for split, ok in ((True, True), (False, False)):
+        got = _emulate_tc(cols, blocks, x, split)
+        assert bool(_spmm_off(got, want, tc, tb, tx).any()) is not ok
+
+
+def test_tf32_split_keeps_the_plain_non_finite_pattern():
+    """inf, -inf and NaN in x (in a padded slot's block 0 and elsewhere)
+    and finite values near FLT_MAX: the emulated split gives exactly the
+    plain version's NaN, +inf and -inf entries, and its finite entries
+    within the tolerance; no finite operand becomes inf."""
+    e = np.array([[0, 1], [0, 20], [40, 41], [3, 33]], np.int32)
+    cols, blocks, n_pad = ops.build_block_csr(e, 256, 128, 128)
+    x = _x(n_pad, 16, 2)
+    x[5, 0], x[1, 3], x[20, 5], x[41, 7] = np.inf, -np.inf, np.nan, np.inf
+    x[130, 2] = np.float32(3.4e38)
+    x[33, 9] = -np.finfo(np.float32).max     # its rounding would carry
+    hi, lo, fin = _split_tf32(x)
+    ok = np.isfinite(x)
+    assert np.isfinite(hi[ok]).all() and np.isfinite(hi[ok] + lo[ok]).all()
+    assert (lo[~ok] == 0).all() and (fin[~ok] == 0).all()
+    np.testing.assert_array_equal(np.isnan(hi), np.isnan(x))
+    np.testing.assert_array_equal(hi[np.isinf(x)], x[np.isinf(x)])
+    err = np.abs(hi[ok] + lo[ok] - x[ok])
+    assert (err <= 2.0 ** -21 * np.abs(x[ok])).all()
+    tc, tb, tx = (torch.from_numpy(a) for a in (cols, blocks, x))
+    want = ref.block_spmm_ref(tc, tb, tx).numpy()
+    got = _emulate_tc(cols, blocks, x, True).numpy()
+    for test in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(test(got), test(want))
+    assert np.isnan(want).any() and np.isinf(want).any()
+    assert (want == -np.finfo(np.float32).max).any()
+    ok = np.isfinite(want)
+    scale = ref.block_spmm_ref(tc, tb.abs(), tx.abs()).numpy()
+    assert (np.abs(got[ok] - want[ok]) <= 1e-5 * scale[ok] + 1e-6).all()
+
+
+def test_kernel_design_and_slot_split():
+    """Which (bm, bn) take the tensor-core kernel, how many columns of F
+    a block covers, and how it splits the slots: the GIN cell (R = NB =
+    22, 128 x 128, 132 SMs) splits at F = 64 and not at F = 1,433."""
+    assert ops.design(128, 128) == "tc" and ops.design(64, 32) == "tc"
+    for bm, bn in ((16, 16), (32, 32), (100, 128), (128, 48)):
+        assert ops.design(bm, bn) == "fma"
+    assert (ops.tc_cols(64), ops.tc_cols(65), ops.tc_cols(1433)) == (64, 128,
+                                                                     128)
+    assert ops.tc_slots_per_split(22, 22, 128, 64, 132) == 2
+    assert ops.tc_slots_per_split(22, 22, 128, 1433, 132) == 22
+    assert ops.tc_slots_per_split(22, 22, 128, 128, 132) == 4   # 6 splits
+    assert ops.tc_slots_per_split(1, 200, 128, 1, 132) == 4     # 50 splits
+    assert ops.tc_slots_per_split(3, 1, 128, 7, 132) == 1
+
+
+# --------------------------------------------------------------------------
+# on the card: the CUDA kernels against their plain version
 # --------------------------------------------------------------------------
 
 @pytest.fixture
@@ -288,6 +417,44 @@ def test_block_spmm_kernel_matches_plain(cuda, b, f):
     got.backward(g)
     assert ops.launches["block_spmm"] == before + 2
     _assert_spmm_close(x.grad, ref.block_spmm_ref(tc, tb, g), tc, tb, g)
+    # the route this shape takes gives the same bits on a second call
+    assert ops.design(b, b) == ("tc" if b == 128 else "fma")
+    again = ops.block_spmm(tc, tb, x.detach())
+    assert torch.equal(got.detach().view(torch.int32),
+                       again.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,weighted", [
+    (128, 64, False), (128, 1433, False), (128, 96, False), (128, 7, False),
+    (128, 64, True), (128, 1433, True), (16, 64, False)])
+def test_block_spmm_kernels_keep_non_finite_and_bits(cuda, b, f, weighted):
+    """Each card kernel (``design``: tensor cores at 128 x 128, FMA at
+    16 x 16; 64 or 128 columns a block; F = 64 and 96 split the slots,
+    F = 1,433 does not; F = 1,433 and 7 pad x's rows to a multiple of 4
+    floats; weighted A is not exact in TF32, so the tensor-core kernel
+    splits it too): inf, -inf and NaN in x, padded slots included,
+    give exactly the plain version's non-finite entries, the finite ones
+    within the tolerance, and two calls give the same bits."""
+    e = np.asarray(j_rmat(11, 8, seed=3).edges)
+    csr = ops.build_block_csr(e, 2048, b, b)
+    cols, blocks, n_pad = csr
+    if weighted:
+        blocks = blocks * _x(blocks.size, 1, 4).reshape(blocks.shape)
+    assert ops.design(b, b) == ("tc" if b == 128 else "fma")
+    x = _x(n_pad, f, 9)
+    x[3, 0], x[700, f - 1], x[1500, f // 2] = np.inf, -np.inf, np.nan
+    tc, tb, tx = (torch.from_numpy(a).to(cuda) for a in (cols, blocks, x))
+    got, again = ops.block_spmm(tc, tb, tx), ops.block_spmm(tc, tb, tx)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = ref.block_spmm_ref(tc, tb, tx)
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(got), test(want))
+    assert bool(torch.isnan(want).any())
+    ok = torch.isfinite(want)
+    scale = ref.block_spmm_ref(tc, tb.abs(), tx.abs())
+    assert bool(((got - want).abs()[ok] <= 1e-5 * scale[ok] + 1e-6).all())
 
 
 @pytest.mark.gpu

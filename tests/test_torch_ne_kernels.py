@@ -143,12 +143,17 @@ def test_select_all_equal_scores_lowest_index_first():
 
 
 @pytest.mark.parametrize("n,p,k_sel,seed", [(100, 4, 16, 0), (600, 8, 64, 1),
-                                            (257, 3, 32, 2)])
+                                            (257, 3, 32, 2), (1001, 5, 8, 3),
+                                            (300, 6, 7, 4)])
 def test_claim_scatter_matches_reference(n, p, k_sel, seed):
+    """Half the slots on 10 vertices; seeds 3 and 4 add vertices at or
+    past N, which both drop (seed 4 with every slot invalid)."""
     rng = np.random.default_rng(seed)
     sel_idx = rng.integers(0, n, (p, k_sel)).astype(np.int32)
     sel_idx[:, ::2] = rng.integers(0, 10, (p, (k_sel + 1) // 2))
-    sel_valid = rng.random((p, k_sel)) < 0.6
+    if seed >= 3:
+        sel_idx[:, 1::3] = rng.integers(n, 3 * n, sel_idx[:, 1::3].shape)
+    sel_valid = rng.random((p, k_sel)) < (0.6 if seed < 4 else 0.0)
     epp = rng.integers(0, 100, p).astype(np.int32)
     got = ops.claim_scatter(_t(sel_idx), _t(sel_valid), _t(epp), n, p)
     for want in (ne_pl.claim_scatter(jnp.asarray(sel_idx),
@@ -250,13 +255,35 @@ def test_select_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.gpu
-def test_claim_scatter_kernel_matches_plain(cuda):
-    n, p, k_sel = 1 << 16, 64, 256
+@pytest.mark.parametrize("case,n", [
+    ("crowded", 1 << 16), ("main_path", 1 << 22), ("ragged", 50_003),
+    ("ragged", 1001), ("empty", 0), ("all_invalid", 1 << 16),
+    ("collisions", 1 << 22), ("out_of_range", 40_000)])
+def test_claim_scatter_kernel_matches_plain(cuda, case, n):
+    """The one-launch kernel against the plain version, exactly: at the
+    main path's N = 2^22, N not a multiple of 4 (and not of the 32,768
+    vertices a block owns), N = 0, every slot invalid, half the slots on
+    10 vertices, and vertices outside [0, N) (dropped)."""
+    p, k_sel = 64, 256
     rng = np.random.default_rng(6)
-    sel_idx = _t(rng.integers(0, 100, (p, k_sel)).astype(np.int32)).to(cuda)
-    sel_valid = _t(rng.random((p, k_sel)) < 0.5).to(cuda)
+    idx = rng.integers(0, max(n, 1), (p, k_sel))
+    valid = rng.random((p, k_sel)) < 0.5
+    if case == "crowded":
+        idx = rng.integers(0, 100, (p, k_sel))
+    elif case == "all_invalid":
+        valid[:] = False
+    elif case == "collisions":
+        idx[:, ::2] = rng.integers(0, 10, (p, k_sel // 2))
+        valid[:] = True
+    elif case == "out_of_range":
+        idx[:, ::3] = rng.integers(-n, 2 * n, (p, -(-k_sel // 3)))
+    sel_idx = _t(idx.astype(np.int32)).to(cuda)
+    sel_valid = _t(valid).to(cuda)
     epp = _t(rng.integers(0, 1000, p).astype(np.int32)).to(cuda)
+    before = ops.launches["claim_scatter"]
+    got = ops.claim_scatter(sel_idx, sel_valid, epp, n, p)
+    assert got.shape == (n,)
+    assert ops.launches["claim_scatter"] == before + (n > 0)
     torch.testing.assert_close(
-        ops.claim_scatter(sel_idx, sel_valid, epp, n, p),
-        ref.claim_scatter_ref(sel_idx, sel_valid, epp, n, p),
+        got, ref.claim_scatter_ref(sel_idx, sel_valid, epp, n, p),
         rtol=0, atol=0)
