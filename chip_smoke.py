@@ -9,13 +9,18 @@ Phases, each printing its lines; any failed check exits non-zero:
 1. the device (name and power limit from nvidia-smi) and the time to
    build the CUDA kernels from ``src/repro_torch/kernels/*/csrc``;
 2. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (RMAT scale-22 graph, P = 64, C = 8, K = 256; the
-   bit-packing kernels also at a ragged P = 37 and at the two-hop chunk
-   shape), exactly: the kernels are integer math, so the tolerance is 0;
+   main path's shapes (RMAT scale-22 graph, P = 64, K = 256; ``select_chunk``
+   over all 64 rows of the map, as the main path calls it, with restart
+   rows at N = 2^22 and the rows its draw ran counted on the device, and
+   over an 8-row chunk view; ``two_hop_best`` at the two-hop chunk on
+   bool rows and packed words; the bit-packing kernels also at a ragged
+   P = 37 and at the two-hop chunk shape), exactly: the kernels are
+   integer math, so the tolerance is 0;
 3. the main path: ``partition`` of the RMAT graph (edge factor 16,
    P = 64, the other NEConfig fields at their defaults) on the card, with
-   the kernel launch counts set to 0 just before and read just after, and
-   its invariants;
+   the kernel launch counts set to 0 just before and read just after
+   (one ``select`` and one ``restart_draw`` a round, ``two_hop_best``
+   once a two-hop chunk), and its invariants;
 3b. the SPMD path: ``partition_spmd`` of the same graph and config in a
    world-1 NCCL group on the card, with the counts set to 0 just before
    and read just after; it must equal phase 3's result bit for bit, and
@@ -24,12 +29,15 @@ Phases, each printing its lines; any failed check exits non-zero:
    versions), and ``partition_spmd`` at that scale on the card (NCCL)
    and on the CPU (gloo), all four bit-identical;
 5. one round of each path under torch.profiler (device time by kernel,
-   busy share), the device time of the round's layers, and each kernel's
-   time on inputs taken from a real round (single-controller kernels) or
-   a real SPMD round (bit-packing kernels) beside its plain version's, a
-   library call's and the bound from the bytes it must move, as one JSON
-   line; for ``claim_scatter`` also the device time of its own kernels
-   and of the library call's (torch.profiler), and its one launch a call;
+   busy share), the time of the round's layers (the restart draw,
+   ``vertex_claims``, the two-hop) at round 0 and at the timed round with
+   the rows the draw ran, and each kernel's time on inputs taken from a
+   real round (single-controller kernels; ``two_hop_best`` on bool rows)
+   or a real SPMD round (bit-packing kernels; ``two_hop_best`` on packed
+   words) beside its plain version's, a library call's and its bound
+   (bytes, or a restart draw's integer operations), as one JSON line;
+   each also with the device time of its own kernels and of the library
+   call's (torch.profiler); ``claim_scatter``'s one launch a call;
 6. full-graph GIN training (gin-tu, 5 layers, d_hidden 64) over the
    vertex-cut engine in a world-1 NCCL group, on a graph of Cora's size
    (``full_graph_sm``: 2,708 vertices, ~10,556 edges, 1,433 features,
@@ -51,8 +59,8 @@ Phases, each printing its lines; any failed check exits non-zero:
    shapes, the card's forward against the CPU's, the time per batch and
    rows/s of each (2 launches a forward, counts set to 0 just before and
    read just after), the retrieval_cand time, peak memory, and the
-   kernel's times beside its bound, its plain version's and
-   ``F.embedding_bag``'s;
+   kernel's times (events and device time) beside its bound, its plain
+   version's and ``F.embedding_bag``'s;
 8. smollm-135m serving at full width in bf16 (seeded random weights): the
    ``flash_attention`` kernel against its plain version at prefill shapes
    and every head dim and group size on the tensor-core route, at the
@@ -94,6 +102,20 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 FP32_FLOPS = 67e12                 # H100 SXM, FP32 on the CUDA cores
 BF16_FLOPS = 989e12                # H100 SXM, bf16 dense, tensor cores
 TF32_FLOPS = 495e12                # H100 SXM, TF32 dense, tensor cores
+# H100 SXM integer rate of one pipe: 64 lanes an SM (Hopper white paper) x
+# 132 SMs x 1.98 GHz, the clock at which the 67 TFLOP/s FP32 figure holds
+INT32_OPS = 64 * 132 * 1.98e9
+# integer operations of one threefry2x32 uniform draw: 20 rounds of add,
+# rotate and xor, 5 key injections of 2 adds, 2 initial adds, then the
+# xor and shift of the output bits and the compare with the running max.
+# An add runs on the ALU pipe (IADD3) or on the FMA pipe (IMAD.IADD),
+# 64 lanes an SM each; a rotate, xor, shift or compare on the ALU pipe
+# alone. So a draw takes at least the larger of its ALU-only operations
+# and half of all its operations at one pipe's rate.
+THREEFRY_ADDS = 20 + 5 * 2 + 2
+THREEFRY_ALU_ONLY = 20 * 2 + 3
+THREEFRY_PIPE_OPS = max(THREEFRY_ALU_ONLY,
+                        (THREEFRY_ADDS + THREEFRY_ALU_ONLY) / 2)
 CU_SOURCE = "src/repro_torch/kernels/ne_round/csrc/ne_round.cu"
 SPMM_SOURCE = "src/repro_torch/kernels/block_spmm/csrc/block_spmm.cu"
 EB_SOURCE = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
@@ -107,16 +129,19 @@ CHECK_STEPS = 3                    # card against CPU
 REPLACES = {
     "one_hop": "src/repro/kernels/ne_round/ne_round.py:80",
     "select": "src/repro/kernels/ne_round/ne_round.py:188",
+    # the draw the reference makes in XLA outside its select kernel
+    "restart_draw": "src/repro/core/partitioner.py:132",
     "claim_scatter": "src/repro/kernels/ne_round/ne_round.py:245",
     "pack_bits": "src/repro/kernels/ne_round/ne_round.py:296",
     "unpack_bits": "src/repro/kernels/ne_round/ne_round.py:313",
+    # unpack_bits at the two-hop chunk, with the AND, where and min around
+    "two_hop_best": "src/repro/kernels/ne_round/ne_round.py:313",
     "or_words": "src/repro/kernels/ne_round/ne_round.py:330",
     "block_spmm": "src/repro/kernels/block_spmm/block_spmm.py:41",
     "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:34",
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:63",
 }
-SINGLE_KERNELS = ("one_hop", "select", "claim_scatter")
 BIT_KERNELS = ("pack_bits", "unpack_bits", "or_words")
 
 
@@ -147,13 +172,12 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int):
-    """(ms, kernels) per call of ``fn``'s own kernels on the device, from
-    the self device time that torch.profiler records over ``reps`` calls
-    after a warm-up call: for each kernel name, its mean time an instance
-    times its instances a call (its count over ``reps``, rounded: the
-    profiler loses an instance now and then), summed; and the kernel
-    launches a call.  Fails if the profiler records no device time."""
+def device_kernels(torch, fn, reps: int) -> dict:
+    """{kernel name: (ms, instances)} a call of ``fn``'s own kernels on the
+    device, from the self device time that torch.profiler records over
+    ``reps`` calls after a warm-up call: each kernel's mean time an
+    instance times its instances a call (its count over ``reps``, rounded:
+    the profiler loses an instance now and then)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -163,18 +187,36 @@ def device_ms(torch, fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and e.count]
-    per_call = [(max(1, round(e.count / reps)),
-                 e.self_device_time_total / e.count) for e in rows]
-    us = sum(n * t for n, t in per_call)
-    check(us > 0, "torch.profiler recorded no device time")
-    return us / 1e3, sum(n for n, _ in per_call)
+    out = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and e.count:
+            k = max(1, round(e.count / reps))
+            out[e.key] = (k * e.self_device_time_total / e.count / 1e3, k)
+    return out
+
+
+def device_ms(torch, fn, reps: int):
+    """(ms, kernels) per call of ``fn``'s own kernels on the device
+    (:func:`device_kernels` summed); fails if the profiler records no
+    device time."""
+    per = device_kernels(torch, fn, reps)
+    ms = sum(t for t, _ in per.values())
+    check(ms > 0, "torch.profiler recorded no device time")
+    return ms, sum(k for _, k in per.values())
+
+
+def kernel_ms(per: dict, match: str) -> float:
+    """The device ms a call of the kernels whose name holds ``match``."""
+    return sum(t for name, (t, _) in per.items() if match in name)
 
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def draw_bound_ms(draws: int) -> float:
+    """The least time of ``draws`` threefry draws on the integer pipes."""
+    return draws * THREEFRY_PIPE_OPS / INT32_OPS * 1e3
 
 
 def cuobjdump():
@@ -286,34 +328,76 @@ def phase_kernels(torch, ops, ref, g, dev, p_num, c, k_sel):
     print(f"phase 2: claim_scatter == plain at P={p_num}, K={k_sel}, N={n}",
           flush=True)
 
-    # select: the chunk is a strided (C, N) view of an (N, P) map, as on
-    # the main path
+    # select_chunk: all P rows as one strided (P, N) view of the (N, P)
+    # map, as on the main path; "chunk view" reads 8 rows by byte loads
+    from repro_torch import random as trandom
+
     deg = g.degree.to(i32)
     cases = {}
-    vp = torch.rand((n, p_num), generator=gen, device=dev) < 0.05
     dr = torch.where(torch.rand(n, generator=gen, device=dev) < 0.3,
                      torch.zeros_like(deg), deg)
-    cases["random"] = (vp, dr)
-    vp = torch.rand((n, p_num), generator=gen, device=dev) < 0.02
-    cases["ties"] = (vp, torch.ones_like(deg))          # every score equal
+    cases["random"] = (torch.rand((n, p_num), generator=gen, device=dev)
+                       < 0.05, dr, p_num)
+    cases["ties"] = (torch.rand((n, p_num), generator=gen, device=dev) < 0.02,
+                     torch.ones_like(deg), p_num)        # every score equal
     vp = torch.zeros((n, p_num), dtype=torch.bool, device=dev)
-    for col in range(c):                                 # |B| = 0 .. < K
+    for col in range(p_num):                             # |B| = 0 .. > K
         rows = torch.randint(0, n, (col * 37,), generator=gen, device=dev)
         vp[rows, col] = True
-    cases["sparse+restart"] = (vp, deg)
-    active = torch.tensor([True] * (c - 2) + [False, True], device=dev)
-    remaining = torch.randint(0, 5000, (c,), generator=gen, device=dev,
-                              dtype=i32)
-    remaining[0] = 1 << 30
-    rnd_v = torch.randint(0, n, (c,), generator=gen, device=dev)
-    any_ok = torch.tensor(True, device=dev)
-    for name, (vp, dr) in cases.items():
-        args = (vp[:, :c].T, active, dr, 0.1, k_sel, remaining, rnd_v,
-                any_ok)
-        err = select_err(ops.select_topk(*args), ref.select_ref(*args))
-        check(err == 0, f"select differs on case {name!r}: {err}")
-        print(f"phase 2: select == plain, case {name!r}, C={c}, N={n}, "
-              f"K={k_sel}", flush=True)
+    cases["sparse+restart"] = (vp, deg, p_num)
+    cases["all restart"] = (torch.zeros_like(vp), dr, p_num)   # as round 0
+    vp = torch.rand((n, p_num), generator=gen, device=dev) < 0.05
+    vp[:, ::3] = False
+    cases["some restart"] = (vp, dr, p_num)
+    cases["chunk view"] = (torch.rand((n, p_num), generator=gen, device=dev)
+                           < 0.05, dr, c)
+    for name, (vp, dr, rows) in cases.items():
+        active = torch.ones(rows, dtype=torch.bool, device=dev)
+        active[rows - 2] = False
+        remaining = torch.randint(0, 5000, (rows,), generator=gen,
+                                  device=dev, dtype=i32)
+        remaining[0] = 1 << 30
+        keys = trandom.fold_in(trandom.PRNGKey(7, device=dev),
+                               torch.arange(rows, device=dev))
+        args = (vp[:, :rows].T, active, dr, 0.1, k_sel, keys, remaining)
+        drawn = ops.rows_drawn(dev)
+        got = ops.select_chunk(*args)
+        drawn = ops.rows_drawn(dev) - drawn
+        err = select_err(got, ref.select_chunk_ref(*args))
+        check(err == 0, f"select_chunk differs on case {name!r}: {err}")
+        bnd = args[0] & (dr > 0)[None, :] & active[:, None]
+        want = int((~bnd.any(1) & active).sum()) if bool((dr > 0).any()) \
+            else 0
+        check(drawn == want, f"select_chunk case {name!r}: the draw ran for "
+              f"{drawn} rows, {want} restart")
+        print(f"phase 2: select_chunk == plain, case {name!r}, C={rows}, "
+              f"N={n}, K={k_sel}; the draw ran for {drawn} restart rows",
+              flush=True)
+
+
+def phase_two_hop_kernel(torch, ops, ref, g, dev, p_num, ce):
+    """Phase 2, ``two_hop_best`` against its plain version at the two-hop
+    chunk (the graph's first ``ce`` edges, 60 % unallocated) on bool rows
+    and packed words, at P and at a ragged 37 (byte loads, a pad word)."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    n = g.num_vertices
+    u = g.edges[:ce, 0].contiguous()
+    v = g.edges[:ce, 1].contiguous()
+    un = torch.rand(ce, generator=gen, device=dev) < 0.6
+    bools = torch.rand((n, p_num), generator=gen, device=dev) < 0.05
+    enc = torch.randint(0, 1 << 20, (p_num,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    enc[::7] = ref.I32_INF                      # partitions over the limit
+    for p in (p_num, 37):
+        rows = bools[:, :p].contiguous()
+        for fmt, vparts in (("bool rows", rows),
+                            ("packed words", ops.pack_bits(rows))):
+            args = (vparts, u, v, un, enc[:p].contiguous(), p)
+            err = max_abs_err(ops.two_hop_best(*args),
+                              ref.two_hop_best_ref(*args))
+            check(err == 0, f"two_hop_best differs on {fmt} at P={p}: {err}")
+            print(f"phase 2: two_hop_best == plain on {fmt} at P={p}, "
+                  f"chunk {ce}", flush=True)
 
 
 def random_words(torch, gen, n, w, dev):
@@ -349,12 +433,39 @@ def phase_bit_kernels(torch, ops, ref, n, dev, p_num, chunk):
               f"N={rows}, P={p}, W={w}", flush=True)
 
 
+def kernel_row(torch, name, kern, plain, lib, bound, reps, err):
+    """One kernel's line entry: event times of the kernel, its plain
+    version and the library call, the device time of the kernel's own
+    kernels and of the library call's, and its bound ``(ms, by)``."""
+    dev_ms, _ = device_ms(torch, kern, reps)
+    return {
+        "name": name, "route": "cuda", "source": CU_SOURCE,
+        "replaces": REPLACES[name], "max_abs_err": err,
+        "ms": time_ms(kern, reps), "device_ms": dev_ms,
+        "plain_ms": time_ms(plain, max(1, reps // 4)),
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": None if lib is None else time_ms(lib, reps),
+        "library_device_ms": None if lib is None
+        else device_ms(torch, lib, reps)[0],
+    }
+
+
+def two_hop_bound(un, ce, row_bytes, p_num):
+    """(ms, 'bytes') of one two-hop chunk: u, v, the flag and best
+    streamed, the enc vector, and two gathered rows for each unallocated
+    edge (an allocated edge gathers nothing)."""
+    return bound_ms(13 * ce + 4 * p_num
+                    + 2 * row_bytes * int(un.sum())), "bytes"
+
+
 def phase_spmd_times(torch, tp, sm, ops, ref, u, v, n, cfg, limit, state,
                      reps):
     """Phase 5, the bit-packing kernels on one real SPMD round's inputs
     (this rank's state after some rounds, its shard ``u``, ``v``): the
     replica delta that the round's one-hop allocation packs, the packed
-    map it unpacks and merges into, and its first two-hop chunk."""
+    map it unpacks and merges into; and ``two_hop_best`` on packed words
+    at its first two-hop chunk (returned apart, as keys of the
+    two_hop_best entry)."""
     p_num = cfg.num_partitions
     from repro_torch import random as trandom
 
@@ -366,8 +477,6 @@ def phase_spmd_times(torch, tp, sm, ops, ref, u, v, n, cfg, limit, state,
     words = state.vparts
     packed = ops.pack_bits(delta)
     w = words.shape[1]
-    ce = min(cfg.edge_chunk, u.shape[0])
-    inter = words[u[:ce].long()] & words[v[:ce].long()]
     rows = []
     for name, kern, plain, lib, nbytes in (
         ("pack_bits", lambda: ops.pack_bits(delta),
@@ -381,86 +490,124 @@ def phase_spmd_times(torch, tp, sm, ops, ref, u, v, n, cfg, limit, state,
     ):
         err = max_abs_err(kern(), plain())
         check(err == 0, f"{name} differs on the captured SPMD round: {err}")
-        rows.append({
-            "name": name, "route": "cuda", "source": CU_SOURCE,
-            "replaces": REPLACES[name], "max_abs_err": err,
-            "ms": time_ms(kern, reps),
-            "plain_ms": time_ms(plain, max(1, reps // 4)),
-            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-            "library_ms": None if lib is None else time_ms(lib, reps),
-        })
-    err = max_abs_err(ops.unpack_bits(inter, p_num),
-                      ref.unpack_bits_ref(inter, p_num))
-    check(err == 0, f"unpack_bits differs on the captured chunk: {err}")
-    chunk_ms = time_ms(lambda: ops.unpack_bits(inter, p_num), reps)
-    chunk_bound = bound_ms(4 * ce * w + ce * p_num)
+        rows.append(kernel_row(torch, name, kern, plain, lib,
+                               (bound_ms(nbytes), "bytes"), reps, err))
+    # the first two-hop chunk of the next round, on this state's words
+    ce = min(cfg.edge_chunk, u.shape[0])
+    pid = torch.arange(p_num, dtype=torch.int32, device=u.device)
+    enc = torch.where(state.edges_per_part <= limit,
+                      tp.priority_enc(state.edges_per_part, pid, p_num),
+                      torch.full_like(pid, ref.I32_INF))
+    un = (state.edge_part < 0)[:ce].contiguous()
+    args = (words, u[:ce], v[:ce], un, enc, p_num)
+    err = max_abs_err(ops.two_hop_best(*args), ref.two_hop_best_ref(*args))
+    check(err == 0, f"two_hop_best differs on the captured SPMD chunk: {err}")
+    t = kernel_row(torch, "two_hop_best", lambda: ops.two_hop_best(*args),
+                   lambda: ref.two_hop_best_ref(*args), None,
+                   two_hop_bound(un, ce, 4 * w, p_num), reps, err)
+    t["plain_device_ms"] = device_ms(torch, lambda: ref.two_hop_best_ref(
+        *args), max(1, reps // 4))[0]
+    words_keys = {k + "_words": t[k] for k in (
+        "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+        "max_abs_err")}
+    chunk_ms = time_ms(lambda: ops.unpack_bits(
+        words[u[:ce].long()] & words[v[:ce].long()], p_num), reps)
     print(f"phase 5: SPMD round {int(state.rounds)}: {int(delta.sum())} "
-          f"replica flags set by its one-hop; unpack_bits at the two-hop "
-          f"chunk ({ce}, {w}): ms={chunk_ms!r} bound_ms={chunk_bound!r}",
+          f"replica flags set by its one-hop; two_hop_best on packed words "
+          f"at the chunk ({ce} edges, {int(un.sum())} unallocated): ms "
+          f"{t['ms']!r} device_ms {t['device_ms']!r} bound_ms "
+          f"{t['bound_ms']!r} plain_ms {t['plain_ms']!r} plain device_ms "
+          f"{t['plain_device_ms']!r}; the "
+          f"unpack_bits kernel on the chunk's AND alone: ms {chunk_ms!r}",
           flush=True)
-    return rows
+    return rows, words_keys
+
+
+def restart_rows(state, limit) -> int:
+    """The rows of a round's selection that restart: an empty boundary
+    on an active row while some vertex has D_rest > 0."""
+    dr = state.degree_rest
+    bnd = (state.vparts & (dr > 0)[:, None]).any(0)
+    active = state.edges_per_part <= limit
+    return int((~bnd & active).sum()) if bool((dr > 0).any()) else 0
 
 
 def phase_times(torch, tp, ops, ref, g, cfg, limit, state, reps):
     """Phase 5: kernel, plain and library times on one real round's
-    inputs (the state after some rounds of the main path's run)."""
+    inputs (the state after some rounds of the main path's run), the
+    restart draw at round 0's, and the round's layers at both."""
     n, m, p_num = g.num_vertices, g.num_edges, cfg.num_partitions
     from repro_torch import random as trandom
 
-    c = min(cfg.sel_chunk, p_num)
+    dev = g.device
+    state0 = tp.ne_init_state(g, cfg)
+
+    def sel_args(st):
+        _, sub = trandom.split(st.key)
+        keys = trandom.fold_in(sub, torch.arange(p_num, device=dev))
+        return (st.vparts.T, st.edges_per_part <= limit, st.degree_rest,
+                cfg.lam, cfg.k_sel, keys,
+                (limit - st.edges_per_part).to(torch.int32))
+
+    args, args0 = sel_args(state), sel_args(state0)
     _, sub = trandom.split(state.key)
-    keys = trandom.fold_in(sub, torch.arange(p_num, device=g.device))
-    active = state.edges_per_part <= limit
-    remaining = (limit - state.edges_per_part).to(torch.int32)
-    rnd_v, any_ok = tp.boundary_reseed(state.degree_rest, keys[:c])
-    sel_args = (state.vparts[:, :c].T, active[:c], state.degree_rest,
-                cfg.lam, cfg.k_sel, remaining[:c], rnd_v, any_ok)
     claims = tp.vertex_claims(cfg, limit, state.vparts, state.degree_rest,
                               state.edges_per_part, sub)
-    sel = [ops.select_topk(state.vparts[:, j:j + c].T, active[j:j + c],
-                           state.degree_rest, cfg.lam, cfg.k_sel,
-                           remaining[j:j + c], rnd_v, any_ok)
-           for j in range(0, p_num, c)]
-    sel_idx = torch.cat([s[0] for s in sel])
-    sel_valid = torch.cat([s[1] for s in sel])
+    sel_idx, sel_valid = ops.select_chunk(*args)
     u = g.edges[:, 0].contiguous()
     v = g.edges[:, 1].contiguous()
     oh_args = (claims, u, v, state.edge_part, p_num)
     cs_args = (sel_idx, sel_valid, state.edges_per_part, n, p_num)
+    ce = min(cfg.edge_chunk, m)
+    pid = torch.arange(p_num, dtype=torch.int32, device=dev)
+    enc = torch.where(state.edges_per_part <= limit,
+                      tp.priority_enc(state.edges_per_part, pid, p_num),
+                      torch.full_like(pid, ref.I32_INF))
+    un = (state.edge_part < 0)[:ce].contiguous()
+    th_args = (state.vparts, u[:ce], v[:ce], un, enc, p_num)
 
     # the library yardsticks, never used by the port: one PyTorch call each,
     # and for claim_scatter the fill and the scatter, as the kernel's call
     # fills its output before it scatters
-    bnd = (sel_args[0] & (state.degree_rest > 0)[None, :]
-           & active[:c, None])
+    bnd = args[0] & (state.degree_rest > 0)[None, :] & args[1][:, None]
     comp = ((torch.where(bnd, state.degree_rest[None, :],
                          torch.full_like(state.degree_rest, ref.I32_INF))
              .to(torch.int64) << 32)
-            | torch.arange(n, device=g.device)[None, :])
+            | torch.arange(n, device=dev)[None, :])
     flat_v = torch.where(sel_valid, sel_idx,
                          torch.full_like(sel_idx, n)).reshape(-1).long()
-    enc = ref._enc(state.edges_per_part[:, None],
-                   torch.arange(p_num, device=g.device,
-                                dtype=torch.int32)[:, None], p_num)
-    enc = enc.expand(p_num, cfg.k_sel).reshape(-1)
-    buf = torch.full((n + 1,), ref.I32_INF, dtype=torch.int32,
-                     device=g.device)
+    enc_k = ref._enc(state.edges_per_part[:, None], pid[:, None], p_num)
+    enc_k = enc_k.expand(p_num, cfg.k_sel).reshape(-1)
+    buf = torch.full((n + 1,), ref.I32_INF, dtype=torch.int32, device=dev)
+
+    def select_bound(st):
+        """bytes: D_rest, the 32-byte sectors of a vertex's P flag bytes
+        where D_rest > 0 (the scan reads no other row), keys, active,
+        remaining, the outputs; operations: a threefry draw a vertex with
+        D_rest > 0 for each restart row."""
+        n_pos = int((st.degree_rest > 0).sum())
+        by = bound_ms(-(-p_num // 32) * 32 * n_pos + 4 * n + 21 * p_num
+                      + 5 * p_num * cfg.k_sel)
+        ops_ms = draw_bound_ms(restart_rows(st, limit) * n_pos)
+        return (ops_ms, "operations") if ops_ms > by else (by, "bytes")
 
     rows = []
-    bsize = int(bnd.sum())
-    for name, kern, plain, lib, nbytes in (
+    for name, kern, plain, lib, bound in (
         ("one_hop", lambda: ops.one_hop(*oh_args),
          lambda: ref.one_hop_ref(*oh_args), None,
-         16 * m + 4 * n + 4 * p_num),
-        ("select", lambda: ops.select_topk(*sel_args),
-         lambda: ref.select_ref(*sel_args),
+         (bound_ms(16 * m + 4 * n + 4 * p_num), "bytes")),
+        ("select", lambda: ops.select_chunk(*args),
+         lambda: ref.select_chunk_ref(*args),
          lambda: torch.topk(comp, cfg.k_sel, dim=1, largest=False),
-         c * n + 4 * n + 13 * c + 5 * c * cfg.k_sel),
+         select_bound(state)),
         ("claim_scatter", lambda: ops.claim_scatter(*cs_args),
          lambda: ref.claim_scatter_ref(*cs_args),
          lambda: buf.fill_(ref.I32_INF).scatter_reduce_(
-             0, flat_v, enc, reduce="amin"),
-         5 * p_num * cfg.k_sel + 4 * p_num + 4 * n),
+             0, flat_v, enc_k, reduce="amin"),
+         (bound_ms(5 * p_num * cfg.k_sel + 4 * p_num + 4 * n), "bytes")),
+        ("two_hop_best", lambda: ops.two_hop_best(*th_args),
+         lambda: ref.two_hop_best_ref(*th_args), None,
+         two_hop_bound(un, ce, p_num, p_num)),
     ):
         got, want = kern(), plain()
         err = (select_err(got, want) if name == "select"
@@ -468,45 +615,106 @@ def phase_times(torch, tp, ops, ref, g, cfg, limit, state, reps):
                    got if isinstance(got, tuple) else (got,),
                    want if isinstance(want, tuple) else (want,))))
         check(err == 0, f"{name} differs on the captured round: {err}")
-        rows.append({
-            "name": name, "route": "cuda", "source": CU_SOURCE,
-            "replaces": REPLACES[name],
-            "max_abs_err": err,
-            "ms": time_ms(kern, reps),
-            "plain_ms": time_ms(plain, max(1, reps // 4)),
-            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-            "library_ms": None if lib is None else time_ms(lib, reps),
-        })
+        rows.append(kernel_row(torch, name, kern, plain, lib, bound, reps,
+                               err))
+        if name == "two_hop_best":
+            rows[-1]["plain_device_ms"] = device_ms(torch, plain,
+                                                    max(1, reps // 4))[0]
         if name == "claim_scatter":
-            dev_ms, kernels = device_ms(torch, kern, reps)
-            lib_dev_ms, lib_kernels = device_ms(torch, lib, reps)
+            _, kernels = device_ms(torch, kern, reps)
             check(kernels == 1, f"claim_scatter ran {kernels} kernels a "
                   "call, not 1")
-            rows[-1].update({"device_ms": dev_ms,
-                             "library_device_ms": lib_dev_ms,
-                             "cuda_launches_per_call": kernels})
-            print(f"phase 5: claim_scatter device time (profiler) {dev_ms!r} "
-                  f"ms, {kernels} kernel a call; fill_ + scatter_reduce_ "
-                  f"{lib_dev_ms!r} ms, {lib_kernels} kernels a call; event "
-                  f"time {rows[-1]['ms']!r} / {rows[-1]['library_ms']!r} ms",
-                  flush=True)
-    print(f"phase 5: timed on round {int(state.rounds)}'s inputs "
-          f"(chunk 0 boundary |B| = {bsize} over {c} rows)", flush=True)
+            rows[-1]["cuda_launches_per_call"] = kernels
+    print(f"phase 5: timed on round {int(state.rounds)}'s inputs (boundary "
+          f"|B| = {int(bnd.sum())} over {p_num} rows, "
+          f"{int((state.degree_rest > 0).sum())} vertices with D_rest > 0; "
+          f"two-hop chunk of {ce} edges, {int(un.sum())} unallocated)",
+          flush=True)
+    per = device_kernels(torch, lambda: ops.select_chunk(*args), reps)
+    print("phase 5: select_chunk device ms a call by kernel: " + ", ".join(
+        f"{name.split('(')[0]} x{k} {t!r}" for name, (t, k) in per.items()),
+        flush=True)
 
-    # the round's layers, each as the round runs it (device time)
-    layers = {
-        "restart_draws": lambda: [
-            tp.boundary_reseed(state.degree_rest, keys[j:j + c])
-            for j in range(0, p_num, c)],
-        "vertex_claims": lambda: tp.vertex_claims(
-            cfg, limit, state.vparts, state.degree_rest,
-            state.edges_per_part, sub),
-        "two_hop": lambda: tp._two_hop(u, v, state.edge_part, state.vparts,
-                                       state.edges_per_part, cfg, limit),
-    }
-    spent = {k: time_ms(f, 3, warmup=1) for k, f in layers.items()}
-    print("phase 5: layer ms per round: " + ", ".join(
-        f"{k}={t!r}" for k, t in spent.items()), flush=True)
+    # the restart draw at round 0, where every row restarts: its own
+    # kernel's device time inside a select_chunk call
+    got0 = ops.select_chunk(*args0)[0][:, 0]
+    rnd0 = torch.cat([ref.boundary_reseed(state0.degree_rest,
+                                          args0[5][j:j + ref.REF_ROWS])[0]
+                      for j in range(0, p_num, ref.REF_ROWS)])
+    err = max_abs_err(got0, rnd0)
+    check(err == 0, f"the restart draw differs at round 0: {err}")
+    per0 = device_kernels(torch, lambda: ops.select_chunk(*args0), reps)
+    draw_ms = kernel_ms(per0, "restart_draw_kernel")
+    check(draw_ms > 0, "no restart_draw_kernel device time at round 0")
+    n_pos = int((state0.degree_rest > 0).sum())
+    draw_bound = max((draw_bound_ms(p_num * n_pos), "operations"),
+                     (bound_ms(4 * n + 16 * p_num), "bytes"))
+    rows.append({
+        "name": "restart_draw", "route": "cuda", "source": CU_SOURCE,
+        "replaces": REPLACES["restart_draw"], "max_abs_err": err,
+        "ms": draw_ms, "device_ms": draw_ms,
+        "plain_ms": time_ms(lambda: [
+            ref.boundary_reseed(state0.degree_rest,
+                                args0[5][j:j + ref.REF_ROWS])
+            for j in range(0, p_num, ref.REF_ROWS)], 3, warmup=1),
+        "bound_ms": draw_bound[0], "bound_by": draw_bound[1],
+        "library_ms": None,
+        "library_device_ms": None, "timed_at_round": 0,
+        "select_device_ms_round0": sum(t for t, _ in per0.values()),
+    })
+    print(f"phase 5: restart draw at round 0 ({p_num} rows restart, "
+          f"{n_pos} vertices with D_rest > 0): device ms {draw_ms!r} of "
+          f"select_chunk's {rows[-1]['select_device_ms_round0']!r}; bound "
+          f"{rows[-1]['bound_ms']!r} ({rows[-1]['bound_by']}); plain "
+          f"(boundary_reseed over {p_num} rows) {rows[-1]['plain_ms']!r} ms",
+          flush=True)
+
+    # the round's layers, each as the round runs it, at round 0 and at the
+    # timed round, with the rows the draw ran (counted on the device)
+    for label, st in (("round 0", state0),
+                      (f"round {int(state.rounds)}", state)):
+        _, sub = trandom.split(st.key)
+
+        def claims_fn(st=st, sub=sub):
+            return tp.vertex_claims(cfg, limit, st.vparts, st.degree_rest,
+                                    st.edges_per_part, sub)
+
+        def hop_fn(st=st):
+            return tp._two_hop(u, v, st.edge_part, st.vparts,
+                               st.edges_per_part, cfg, limit)
+
+        drawn = ops.rows_drawn(dev)
+        claims_fn()
+        drawn = ops.rows_drawn(dev) - drawn
+        want = restart_rows(st, limit)
+        check(drawn == want, f"{label}: the draw ran for {drawn} rows, "
+              f"{want} restart")
+        per = device_kernels(torch, claims_fn, 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        claims_fn()                      # no sync inside: host dispatch time
+        host_ms = (time.perf_counter() - t0) * 1e3
+        spent = {
+            "vertex_claims_host_dispatch": host_ms,
+            "restart_draw_device": kernel_ms(per, "restart_draw_kernel"),
+            "vertex_claims_device": sum(t for t, _ in per.values()),
+            "vertex_claims": time_ms(claims_fn, 3, warmup=1),
+            "two_hop": time_ms(hop_fn, 3, warmup=1),
+        }
+        # the two-hop layer's device time: two_hop_best's kernel and the
+        # rest of the chunk loop (candidates, exclusive_rank, quota)
+        hop = device_kernels(torch, hop_fn, 1)
+        spent["two_hop_device"] = sum(t for t, _ in hop.values())
+        spent["two_hop_best_device"] = kernel_ms(hop, "two_hop_kernel")
+        chunks = -(-m // ce)
+        best = spent["two_hop_best_device"]
+        rest = spent["two_hop_device"] - best
+        print(f"phase 5: {label}: rows drawn {drawn} (restart rows {want}); "
+              "layer ms per round: " + ", ".join(
+                  f"{k}={t!r}" for k, t in spent.items())
+              + f"; a two-hop chunk ({chunks} a round): two_hop_best "
+              f"{best / chunks!r}, the rest {rest / chunks!r} device ms",
+              flush=True)
     return rows
 
 
@@ -1176,12 +1384,18 @@ def phase_deepfm(torch, args):
                     args.reps),
                 "bound_ms" + tag: bound, "bound_by" + tag: by,
                 "library_ms" + tag: time_ms(lambda: fe(i, tab, mode="sum"),
-                                            args.reps)})
+                                            args.reps),
+                "device_ms" + tag: device_ms(
+                    torch, lambda: eb.embedding_bag(tab, i), args.reps)[0],
+                "library_device_ms" + tag: device_ms(
+                    torch, lambda: fe(i, tab, mode="sum"), args.reps)[0]})
             print(f"phase 7: embedding_bag at {shape} {name} (B={b}, K={k}, "
-                  f"D={d}): ms {row['ms' + tag]!r}, bound "
+                  f"D={d}): ms {row['ms' + tag]!r}, device_ms "
+                  f"{row['device_ms' + tag]!r}, bound "
                   f"{row['bound_ms' + tag]!r} (bytes), plain "
                   f"{row['plain_ms' + tag]!r}, F.embedding_bag "
-                  f"{row['library_ms' + tag]!r}", flush=True)
+                  f"{row['library_ms' + tag]!r} (device_ms "
+                  f"{row['library_device_ms' + tag]!r})", flush=True)
     del model
     return row
 
@@ -1641,10 +1855,22 @@ def main() -> None:
 
     cfg = tp.NEConfig(num_partitions=PARTITIONS).clamped(n)
     p_num = cfg.num_partitions
-    c = min(cfg.sel_chunk, p_num)
-    ptxas_report(build, "ne_round", ("claim_kernel",), "phase 2")
-    phase_kernels(torch, ops, ref, g, dev, p_num, c, cfg.k_sel)
-    phase_bit_kernels(torch, ops, ref, n, dev, p_num, min(cfg.edge_chunk, m))
+    ce = min(cfg.edge_chunk, m)
+    ptxas_report(build, "ne_round", ("claim_kernel", "select_scan_kernel",
+                                     "select_pass_kernel",
+                                     "select_finish_kernel",
+                                     "restart_draw_kernel", "two_hop_kernel"),
+                 "phase 2")
+    tool = cuobjdump()
+    draw_sass = None if tool is None else sass_counts(
+        tool, build, "ne_round", "restart_draw_kernel",
+        ("IMAD.IADD", "IMAD", "IADD3", "LOP3", "SHF"))
+    print(f"phase 2: restart_draw_kernel instructions ({tool} -sass): "
+          f"{draw_sass if tool else 'no cuobjdump found, not counted'}",
+          flush=True)
+    phase_kernels(torch, ops, ref, g, dev, p_num, 8, cfg.k_sel)
+    phase_two_hop_kernel(torch, ops, ref, g, dev, p_num, ce)
+    phase_bit_kernels(torch, ops, ref, n, dev, p_num, ce)
 
     # --- phase 3: the single-controller path --------------------------------
     torch.cuda.synchronize()
@@ -1673,9 +1899,10 @@ def main() -> None:
           f"max |E_p| {int(res.edges_per_part.max())} > limit + 1")
     check(st.replication_factor <= rf_bound,
           f"RF {st.replication_factor} > Theorem 1 bound {rf_bound}")
-    check(launches["select"] == res.rounds * -(-p_num // c)
-          and launches["one_hop"] == res.rounds
-          and launches["claim_scatter"] == res.rounds
+    chunks = -(-m // ce)                              # two-hop chunks
+    check(all(launches[k] == res.rounds for k in (
+              "select", "restart_draw", "one_hop", "claim_scatter"))
+          and launches["two_hop_best"] == res.rounds * chunks
           and all(launches[k] == 0 for k in BIT_KERNELS) and res.rounds > 0,
           f"launch counts {launches} do not match {res.rounds} rounds")
 
@@ -1690,10 +1917,10 @@ def main() -> None:
         launches_sm = dict(ops.launches)
     peak_sm = torch.cuda.max_memory_allocated()
     rounds = res_sm.rounds
-    chunks = -(-m // min(cfg.edge_chunk, m))          # C = M at world 1
-    want = {"select": rounds * -(-p_num // c), "one_hop": rounds,
+    want = {"select": rounds, "restart_draw": rounds, "one_hop": rounds,
             "claim_scatter": rounds, "pack_bits": 2 * rounds,
-            "or_words": 2 * rounds, "unpack_bits": rounds * (1 + chunks)}
+            "or_words": 2 * rounds, "unpack_bits": rounds,
+            "two_hop_best": rounds * chunks}          # shard = M at world 1
     print(f"phase 3b: partition_spmd world 1 P={p_num}: rounds={rounds} "
           f"leftover={res_sm.leftover} "
           f"RF={res_sm.stats.replication_factor!r} wall={wall_sm!r} s "
@@ -1739,6 +1966,8 @@ def main() -> None:
     rows = phase_times(torch, tp, ops, ref, g, cfg, limit, state, args.reps)
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r["name"] == "restart_draw":
+            r["sass"] = draw_sass
     del state
     with compat.world1("nccl"):
         st_sm, u, v, mask = spmd_rounds(torch, sm, g, cfg, limit,
@@ -1747,10 +1976,12 @@ def main() -> None:
                       f"{int(st_sm.rounds)}",
                       lambda: sm.spmd_round_step(cfg, limit, n, u, v, mask,
                                                  st_sm))
-    bit_rows = phase_spmd_times(torch, tp, sm, ops, ref, u, v, n, cfg,
-                                limit, st_sm, args.reps)
+    bit_rows, words_keys = phase_spmd_times(torch, tp, sm, ops, ref, u, v, n,
+                                            cfg, limit, st_sm, args.reps)
     for r in bit_rows:
         r["launches"] = launches_sm[r["name"]]
+    row = next(r for r in rows if r["name"] == "two_hop_best")
+    row.update(words_keys, launches_spmd=launches_sm["two_hop_best"])
     del st_sm, u, v, mask, g
 
     # --- phase 6: GIN training over the vertex-cut engine -------------------

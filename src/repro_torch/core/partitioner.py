@@ -10,14 +10,16 @@ multi-expansion (§5).  One call of :func:`_round` is one paper round:
   2. vertex-grain claims (``claim_scatter``) and one-hop allocation
      (``one_hop``) with the deterministic ``(|E_p|, p)`` conflict rule,
   3. replica-set updates,
-  4. two-hop "free edge" allocation under Condition (5).
+  4. two-hop "free edge" allocation under Condition (5) (``two_hop_best``).
 
-The round's three kernels run through ``repro_torch.kernels.ne_round.ops``:
-on the card they are CUDA kernels, on the CPU their plain versions.  The
+The round's kernels run through ``repro_torch.kernels.ne_round.ops``: on
+the card they are CUDA kernels, on the CPU their plain versions.  The
 reference's ``while_loop`` becomes a Python loop over :func:`_round` with
-the same condition; its ``lax.map`` over selection chunks and ``lax.scan``
-over two-hop edge chunks become Python loops with the same chunk sizes and
-order.  Every result is bit-identical to the reference's.
+the same condition; its ``lax.map`` over selection chunks becomes one
+``select_chunk`` call over all P partitions (with the restart draw inside,
+made on the card only for the partitions that restart), and its
+``lax.scan`` over two-hop edge chunks a Python loop with the same chunk
+size and order.  Every result is bit-identical to the reference's.
 
 :func:`_round` updates the large arrays of the state it is given
 (``edge_part``, ``vparts``, ``degree_rest``) in place, to save device
@@ -51,7 +53,6 @@ class NEConfig:
     lam: float = 0.1            # expansion factor λ (paper §5, Fig. 6)
     k_sel: int = 256            # static cap on per-round selections per part
     max_rounds: int = 4096      # safety bound on the round loop
-    sel_chunk: int = 8          # partitions scored per selection chunk
     edge_chunk: int = 1 << 18   # edges per two-hop intersection chunk
     two_hop: bool = True        # Condition (5) allocation on/off (ablation)
     seed: int = 0
@@ -101,62 +102,25 @@ class PartitionResult:
 priority_enc = ne_ref._enc
 
 
-def boundary_reseed(degree_rest, keys_c):
-    """Random re-seed draw for empty boundaries (paper Alg. 1 line 6).
-
-    Returns ``(rnd_v, any_ok)``: (C,) random vertices with unallocated
-    edges, drawn from the (C, 2) keys exactly as the reference draws them,
-    and the () any-rest flag.
-    """
-    any_rest = degree_rest > 0
-    gumb = trandom.uniform(keys_c, (degree_rest.shape[0],))
-    gumb = torch.where(any_rest[None, :], gumb,
-                       torch.full_like(gumb, -1.0))
-    return torch.argmax(gumb, dim=1), any_rest.any()
-
-
-def select_chunk(vparts_c, active_c, degree_rest, lam, k_sel, keys_c,
-                 remaining_c):
-    """Selection for a chunk of partitions.  vparts_c: (C, N) bool."""
-    rnd_v, any_ok = boundary_reseed(degree_rest, keys_c)
-    return ne_ops.select_topk(vparts_c, active_c, degree_rest, lam, k_sel,
-                              remaining_c, rnd_v, any_ok)
-
-
 def vertex_claims(cfg: NEConfig, limit: int, vparts, degree_rest,
                   edges_per_part, sub):
     """Selection (multi-expansion §5) + vertex-grain claims (Alg. 3).
 
     Returns (N,) int32 claim keys: ``priority_enc(|E_p|, p)`` for claimed
-    vertices, ``I32_INF`` where no partition claimed the vertex.
+    vertices, ``I32_INF`` where no partition claimed the vertex.  All P
+    partitions are selected in one call: a partition's key is
+    ``fold_in(sub, p)`` whatever the chunking, and rows are independent,
+    so the reference's chunks of ``sel_chunk`` rows give the same result.
     """
     n = vparts.shape[0]
     p_num = cfg.num_partitions
-    dev = vparts.device
     active = edges_per_part <= limit                # soft cap (paper Alg. 1)
-
-    c = min(cfg.sel_chunk, p_num)
-    n_chunks = (p_num + c - 1) // c
-    p_pad = n_chunks * c
-    keys = trandom.fold_in(sub, torch.arange(p_pad, device=dev))
-    pad = p_pad - p_num
-    # the chunk views are strided (C, N) slices of the (N, P) map; the
-    # select kernel reads them in place.  Only a ragged P needs a copy.
-    vparts_pad = vparts if pad == 0 else torch.nn.functional.pad(vparts,
-                                                                 (0, pad))
-    active_pad = torch.nn.functional.pad(active, (0, pad))
-    remaining = torch.nn.functional.pad(limit - edges_per_part, (0, pad))
-
-    sel_idx, sel_valid = [], []
-    for j in range(n_chunks):
-        cols = slice(j * c, (j + 1) * c)
-        idx, valid = select_chunk(vparts_pad[:, cols].T, active_pad[cols],
-                                  degree_rest, cfg.lam, cfg.k_sel,
-                                  keys[cols], remaining[cols])
-        sel_idx.append(idx)
-        sel_valid.append(valid)
-    sel_idx = torch.cat(sel_idx)[:p_num]
-    sel_valid = torch.cat(sel_valid)[:p_num]
+    keys = trandom.fold_in(sub, torch.arange(p_num, device=vparts.device))
+    # vparts.T is a strided (P, N) view of the (N, P) map; the select kernel
+    # reads it in place
+    sel_idx, sel_valid = ne_ops.select_chunk(
+        vparts.T, active, degree_rest, cfg.lam, cfg.k_sel, keys,
+        limit - edges_per_part)
     return ne_ops.claim_scatter(sel_idx, sel_valid, edges_per_part, n, p_num)
 
 
@@ -183,13 +147,10 @@ def _two_hop(u, v, edge_part, vparts, edges_per_part, cfg: NEConfig,
     enc_vec = torch.where(edges_per_part <= limit, enc_vec,
                           torch.full_like(enc_vec, I32_INF))
     quota = (limit + 1 - edges_per_part).clamp(min=0)
-    inf = torch.tensor(I32_INF, dtype=torch.int32, device=dev)
     part2 = torch.empty(m, dtype=torch.int32, device=dev)
     for s in range(0, m, ce):
-        uu, vv, un = u[s:s + ce], v[s:s + ce], unal[s:s + ce]
-        inter = vparts[uu.long()] & vparts[vv.long()]           # (ce, P)
-        k2 = torch.where(inter & un[:, None], enc_vec[None, :], inf)
-        best = k2.min(dim=1).values
+        best = ne_ops.two_hop_best(vparts, u[s:s + ce], v[s:s + ce],
+                                   unal[s:s + ce], enc_vec, p_num)
         cand = torch.where(best < I32_INF, best % p_num,
                            torch.full_like(best, -1))
         rank = exclusive_rank(cand, p_num)

@@ -16,9 +16,10 @@ round, on every rank:
      (``pack_bits``), OR-all-reduced (``compat.or_all_reduce``) and merged
      (``or_words``); the |E_p| and D_rest deltas are ``all_reduce(SUM)``;
   4. **two-hop "free edge" allocation** (Condition (5)) over the local
-     shard in ``edge_chunk`` chunks, each gathering packed words and
-     unpacking their AND; the α-capacity quota is split across ranks by an
-     exclusive prefix over an ``all_gather`` of per-rank histograms.
+     shard in ``edge_chunk`` chunks, each testing the ANDed packed words
+     of its edges' endpoints (``two_hop_best``); the α-capacity quota is
+     split across ranks by an exclusive prefix over an ``all_gather`` of
+     per-rank histograms.
 
 Replica sets are always bit-packed: (N, ceil(P/32)) int32 words, the bit
 patterns of the reference's uint32 words.  Every collective runs on every
@@ -100,7 +101,6 @@ def _two_hop_candidates(cfg: NEConfig, u_loc, v_loc, unal, vparts, enc_vec):
     c_len = u_loc.shape[0]
     dev = u_loc.device
     ce = min(cfg.edge_chunk, c_len)
-    inf = torch.tensor(I32_INF, dtype=torch.int32, device=dev)
     hist = torch.zeros(p_num, dtype=torch.int32, device=dev)
     cand = torch.empty(c_len, dtype=torch.int32, device=dev)
     myrank = torch.empty(c_len, dtype=torch.int32, device=dev)
@@ -110,11 +110,9 @@ def _two_hop_candidates(cfg: NEConfig, u_loc, v_loc, unal, vparts, enc_vec):
         if pad:
             uu, vv, un = (torch.nn.functional.pad(t, (0, pad))
                           for t in (uu, vv, un))
-        # gather packed words (32x fewer bytes), unpack their AND
-        inter = ne_ops.unpack_bits(vparts[uu.long()] & vparts[vv.long()],
-                                   p_num)
-        best = torch.where(inter & un[:, None], enc_vec[None, :],
-                           inf).amin(dim=1)
+        # the AND of the packed words (32x fewer bytes than bools) and its
+        # least enc over the set bits, in one kernel
+        best = ne_ops.two_hop_best(vparts, uu, vv, un, enc_vec, p_num)
         cand_c = torch.where(best < I32_INF, best % p_num,
                              torch.full_like(best, -1))
         cand0 = cand_c.clamp(min=0).long()

@@ -1,6 +1,6 @@
 // The Distributed NE expansion round's kernels for Hopper (sm_90a): the
-// three of every round, and the three of the SPMD round's bit-packed
-// replica sets.
+// three of every round with the restart draw, the two-hop candidate
+// kernel, and the three of the SPMD round's bit-packed replica sets.
 //
 // Plain C interface: each entry point takes device pointers and a
 // cudaStream_t passed as void*, launches on that stream, does not
@@ -40,29 +40,69 @@
 //   less (16,384 vertices a block was slower).  Slots with a vertex
 //   outside [0, N) fall in no block's range and are dropped.
 //
-// select — replaces ne_round.py::select.
-//   For a (C, N) chunk of partitions: boundary mask vparts & D_rest > 0 &
-//   active, |B|, the K smallest D_rest with ties to the lowest vertex id,
-//   k_eff = clamp(ceil(lam |B|), 1, K), the capacity prefix cut against
-//   `remaining`, and the restart slot 0 from the pre-drawn rnd_v.
-//   Bound: device memory, C*N bytes of replica flags plus 4N of D_rest.
+// select — replaces ne_round.py::select, and the restart draw that the
+//   reference makes outside it (core/partitioner.py::boundary_reseed).
+//   For C rows (partitions) of the replica map: boundary mask vparts &
+//   D_rest > 0 & active, |B|, the kk = min(k_eff, |B|) smallest keys
+//   (D_rest << 32) | v (ties to the lowest vertex id), k_eff =
+//   clamp(ceil(lam |B|), 1, K), the capacity prefix cut against
+//   `remaining`, and the restart slot 0: for a row with |B| = 0 that is
+//   active while some vertex has D_rest > 0, the argmax over D_rest > 0
+//   of JAX's uniform bits from the row's threefry key.
+//   Bound: device memory for 4N of D_rest and the 32-byte sectors of the
+//   flags of each vertex with D_rest > 0 (no other vertex's flags are
+//   read); a restart row adds a threefry evaluation for each such vertex,
+//   integer work on the ALU and FMA pipes.
 //   The TPU kernel streams tiles through one core and merges a (C, K)
-//   top-k accumulator from tile to tile; blocks here run in no order, so
-//   the work is split in two launches:
-//   * select_compact: one thread per vertex reads its C replica flags
-//     (the chunk arrives as a strided (C, N) view of the (N, P) replica
-//     map: row stride 1 byte, vertex stride P bytes; the kernel reads it
-//     in place through the strides given, no contiguous copy) and appends
-//     the 64-bit key (D_rest << 32) | v of each boundary vertex to its
-//     row's buffer with a warp-aggregated atomicAdd.  The final counter
-//     is |B|.  Keys are unique, so their order is a total order equal to
-//     the reference's (score, lowest index) tie rule.
-//   * select_finish: one block per row runs an MSB-first radix select
-//     (8-bit digits, shared-memory histograms) over the row's compacted
-//     keys to find the K-th smallest, collects the keys at or below it,
-//     sorts them (bitonic, shared memory) and runs the epilogue.
-//   The compacted keys are |B| per row, far fewer than N, so the radix
-//   passes read little; the one full pass over the chunk is the compact.
+//   top-k accumulator from tile to tile, with the restart vertices drawn
+//   outside.  Blocks here run in no order; the design fills the card and
+//   reads the map at most once:
+//   * select_scan (one launch): one thread per vertex; where D_rest > 0
+//     it reads the vertex's flags for 64 rows (four 16-byte loads when
+//     the rows are the map's contiguous bytes, else byte loads through
+//     the view's strides), writes them as two 32-bit words of boundary
+//     bits (32 MB at N = 2^22 against the map's 256 MB), and histograms
+//     each boundary key's score, capped at 256, into shared memory,
+//     flushed with one global atomicAdd per non-empty bin.  It also sets
+//     the any-D_rest flag on the device (never read by the host).
+//   * the pick: the last block of each pass (an atomic ticket) scans
+//     every row's 256 bins (a warp a row) and narrows the row's key
+//     interval [lo, hi] to the bucket holding the kk-th key; the keys
+//     below the bucket (fewer than kk) are collected in the next pass.
+//     Level 0's buckets are exact scores 1..255 and one for >= 256; later
+//     levels split the interval into 256 equal buckets (an exact score's
+//     interval spans the vertex ids, so the ties at the threshold score
+//     are resolved by id).  A bucket of at most SEL_FINAL keys is
+//     collected whole.  The interval loses 8 bits a level, so every row is
+//     collected after at most SEL_PASSES passes.
+//   * restart_draw (its own launch, its own count): a (blocks, C) grid;
+//     blocks of a row that does not restart return at once.  A restart
+//     row computes threefry2x32 (20 rounds, counters (0, i)) for each
+//     vertex with D_rest > 0 and keeps the maximum of (bits << 32) |
+//     (0xFFFFFFFF - i) by a block reduction and one 64-bit atomicMax: the
+//     largest uniform, ties to the lowest index, as jnp.argmax breaks them.
+//   * select_pass (SEL_PASSES launches): one thread per vertex reads the
+//     two boundary words (and D_rest where one is set, skipping scores no
+//     live row needs), appends the keys below each row's bucket to the
+//     row's candidates and histograms the keys inside it; a pass with no
+//     live row returns at once.
+//   * select_finish: one block per row sorts its candidates (at most
+//     kk - 1 + SEL_FINAL, bitonic in shared memory) and runs the
+//     epilogue.  Keys are unique, so any order of the passes selects the
+//     same kk keys as the reference's top-k.
+//
+// two_hop_best — replaces ne_round.py::unpack_bits at the two-hop chunk,
+//   with the AND, where and min around it (dist/partitioner_sm.py and
+//   core/partitioner.py::_two_hop).  Per edge: the minimum of enc[p] over
+//   the partitions p in replicas(u) & replicas(v) when the edge is
+//   unallocated, else I32_INF.  Bound: device memory, 13 B an edge
+//   streamed (u, v, the unallocated flag, best) plus the two gathered
+//   rows of each unallocated edge.  One thread per edge; an allocated edge
+//   gathers nothing.  Two row formats: (N, W) int32 words (the SPMD round;
+//   the (N, 2) map is 32 MB and stays in the 50 MB L2), ANDed and walked
+//   bit by bit with __ffs; or (N, P) bool rows (the single controller),
+//   ANDed 16 bytes at a time when P % 16 == 0, byte by byte otherwise.
+//   The enc vector sits in shared memory.
 //
 // pack_bits / unpack_bits / or_words — replace ne_round.py::pack_bits,
 //   ::unpack_bits and ::or_words.  A replica set of P partitions is
@@ -237,120 +277,348 @@ extern "C" int ne_claim_scatter(const int* sel_idx, const uint8_t* sel_valid,
 // select
 // ---------------------------------------------------------------------------
 
-__global__ void select_compact_kernel(const uint8_t* __restrict__ vp,
-                                      long long stride_c, long long stride_n,
-                                      const int* __restrict__ degree_rest,
-                                      const uint8_t* __restrict__ active,
-                                      int c_rows, long long n,
-                                      u64* __restrict__ keys,
-                                      int* __restrict__ bsize) {
+constexpr int SEL_BINS = 256;        // buckets a level (8-bit digits)
+constexpr int SEL_GROUP = 64;        // rows a block reads: two words
+constexpr int SEL_FINAL = 2048;      // a bucket this small is collected
+constexpr int SEL_PASSES = 8;        // passes after the scan: 7 narrow
+                                     // a 63-bit interval to 7 bits, 1 collects
+constexpr int SEL_THREADS = 512;
+constexpr int SEL_SMEM = SEL_GROUP * SEL_BINS * (int)sizeof(int);
+
+struct SelRow {
+  u64 lo, hi;      // interval holding the kk-th key
+  u64 coll;        // keys in [coll, lo) are collected by the next pass
+  int krem;        // keys still to take from [lo, hi]
+  int shift;       // bucket = (key - lo) >> shift
+  int mode;        // 0 done, 1 histogram [lo, hi], 2 collect [coll, hi]
+  int kk;          // keys to select: min(k_eff, |B|)
+  int bs;          // |B|
+  int restart;
+};
+
+struct SelCtrl {
+  unsigned ticket; // blocks of the current pass that have finished
+  int live;        // some row still reads keys
+  int dmin, dmax;  // the scores the next pass looks at
+  int any_ok;      // some vertex has D_rest > 0
+};
+
+__device__ __forceinline__ int span_shift(u64 span) {
+  const int bits = span == 0 ? 0 : 64 - __clzll((long long)span);
+  return bits > 8 ? bits - 8 : 0;
+}
+
+// bit j = byte j of x is nonzero, j < 4
+__device__ __forceinline__ unsigned nz4(unsigned x) {
+  x |= x >> 4;
+  x |= x >> 2;
+  x |= x >> 1;
+  return (x & 1u) | ((x >> 7) & 2u) | ((x >> 14) & 4u) | ((x >> 21) & 8u);
+}
+
+__device__ __forceinline__ unsigned nz16(uint4 q) {
+  return nz4(q.x) | (nz4(q.y) << 4) | (nz4(q.z) << 8) | (nz4(q.w) << 12);
+}
+
+struct SelArgs {
+  const int* degree_rest;
+  const uint8_t* active;
+  int c_rows, k_sel, wtot, cap;
+  long long n;
+  float lam;
+  unsigned* bw;        // (N, wtot) boundary words
+  int* hist;           // (C, SEL_BINS)
+  SelRow* rows;        // (C,)
+  int* ncand;          // (C,)
+  u64* cand;           // (C, cap)
+  SelCtrl* ctrl;
+};
+
+// The bucket of the krem-th key of one row's histogram (a warp a row):
+// returns (bucket, keys below it, keys in it, keys in all buckets).
+__device__ void warp_bucket(const int* h, int krem, int* bucket, int* below,
+                            int* count, int* total) {
   const int lane = threadIdx.x & 31;
-  const unsigned lt_mask = (1u << lane) - 1u;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  // the loop bound is warp-uniform so every lane joins each ballot
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i - lane < n; i += stride) {
-    const bool in = i < n;
-    const int d = in ? degree_rest[i] : 0;
-    for (int c = 0; c < c_rows; ++c) {
-      const bool b = d > 0 && active[c] && vp[c * stride_c + i * stride_n];
-      const unsigned ballot = __ballot_sync(0xffffffffu, b);
-      if (ballot == 0) continue;
-      const int leader = __ffs(ballot) - 1;
-      int base = 0;
-      if (lane == leader) base = atomicAdd(&bsize[c], __popc(ballot));
-      base = __shfl_sync(0xffffffffu, base, leader);
-      if (b)
-        keys[(long long)c * n + base + __popc(ballot & lt_mask)] =
-            ((u64)(unsigned)d << 32) | (u64)(unsigned)i;
+  int loc[SEL_BINS / 32];
+  int sum = 0;
+#pragma unroll
+  for (int j = 0; j < SEL_BINS / 32; ++j) {
+    loc[j] = __ldcg(h + lane * (SEL_BINS / 32) + j);
+    sum += loc[j];
+  }
+  int incl = sum;                       // inclusive scan over lanes
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  *total = __shfl_sync(0xffffffffu, incl, 31);
+  const unsigned hit = __ballot_sync(0xffffffffu, incl >= krem && krem > 0);
+  *bucket = *below = *count = 0;
+  if (hit) {
+    const int src = __ffs(hit) - 1;
+    int b = 0, cum = incl - sum, cnt = 0;
+    if (lane == src) {
+      for (int j = 0; j < SEL_BINS / 32; ++j) {
+        if (cum + loc[j] >= krem) { b = j; cnt = loc[j]; break; }
+        cum += loc[j];
+      }
+      b += lane * (SEL_BINS / 32);
     }
+    *bucket = __shfl_sync(0xffffffffu, b, src);
+    *below = __shfl_sync(0xffffffffu, cum, src);
+    *count = __shfl_sync(0xffffffffu, cnt, src);
   }
 }
 
-__device__ u64 block_max_u64(u64 x, u64* scratch) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const u64 y = __shfl_down_sync(0xffffffffu, x, o);
-    x = y > x ? y : x;
+// Run by the last block of a pass: narrow every row's interval and set
+// what the next pass reads.  level 0 follows the scan.
+__device__ void select_pick(const SelArgs& a, int level) {
+  __shared__ int s_live, s_dmin, s_dmax;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) { s_live = 0; s_dmin = I32_INF; s_dmax = 0; }
+  __syncthreads();
+  const int any_ok = *(volatile int*)&a.ctrl->any_ok;
+  for (int c = warp; c < a.c_rows; c += SEL_THREADS / 32) {
+    int* h = a.hist + (long long)c * SEL_BINS;
+    SelRow r = a.rows[c];
+    int krem = r.krem;
+    if (level == 0) {
+      int b, below, cnt, total;
+      warp_bucket(h, 1 << 30, &b, &below, &cnt, &total);   // total = |B|
+      const int bs = total;
+      int k_eff = (int)ceilf(__fmul_rn(a.lam, (float)bs));
+      k_eff = k_eff < 1 ? 1 : (k_eff > a.k_sel ? a.k_sel : k_eff);
+      r.bs = bs;
+      r.kk = bs < k_eff ? bs : k_eff;
+      r.restart = bs == 0 && a.active[c] && any_ok;
+      r.mode = 0;
+      krem = r.kk;
+      if (krem > 0) {
+        warp_bucket(h, krem, &b, &below, &cnt, &total);
+        const u64 top = ((u64)0x7FFFFFFF << 32) | (u64)(a.n - 1);
+        r.lo = (u64)(b + 1) << 32;
+        r.hi = b < SEL_BINS - 1 ? (r.lo | (u64)(a.n - 1)) : top;
+        r.coll = (u64)1 << 32;
+        r.krem = krem - below;
+        r.shift = span_shift(r.hi - r.lo);
+        r.mode = cnt <= SEL_FINAL ? 2 : 1;
+      }
+    } else if (r.mode == 2) {
+      r.mode = 0;                        // this pass collected [coll, hi]
+    } else if (r.mode == 1) {
+      int b, below, cnt, total;
+      warp_bucket(h, krem, &b, &below, &cnt, &total);
+      const u64 lo = r.lo + ((u64)b << r.shift);
+      const u64 hi = lo + (((u64)1 << r.shift) - 1);
+      r.coll = r.lo;                     // [old lo, lo) is collected next
+      r.lo = lo;
+      r.hi = hi < r.hi ? hi : r.hi;
+      r.krem = krem - below;
+      r.shift = span_shift(r.hi - r.lo);
+      r.mode = cnt <= SEL_FINAL ? 2 : 1;
+    }
+    for (int j = lane; j < SEL_BINS; j += 32) h[j] = 0;
+    if (lane == 0) {
+      a.rows[c] = r;
+      if (r.mode) {
+        atomicOr(&s_live, 1);
+        atomicMin(&s_dmin, (int)(r.coll >> 32));
+        atomicMax(&s_dmax, (int)(r.hi >> 32));
+      }
+    }
   }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) scratch[warp] = x;
   __syncthreads();
   if (threadIdx.x == 0) {
-    u64 mx = 0;
-    for (int w = 0; w < (int)(blockDim.x + 31) / 32; ++w)
-      mx = scratch[w] > mx ? scratch[w] : mx;
-    scratch[0] = mx;
+    a.ctrl->live = s_live;
+    a.ctrl->dmin = s_dmin;
+    a.ctrl->dmax = s_dmax;
+    a.ctrl->ticket = 0;
   }
-  __syncthreads();
-  const u64 out = scratch[0];
-  __syncthreads();
-  return out;
 }
 
-// dynamic shared memory: kp u64 selection slots (kp = K rounded up to a
-// power of two)
-__global__ void select_finish_kernel(const u64* __restrict__ keys,
-                                     const int* __restrict__ bsize,
+// The end of every pass: the block's histogram to global memory, and the
+// pick in the last block to finish.
+__device__ void select_pass_end(const SelArgs& a, const int* sh, int r0,
+                                int nr, int level) {
+  __syncthreads();
+  for (int j = threadIdx.x; j < nr * SEL_BINS; j += SEL_THREADS)
+    if (sh[j]) atomicAdd(a.hist + (long long)r0 * SEL_BINS + j, sh[j]);
+  __threadfence();
+  __syncthreads();
+  __shared__ bool last;
+  if (threadIdx.x == 0)
+    last = atomicAdd(&a.ctrl->ticket, 1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  select_pick(a, level);
+}
+
+__global__ void __launch_bounds__(SEL_THREADS)
+select_scan_kernel(const uint8_t* __restrict__ vp, long long stride_c,
+                   long long stride_n, int vec, SelArgs a) {
+  extern __shared__ int sh[];
+  __shared__ unsigned act_w[2];
+  const int r0 = blockIdx.y * SEL_GROUP;
+  const int nr = min(SEL_GROUP, a.c_rows - r0);
+  for (int j = threadIdx.x; j < nr * SEL_BINS; j += SEL_THREADS) sh[j] = 0;
+  if (threadIdx.x < 2) {
+    unsigned w = 0;
+    for (int j = 0; j < 32; ++j) {
+      const int r = 32 * threadIdx.x + j;
+      if (r < nr && a.active[r0 + r]) w |= 1u << j;
+    }
+    act_w[threadIdx.x] = w;
+  }
+  __syncthreads();
+  bool any = false;
+  const long long stride = (long long)gridDim.x * SEL_THREADS;
+  for (long long i = (long long)blockIdx.x * SEL_THREADS + threadIdx.x;
+       i < a.n; i += stride) {
+    const int d = a.degree_rest[i];
+    unsigned w0 = 0, w1 = 0;
+    if (d > 0) {
+      any = true;
+      const uint8_t* row = vp + i * stride_n + (long long)r0 * stride_c;
+      if (vec) {
+        const uint4* q = reinterpret_cast<const uint4*>(row);
+        const uint4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2),
+                    q3 = __ldg(q + 3);
+        w0 = nz16(q0) | (nz16(q1) << 16);
+        w1 = nz16(q2) | (nz16(q3) << 16);
+      } else {
+        for (int r = 0; r < nr; ++r)
+          if (row[r * stride_c]) {
+            if (r < 32) w0 |= 1u << r; else w1 |= 1u << (r - 32);
+          }
+      }
+      w0 &= act_w[0];
+      w1 &= act_w[1];
+      const int bin = (d < SEL_BINS ? d : SEL_BINS) - 1;
+      for (unsigned w = w0; w; w &= w - 1)
+        atomicAdd(&sh[(__ffs(w) - 1) * SEL_BINS + bin], 1);
+      for (unsigned w = w1; w; w &= w - 1)
+        atomicAdd(&sh[(31 + __ffs(w)) * SEL_BINS + bin], 1);
+    }
+    reinterpret_cast<uint2*>(a.bw)[i * (a.wtot / 2) + blockIdx.y] =
+        make_uint2(w0, w1);
+  }
+  if (__syncthreads_or(any) && threadIdx.x == 0) atomicOr(&a.ctrl->any_ok, 1);
+  select_pass_end(a, sh, r0, nr, 0);
+}
+
+__global__ void __launch_bounds__(SEL_THREADS)
+select_pass_kernel(SelArgs a, int level) {
+  if (!*(volatile int*)&a.ctrl->live) return;   // the same for every block
+  extern __shared__ int sh[];
+  __shared__ SelRow rs[SEL_GROUP];
+  const int r0 = blockIdx.y * SEL_GROUP;
+  const int nr = min(SEL_GROUP, a.c_rows - r0);
+  for (int j = threadIdx.x; j < nr * SEL_BINS; j += SEL_THREADS) sh[j] = 0;
+  for (int j = threadIdx.x; j < nr; j += SEL_THREADS) rs[j] = a.rows[r0 + j];
+  const int dmin = a.ctrl->dmin, dmax = a.ctrl->dmax;
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * SEL_THREADS;
+  for (long long i = (long long)blockIdx.x * SEL_THREADS + threadIdx.x;
+       i < a.n; i += stride) {
+    const uint2 w = reinterpret_cast<const uint2*>(a.bw)[
+        i * (a.wtot / 2) + blockIdx.y];
+    if ((w.x | w.y) == 0) continue;
+    const int d = a.degree_rest[i];
+    if (d < dmin || d > dmax) continue;
+    const u64 key = ((u64)(unsigned)d << 32) | (u64)i;
+    for (int half = 0; half < 2; ++half) {
+      for (unsigned m = half ? w.y : w.x; m; m &= m - 1) {
+        const int r = 32 * half + __ffs(m) - 1;
+        const SelRow& s = rs[r];
+        if (s.mode == 0 || key < s.coll || key > s.hi) continue;
+        if (s.mode == 2 || key < s.lo) {
+          const int slot = atomicAdd(a.ncand + r0 + r, 1);
+          if (slot < a.cap) a.cand[(long long)(r0 + r) * a.cap + slot] = key;
+        } else {
+          atomicAdd(&sh[r * SEL_BINS + (int)((key - s.lo) >> s.shift)], 1);
+        }
+      }
+    }
+  }
+  select_pass_end(a, sh, r0, nr, level);
+}
+
+// JAX's uniform bits of counter (0, i) under key (k0, k1): threefry2x32,
+// 20 rounds, then the 23 top bits of x0 ^ x1 (the float32 mantissa of a
+// value in [1, 2); uniform = that value - 1, so the order is the bits').
+__device__ __forceinline__ unsigned uniform_bits(unsigned k0, unsigned k1,
+                                                 unsigned i) {
+  const unsigned k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  unsigned x0 = k0, x1 = i + k1;
+#define TF_ROUND(r) x0 += x1; x1 = __funnelshift_l(x1, x1, r) ^ x0;
+#define TF_EVEN TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+#define TF_ODD TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
+  TF_EVEN x0 += k1; x1 += k2 + 1u;
+  TF_ODD  x0 += k2; x1 += k0 + 2u;
+  TF_EVEN x0 += k0; x1 += k1 + 3u;
+  TF_ODD  x0 += k1; x1 += k2 + 4u;
+  TF_EVEN x0 += k2; x1 += k0 + 5u;
+#undef TF_EVEN
+#undef TF_ODD
+#undef TF_ROUND
+  return (x0 ^ x1) >> 9;
+}
+
+constexpr int DRAW_THREADS = 256;
+constexpr int DRAW_VERTICES = 16384;   // vertices a block of a restart row
+
+__global__ void __launch_bounds__(DRAW_THREADS)
+restart_draw_kernel(const int* __restrict__ degree_rest,
+                    const long long* __restrict__ keys,
+                    const SelRow* __restrict__ rows, long long n,
+                    u64* __restrict__ rkey, u64* __restrict__ drawn) {
+  const int c = blockIdx.y;
+  if (!rows[c].restart) return;
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(drawn, 1ull);
+  const unsigned k0 = (unsigned)keys[2 * c], k1 = (unsigned)keys[2 * c + 1];
+  u64 best = 0;
+  const long long stride = (long long)gridDim.x * DRAW_THREADS;
+  for (long long i = (long long)blockIdx.x * DRAW_THREADS + threadIdx.x;
+       i < n; i += stride) {
+    if (degree_rest[i] > 0) {
+      const u64 key = ((u64)uniform_bits(k0, k1, (unsigned)i) << 32) |
+                      (u64)(0xFFFFFFFFu - (unsigned)i);
+      best = key > best ? key : best;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const u64 y = __shfl_down_sync(0xffffffffu, best, o);
+    best = y > best ? y : best;
+  }
+  __shared__ u64 wmax[DRAW_THREADS / 32];
+  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < DRAW_THREADS / 32; ++w)
+      best = wmax[w] > best ? wmax[w] : best;
+    if (best) atomicMax(rkey + c, best);
+  }
+}
+
+// dynamic shared memory: kp u64 slots (kp = the candidate capacity
+// rounded up to a power of two)
+__global__ void select_finish_kernel(const u64* __restrict__ cand,
+                                     const int* __restrict__ ncand,
+                                     const SelRow* __restrict__ rows,
+                                     const u64* __restrict__ rkey,
                                      const uint8_t* __restrict__ active,
                                      const int* __restrict__ remaining,
-                                     const int* __restrict__ rnd_v,
-                                     const uint8_t* __restrict__ any_ok,
-                                     long long n, float lam, int k_sel,
-                                     int kp, int* __restrict__ idx_out,
+                                     int cap, int k_sel,
+                                     int* __restrict__ idx_out,
                                      uint8_t* __restrict__ valid_out) {
   extern __shared__ u64 sel[];
-  __shared__ int hist[256];
-  __shared__ u64 scratch[32];
-  __shared__ u64 prefix;
-  __shared__ int krem;
-  __shared__ int nsel;
-
   const int c = blockIdx.x;
-  const int bs = bsize[c];
-  const int kneed = bs < k_sel ? bs : k_sel;
-  const u64* row = keys + (long long)c * n;
-
-  // threshold: the kneed-th smallest key (all keys when |B| <= K)
-  u64 thresh = ~0ull;
-  if (bs > k_sel) {
-    u64 mx = 0;
-    for (int i = threadIdx.x; i < bs; i += blockDim.x)
-      mx = row[i] > mx ? row[i] : mx;
-    mx = block_max_u64(mx, scratch);
-    const int top = 63 - __clzll((long long)mx);
-    if (threadIdx.x == 0) { prefix = 0; krem = kneed; }
-    for (int shift = (top / 8) * 8; shift >= 0; shift -= 8) {
-      for (int i = threadIdx.x; i < 256; i += blockDim.x) hist[i] = 0;
-      __syncthreads();
-      const u64 want = shift + 8 >= 64 ? 0ull : prefix >> (shift + 8);
-      for (int i = threadIdx.x; i < bs; i += blockDim.x) {
-        const u64 key = row[i];
-        const u64 hi = shift + 8 >= 64 ? 0ull : key >> (shift + 8);
-        if (hi == want) atomicAdd(&hist[(key >> shift) & 255], 1);
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        int cum = 0, digit = 0;
-        for (; digit < 256; ++digit) {
-          if (cum + hist[digit] >= krem) break;
-          cum += hist[digit];
-        }
-        krem -= cum;
-        prefix |= (u64)digit << shift;
-      }
-      __syncthreads();
-    }
-    thresh = prefix;
-  }
-
-  // collect the kneed keys at or below the threshold, pad, sort
-  if (threadIdx.x == 0) nsel = 0;
-  for (int i = threadIdx.x; i < kp; i += blockDim.x) sel[i] = ~0ull;
-  __syncthreads();
-  for (int i = threadIdx.x; i < bs; i += blockDim.x) {
-    const u64 key = row[i];
-    if (key <= thresh) sel[atomicAdd(&nsel, 1)] = key;
-  }
+  const int nc = min(ncand[c], cap);
+  int kp = 1;
+  while (kp < nc) kp <<= 1;
+  for (int i = threadIdx.x; i < kp; i += blockDim.x)
+    sel[i] = i < nc ? cand[(long long)c * cap + i] : ~0ull;
   __syncthreads();
   for (int k = 2; k <= kp; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
@@ -358,8 +626,8 @@ __global__ void select_finish_kernel(const u64* __restrict__ keys,
         const int ixj = i ^ j;
         if (ixj > i) {
           const bool up = (i & k) == 0;
-          const u64 a = sel[i], b = sel[ixj];
-          if ((a > b) == up) { sel[i] = b; sel[ixj] = a; }
+          const u64 x = sel[i], y = sel[ixj];
+          if ((x > y) == up) { sel[i] = y; sel[ixj] = x; }
         }
       }
       __syncthreads();
@@ -368,49 +636,126 @@ __global__ void select_finish_kernel(const u64* __restrict__ keys,
 
   // epilogue (sequential over K: the capacity cut is a prefix sum)
   if (threadIdx.x == 0) {
+    const SelRow r = rows[c];
     const bool act = active[c] != 0;
-    const bool restart = bs == 0 && act && any_ok[0] != 0;
-    int k_eff = (int)ceilf(__fmul_rn(lam, (float)bs));
-    k_eff = k_eff < 1 ? 1 : (k_eff > k_sel ? k_sel : k_eff);
     const int rem = remaining[c];
     unsigned cum = 0;                 // int32 prefix sum, wrapping
     for (int i = 0; i < k_sel; ++i) {
-      const bool have = i < kneed;
+      const bool have = i < r.kk;     // i < min(k_eff, |B|)
       const int score = have ? (int)(sel[i] >> 32) : 0;
       int vid = have ? (int)(sel[i] & 0xffffffffull) : 0;
-      bool val = have && i < k_eff;
-      cum += val ? (unsigned)score : 0u;
-      val = val && ((int)cum <= rem || i == 0);
-      if (i == 0 && restart) { vid = rnd_v[c]; val = true; }
+      cum += have ? (unsigned)score : 0u;
+      bool val = have && ((int)cum <= rem || i == 0);
+      if (i == 0 && r.restart) {
+        vid = (int)(0xFFFFFFFFu - (unsigned)(rkey[c] & 0xffffffffull));
+        val = true;
+      }
       idx_out[(long long)c * k_sel + i] = vid;
       valid_out[(long long)c * k_sel + i] = (val && act) ? 1 : 0;
     }
   }
 }
 
-extern "C" int ne_select(const uint8_t* vparts_c, long long stride_c,
+static long long align16(long long x) { return (x + 15) / 16 * 16; }
+
+struct SelLayout {
+  long long ctrl, rows, rkey, hist, ncand, zero_end, cand, bw, total;
+  int groups, wtot, cap;
+};
+
+static SelLayout sel_layout(int c_rows, long long n, int k_sel) {
+  SelLayout l;
+  l.groups = (c_rows + SEL_GROUP - 1) / SEL_GROUP;
+  l.wtot = 2 * l.groups;
+  l.cap = k_sel + SEL_FINAL;
+  l.ctrl = 0;
+  l.rows = align16(sizeof(SelCtrl));
+  l.rkey = l.rows + align16((long long)sizeof(SelRow) * c_rows);
+  l.hist = l.rkey + align16(8LL * c_rows);
+  l.ncand = l.hist + align16(4LL * SEL_BINS * c_rows);
+  l.zero_end = l.ncand + align16(4LL * c_rows);
+  l.cand = l.zero_end;
+  l.bw = l.cand + align16(8LL * c_rows * l.cap);
+  l.total = l.bw + align16(4LL * l.wtot * n);
+  return l;
+}
+
+// Bytes of scratch ne_select needs (the wrapper allocates them).
+extern "C" long long ne_select_scratch_bytes(int c_rows, long long n,
+                                             int k_sel) {
+  return sel_layout(c_rows, n, k_sel).total;
+}
+
+// Launches: the scan, the restart draw, SEL_PASSES passes and the finish,
+// in that order on one stream.  `keys` is the (C, 2) int64 threefry keys,
+// `drawn` a counter the draw adds 1 to for each row it draws.
+extern "C" int ne_select(const uint8_t* vp, long long stride_c,
                          long long stride_n, const int* degree_rest,
                          const uint8_t* active, const int* remaining,
-                         const int* rnd_v, const uint8_t* any_ok, int c_rows,
-                         long long n, float lam, int k_sel,
-                         unsigned long long* keys, int* bsize, int* idx,
-                         uint8_t* valid, void* stream) {
+                         const long long* keys, int c_rows, long long n,
+                         float lam, int k_sel, void* scratch, u64* drawn,
+                         int* idx, uint8_t* valid, void* stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        select_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SEL_SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(select_pass_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SEL_SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(select_finish_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 64 * 1024);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(bsize, 0, sizeof(int) * c_rows, s);
+  const SelLayout l = sel_layout(c_rows, n, k_sel);
+  char* base = (char*)scratch;
+  cudaError_t err = cudaMemsetAsync(base, 0, l.zero_end, s);
   if (err != cudaSuccess) return (int)err;
-  if (n > 0) {
-    long long blocks = (n + 255) / 256;
-    if (blocks > 132 * 16) blocks = 132 * 16;
-    select_compact_kernel<<<(int)blocks, 256, 0, s>>>(
-        vparts_c, stride_c, stride_n, degree_rest, active, c_rows, n, keys,
-        bsize);
+  SelArgs a;
+  a.degree_rest = degree_rest;
+  a.active = active;
+  a.c_rows = c_rows;
+  a.k_sel = k_sel;
+  a.wtot = l.wtot;
+  a.cap = l.cap;
+  a.n = n;
+  a.lam = lam;
+  a.bw = (unsigned*)(base + l.bw);
+  a.hist = (int*)(base + l.hist);
+  a.rows = (SelRow*)(base + l.rows);
+  a.ncand = (int*)(base + l.ncand);
+  a.cand = (u64*)(base + l.cand);
+  a.ctrl = (SelCtrl*)(base + l.ctrl);
+  u64* rkey = (u64*)(base + l.rkey);
+
+  const int vec = stride_c == 1 && c_rows % SEL_GROUP == 0 &&
+                  stride_n % 16 == 0 && (uintptr_t)vp % 16 == 0;
+  long long bx = (n + SEL_THREADS - 1) / SEL_THREADS;
+  if (bx > 132 * 3) bx = 132 * 3;
+  const dim3 grid((unsigned)bx, (unsigned)l.groups);
+  select_scan_kernel<<<grid, SEL_THREADS, SEL_SMEM, s>>>(vp, stride_c,
+                                                          stride_n, vec, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long dx = (n + DRAW_VERTICES - 1) / DRAW_VERTICES;
+  restart_draw_kernel<<<dim3((unsigned)dx, (unsigned)c_rows), DRAW_THREADS,
+                        0, s>>>(degree_rest, keys, a.rows, n, rkey, drawn);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  for (int level = 1; level <= SEL_PASSES; ++level) {
+    select_pass_kernel<<<grid, SEL_THREADS, SEL_SMEM, s>>>(a, level);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   int kp = 1;
-  while (kp < k_sel) kp <<= 1;
+  while (kp < l.cap) kp <<= 1;
   select_finish_kernel<<<c_rows, 1024, sizeof(u64) * kp, s>>>(
-      keys, bsize, active, remaining, rnd_v, any_ok, n, lam, k_sel, kp, idx,
+      a.cand, a.ncand, a.rows, rkey, active, remaining, l.cap, k_sel, idx,
       valid);
   return (int)cudaGetLastError();
 }
@@ -510,5 +855,77 @@ extern "C" int ne_or_words(const int* a, const int* b, long long count,
   if (count > 0)
     or_words_kernel<<<grid_blocks(work, 256), 256, 0,
                       (cudaStream_t)stream>>>(a, b, count, count4, out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// two_hop_best
+// ---------------------------------------------------------------------------
+
+// FMT 0: (N, W) words; 1: (N, P) bool rows, 16-byte loads; 2: byte loads
+template <int FMT>
+__global__ void two_hop_kernel(const void* __restrict__ map, int w, int p,
+                               const int* __restrict__ u,
+                               const int* __restrict__ v,
+                               const uint8_t* __restrict__ un,
+                               const int* __restrict__ enc, long long ce,
+                               int* __restrict__ best) {
+  extern __shared__ int enc_s[];
+  for (int i = threadIdx.x; i < p; i += blockDim.x) enc_s[i] = enc[i];
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < ce; e += stride) {
+    int b = I32_INF;
+    if (un[e]) {
+      const long long a = u[e], c = v[e];
+      if (FMT == 0) {
+        const unsigned* words = static_cast<const unsigned*>(map);
+        for (int j = 0; j < w; ++j) {
+          for (unsigned x = __ldg(words + a * w + j) & __ldg(words + c * w + j);
+               x; x &= x - 1) {
+            const int q = 32 * j + __ffs(x) - 1;
+            if (q < p) b = min(b, enc_s[q]);
+          }
+        }
+      } else if (FMT == 1) {
+        const uint4* ra = static_cast<const uint4*>(map) + a * (p / 16);
+        const uint4* rc = static_cast<const uint4*>(map) + c * (p / 16);
+        for (int j = 0; j < p / 16; ++j) {
+          const uint4 x = __ldg(ra + j), y = __ldg(rc + j);
+          const unsigned m = nz16(make_uint4(x.x & y.x, x.y & y.y,
+                                             x.z & y.z, x.w & y.w));
+          for (unsigned t = m; t; t &= t - 1)
+            b = min(b, enc_s[16 * j + __ffs(t) - 1]);
+        }
+      } else {
+        const uint8_t* ra = static_cast<const uint8_t*>(map) + a * p;
+        const uint8_t* rc = static_cast<const uint8_t*>(map) + c * p;
+        for (int q = 0; q < p; ++q)
+          if (ra[q] && rc[q]) b = min(b, enc_s[q]);
+      }
+    }
+    best[e] = b;
+  }
+}
+
+// words != 0: `map` is (N, w) int32 words; else (N, p) bool rows.
+extern "C" int ne_two_hop_best(const void* map, int words, int w, int p,
+                               const int* u, const int* v, const uint8_t* un,
+                               const int* enc, long long ce, int* best,
+                               void* stream) {
+  if (ce <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = grid_blocks(ce, 256);
+  const size_t smem = sizeof(int) * p;
+  if (words)
+    two_hop_kernel<0><<<blocks, 256, smem, s>>>(map, w, p, u, v, un, enc, ce,
+                                                best);
+  else if (p % 16 == 0 && (uintptr_t)map % 16 == 0)
+    two_hop_kernel<1><<<blocks, 256, smem, s>>>(map, w, p, u, v, un, enc, ce,
+                                                best);
+  else
+    two_hop_kernel<2><<<blocks, 256, smem, s>>>(map, w, p, u, v, un, enc, ce,
+                                                best);
   return (int)cudaGetLastError();
 }

@@ -1,14 +1,19 @@
-"""Front door of the NE-round kernels: ``one_hop``, ``select_topk``,
-``claim_scatter``, and the bit-packed replica-set kernels ``pack_bits``,
-``unpack_bits`` and ``or_words``, with the reference package's signatures
-(packed words are int32 bit patterns of the reference's uint32 words).
+"""Front door of the NE-round kernels: ``one_hop``, ``select_chunk``
+(boundary selection with its restart draw), ``claim_scatter``,
+``two_hop_best`` (the two-hop chunk's candidate keys), and the bit-packed
+replica-set kernels ``pack_bits``, ``unpack_bits`` and ``or_words``, with
+the reference package's signatures (packed words are int32 bit patterns
+of the reference's uint32 words).
 
 The tensor's device decides the route: a CPU tensor goes to the plain
 version in ``ref.py``; a CUDA tensor goes to the hand-written kernel in
 ``csrc/ne_round.cu`` (built with ``nvcc`` at first use); anything else
 raises.  There is no fallback from the kernel to the plain version.
 Each wrapper checks its inputs, allocates its outputs, launches on the
-current stream and adds one to ``launches[name]`` per kernel call.
+current stream and adds one to ``launches[name]`` per kernel call;
+``select_chunk`` counts its selection under ``"select"`` and its restart
+draw under ``"restart_draw"``, and the draw adds the rows it drew to a
+counter on the device (:func:`rows_drawn`).
 """
 from __future__ import annotations
 
@@ -18,8 +23,10 @@ import torch
 
 from repro_torch.kernels.ne_round import ref
 
-launches = {"one_hop": 0, "select": 0, "claim_scatter": 0, "pack_bits": 0,
+launches = {"one_hop": 0, "select": 0, "restart_draw": 0,
+            "claim_scatter": 0, "two_hop_best": 0, "pack_bits": 0,
             "unpack_bits": 0, "or_words": 0}
+_drawn: dict = {}        # device -> (1,) int64 rows the restart draw drew
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
@@ -28,20 +35,36 @@ _ARGTYPES = {
     "ne_claim_scatter": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                          ctypes.c_longlong, ctypes.c_int, _P, _P],
     "ne_select": [_P, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _P, _P,
-                  _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                  ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
                   ctypes.c_int, _P, _P, _P, _P, _P],
+    "ne_two_hop_best": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
+                        _P, _P, ctypes.c_longlong, _P, _P],
     "ne_pack_bits": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
                      _P],
     "ne_unpack_bits": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                        _P, _P],
     "ne_or_words": [_P, _P, ctypes.c_longlong, _P, _P],
 }
-MAX_K_SEL = 4096   # select_finish keeps K keys in 48 KB of shared memory
+MAX_K_SEL = 4096   # select_finish sorts K + 2,048 keys in 64 KB of shared
+                   # memory
 
 
 def reset_launches() -> None:
+    """Every launch count to 0, and the rows-drawn counters."""
     for k in launches:
         launches[k] = 0
+    for t in _drawn.values():
+        t.zero_()
+
+
+def rows_drawn(device) -> int:
+    """Rows the restart draw kernel drew on ``device`` since the last
+    :func:`reset_launches` (reads the device counter: a sync)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    t = _drawn.get(dev)
+    return 0 if t is None else int(t.item())
 
 
 def _lib():
@@ -53,6 +76,10 @@ def _lib():
         for fn, argtypes in _ARGTYPES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
+        lib.ne_select_scratch_bytes.argtypes = [ctypes.c_int,
+                                                ctypes.c_longlong,
+                                                ctypes.c_int]
+        lib.ne_select_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -112,15 +139,16 @@ def one_hop(vclaim, u, v, edge_part, num_partitions: int, mask=None):
     return part, counts
 
 
-def select_topk(vparts_c, active_c, degree_rest, lam: float, k_sel: int,
-                remaining_c, rnd_v, any_ok):
-    """Boundary selection for a (C, N) chunk of partitions; returns
-    ``(idx, valid)`` of shape (C, k_sel).  ``vparts_c`` may be a strided
-    view (the kernel reads it through its strides, in place)."""
-    if _route(vparts_c, active_c, degree_rest, remaining_c, rnd_v,
-              any_ok) == "cpu":
-        return ref.select_ref(vparts_c, active_c, degree_rest, lam, k_sel,
-                              remaining_c, rnd_v, any_ok)
+def select_chunk(vparts_c, active_c, degree_rest, lam: float, k_sel: int,
+                 keys_c, remaining_c):
+    """Boundary selection of C rows (partitions) with the restart draw
+    from their (C, 2) int64 threefry keys; returns ``(idx, valid)`` of
+    shape (C, k_sel).  ``vparts_c`` may be a strided view (the kernel
+    reads it through its strides, in place): the partitioner passes the
+    whole (N, P) map transposed."""
+    if _route(vparts_c, active_c, degree_rest, keys_c, remaining_c) == "cpu":
+        return ref.select_chunk_ref(vparts_c, active_c, degree_rest, lam,
+                                    k_sel, keys_c, remaining_c)
     c, n = vparts_c.shape
     if vparts_c.dtype != torch.bool:
         raise TypeError(f"vparts_c: dtype {vparts_c.dtype}, expected bool")
@@ -129,22 +157,23 @@ def select_topk(vparts_c, active_c, degree_rest, lam: float, k_sel: int,
     _check(degree_rest, torch.int32, (n,), "degree_rest")
     _check(active_c, torch.bool, (c,), "active_c")
     _check(remaining_c, torch.int32, (c,), "remaining_c")
-    _check(any_ok, torch.bool, (), "any_ok")
-    rnd32 = rnd_v.to(torch.int32).contiguous()
-    _check(rnd32, torch.int32, (c,), "rnd_v")
+    _check(keys_c, torch.int64, (c, 2), "keys_c")
     dev = vparts_c.device
-    keys = torch.empty((c, n), dtype=torch.int64, device=dev)
-    bsize = torch.empty(c, dtype=torch.int32, device=dev)
+    lib = _lib()
+    scratch = torch.empty(lib.ne_select_scratch_bytes(c, n, k_sel),
+                          dtype=torch.uint8, device=dev)
+    if dev not in _drawn:
+        _drawn[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
     idx = torch.empty((c, k_sel), dtype=torch.int32, device=dev)
     valid = torch.empty((c, k_sel), dtype=torch.bool, device=dev)
     s_c, s_n = vparts_c.stride()
-    err = _lib().ne_select(_ptr(vparts_c), s_c, s_n, _ptr(degree_rest),
-                           _ptr(active_c), _ptr(remaining_c), _ptr(rnd32),
-                           _ptr(any_ok), c, n, float(lam), k_sel,
-                           _ptr(keys), _ptr(bsize), _ptr(idx), _ptr(valid),
-                           _stream())
+    err = lib.ne_select(_ptr(vparts_c), s_c, s_n, _ptr(degree_rest),
+                        _ptr(active_c), _ptr(remaining_c), _ptr(keys_c), c, n,
+                        float(lam), k_sel, _ptr(scratch), _ptr(_drawn[dev]),
+                        _ptr(idx), _ptr(valid), _stream())
     _raise_on(err, "ne_select")
     launches["select"] += 1
+    launches["restart_draw"] += 1
     return idx, valid
 
 
@@ -201,6 +230,37 @@ def unpack_bits(words, num_partitions: int):
     _raise_on(err, "ne_unpack_bits")
     launches["unpack_bits"] += 1
     return bools
+
+
+def two_hop_best(vparts, uu, vv, un, enc_vec, num_partitions: int):
+    """(ce,) int32 candidate keys of a two-hop chunk: per edge, the least
+    ``enc_vec[p]`` over the partitions p holding both endpoints, where the
+    edge is unallocated (``un``), else ``I32_INF``.  ``vparts`` is the
+    (N, P) bool map or the (N, W) int32 packed words."""
+    if _route(vparts, uu, vv, un, enc_vec) == "cpu":
+        return ref.two_hop_best_ref(vparts, uu, vv, un, enc_vec,
+                                    num_partitions)
+    ce = uu.shape[0]
+    n, w = vparts.shape
+    words = vparts.dtype == torch.int32
+    if words and not 1 <= num_partitions <= 32 * w:
+        raise ValueError(f"num_partitions={num_partitions} outside "
+                         f"[1, {32 * w}] for {w} words")
+    _check(vparts, torch.int32 if words else torch.bool,
+           (n, w if words else num_partitions), "vparts")
+    for t, name in ((uu, "uu"), (vv, "vv")):
+        _check(t, torch.int32, (ce,), name)
+    _check(un, torch.bool, (ce,), "un")
+    _check(enc_vec, torch.int32, (num_partitions,), "enc_vec")
+    best = torch.empty(ce, dtype=torch.int32, device=uu.device)
+    if ce == 0:                            # nothing to write: no launch
+        return best
+    err = _lib().ne_two_hop_best(_ptr(vparts), int(words), w, num_partitions,
+                                 _ptr(uu), _ptr(vv), _ptr(un), _ptr(enc_vec),
+                                 ce, _ptr(best), _stream())
+    _raise_on(err, "ne_two_hop_best")
+    launches["two_hop_best"] += 1
+    return best
 
 
 def or_words(a, b):

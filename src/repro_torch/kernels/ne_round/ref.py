@@ -14,8 +14,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import random as trandom
+
 I32_INF = 2**31 - 1
 _LOW32 = 0xFFFFFFFF
+# rows of the plain selection at a time: bounds its (rows, N) threefry
+# and key intermediates, as the reference's default selection chunk does
+REF_ROWS = 8
 
 
 def _enc(count, p, num_partitions: int):
@@ -77,6 +82,38 @@ def select_ref(vparts_c, active_c, degree_rest, lam: float, k_sel: int,
     return idx, valid
 
 
+def boundary_reseed(degree_rest, keys_c):
+    """Random re-seed draw for empty boundaries (paper Alg. 1 line 6).
+
+    Returns ``(rnd_v, any_ok)``: (C,) random vertices with unallocated
+    edges, drawn from the (C, 2) keys exactly as the reference draws them
+    (the argmax of JAX's uniform bits over D_rest > 0, ties to the lowest
+    index), and the () any-rest flag.
+    """
+    any_rest = degree_rest > 0
+    gumb = trandom.uniform(keys_c, (degree_rest.shape[0],))
+    gumb = torch.where(any_rest[None, :], gumb,
+                       torch.full_like(gumb, -1.0))
+    return torch.argmax(gumb, dim=1), any_rest.any()
+
+
+def select_chunk_ref(vparts_c, active_c, degree_rest, lam: float,
+                     k_sel: int, keys_c, remaining_c):
+    """Selection of C rows with the restart draw: :func:`boundary_reseed`
+    from the rows' (C, 2) keys, then :func:`select_ref`, ``REF_ROWS`` rows
+    at a time (rows are independent).  Returns ``(idx, valid)`` of shape
+    (C, k_sel)."""
+    idx, valid = [], []
+    for j in range(0, vparts_c.shape[0], REF_ROWS):
+        rows = slice(j, j + REF_ROWS)
+        rnd_v, any_ok = boundary_reseed(degree_rest, keys_c[rows])
+        i, v = select_ref(vparts_c[rows], active_c[rows], degree_rest, lam,
+                          k_sel, remaining_c[rows], rnd_v, any_ok)
+        idx.append(i)
+        valid.append(v)
+    return torch.cat(idx), torch.cat(valid)
+
+
 def claim_scatter_ref(sel_idx, sel_valid, edges_per_part,
                       num_vertices: int, num_partitions: int):
     """``vclaim[v] = min over claiming partitions of enc(|E_p|, p)``,
@@ -125,6 +162,19 @@ def unpack_bits_ref(words, num_partitions: int):
     bits = torch.arange(32, dtype=torch.int32, device=words.device)
     b = (words[:, :, None] >> bits) & 1
     return b.reshape(n, w * 32)[:, :num_partitions].to(torch.bool).contiguous()
+
+
+def two_hop_best_ref(vparts, uu, vv, un, enc_vec, num_partitions: int):
+    """Condition (5) candidate key of each edge of a two-hop chunk: the
+    minimum of ``enc_vec[p]`` over the partitions p in replicas(u) &
+    replicas(v) of an unallocated edge (``un``), ``I32_INF`` otherwise.
+    ``vparts`` is the (N, P) bool map or the (N, W) int32 packed words;
+    returns (ce,) int32."""
+    inter = vparts[uu.long()] & vparts[vv.long()]
+    if vparts.dtype == torch.int32:
+        inter = unpack_bits_ref(inter, num_partitions)
+    inf = torch.tensor(I32_INF, dtype=torch.int32, device=enc_vec.device)
+    return torch.where(inter & un[:, None], enc_vec[None, :], inf).amin(dim=1)
 
 
 def or_words_ref(a, b):
