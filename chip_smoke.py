@@ -14,8 +14,10 @@ Phases, each printing its lines; any failed check exits non-zero:
    rows at N = 2^22 and the rows its draw ran counted on the device, and
    over an 8-row chunk view; ``two_hop_best`` at the two-hop chunk on
    bool rows and packed words; the bit-packing kernels also at a ragged
-   P = 37 and at the two-hop chunk shape), exactly: the kernels are
-   integer math, so the tolerance is 0;
+   P = 37 and at the two-hop chunk shape, and ``pack_bits`` on each of
+   its routes: the vector route at P = 32, 64, 96, 128, the ballot route
+   at P = 37 and on a view 1 byte off alignment), exactly: the kernels
+   are integer math, so the tolerance is 0;
 3. the main path: ``partition`` of the RMAT graph (edge factor 16,
    P = 64, the other NEConfig fields at their defaults) on the card, with
    the kernel launch counts set to 0 just before and read just after
@@ -37,7 +39,8 @@ Phases, each printing its lines; any failed check exits non-zero:
    words) beside its plain version's, a library call's and its bound
    (bytes, or a restart draw's integer operations), as one JSON line;
    each also with the device time of its own kernels and of the library
-   call's (torch.profiler); ``claim_scatter``'s one launch a call;
+   call's (torch.profiler), and the route ``pack_bits`` took;
+   ``claim_scatter``'s one launch a call;
 6. full-graph GIN training (gin-tu, 5 layers, d_hidden 64) over the
    vertex-cut engine in a world-1 NCCL group, on a graph of Cora's size
    (``full_graph_sm``: 2,708 vertices, ~10,556 edges, 1,433 features,
@@ -56,11 +59,15 @@ Phases, each printing its lines; any failed check exits non-zero:
    D 10, MLP 400-400-400, 10^6 candidates, float32, seeded random
    parameters made on the card): the ``embedding_bag`` kernel against its
    plain version at the serve_p99 (B = 512) and serve_bulk (B = 262,144)
-   shapes, the card's forward against the CPU's, the time per batch and
+   shapes and at its other cuts (one bag in tiles of slots, B = 1, B not
+   a multiple of the bags a block), each sum also bit for bit the
+   in-order float32 sum and the same bits from call to call, the card's
+   forward against the CPU's, the time per batch and
    rows/s of each (2 launches a forward, counts set to 0 just before and
    read just after), the retrieval_cand time, peak memory, and the
-   kernel's times (events and device time) beside its bound, its plain
-   version's and ``F.embedding_bag``'s;
+   kernel's times (events and device time) beside its bounds (bytes, and
+   the 32-byte sectors its rows touch), its plain version's and
+   ``F.embedding_bag``'s;
 8. smollm-135m serving at full width in bf16 (seeded random weights): the
    ``flash_attention`` kernel against its plain version at prefill shapes
    and every head dim and group size on the tensor-core route, at the
@@ -74,9 +81,10 @@ Phases, each printing its lines; any failed check exits non-zero:
    at batch 1 (cut from 32) and one decode_32k step at batch 32 (cut from
    128; 30 flash_attention and 30 combine launches) on a seeded random
    cache, each with its counts set to 0 just
-   before and read just after, and the kernel's times at the prefill_32k
-   and decode_32k layers beside its bound, the plain version's and
-   ``F.scaled_dot_product_attention``'s.  Rows 7 and 8 join the line.
+   before and read just after, and the kernel's times (events and device
+   time) at the prefill_32k and decode_32k layers beside its bound, the
+   plain version's and ``F.scaled_dot_product_attention``'s.  Rows 7, 8
+   and 9 join the line.
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU
 fallback: without a CUDA device the script exits non-zero.
@@ -195,14 +203,23 @@ def device_kernels(torch, fn, reps: int) -> dict:
     return out
 
 
-def device_ms(torch, fn, reps: int):
+def device_ms(torch, fn, reps: int, tries: int = 5):
     """(ms, kernels) per call of ``fn``'s own kernels on the device
-    (:func:`device_kernels` summed); fails if the profiler records no
-    device time."""
-    per = device_kernels(torch, fn, reps)
-    ms = sum(t for t, _ in per.values())
-    check(ms > 0, "torch.profiler recorded no device time")
-    return ms, sum(k for _, k in per.values())
+    (:func:`device_kernels` summed).  Late in full runs the profiler lost
+    some instances of a call's kernels in a window (up to all 3 of the
+    prefill layer's, where a fresh process lost none), so calls are
+    profiled 20 at a time where they can be, and a profile with no device
+    time at all is taken again and said so.  Fails if all ``tries`` are
+    empty."""
+    for attempt in range(1, tries + 1):
+        per = device_kernels(torch, fn, reps)
+        ms = sum(t for t, _ in per.values())
+        if ms > 0:
+            return ms, sum(k for _, k in per.values())
+        print(f"device_ms: torch.profiler recorded no device time (try "
+              f"{attempt} of {tries}, {time.perf_counter() - T_START:.1f} "
+              f"s into the script)", flush=True)
+    fail("torch.profiler recorded no device time")
 
 
 def kernel_ms(per: dict, match: str) -> float:
@@ -429,8 +446,28 @@ def phase_bit_kernels(torch, ops, ref, n, dev, p_num, chunk):
         err = max_abs_err(ops.or_words(words, other),
                           ref.or_words_ref(words, other))
         check(err == 0, f"or_words differs at ({rows}, {w}): {err}")
-        print(f"phase 2: pack_bits, unpack_bits, or_words == plain at "
-              f"N={rows}, P={p}, W={w}", flush=True)
+        print(f"phase 2: pack_bits ({ops.pack_bits_route(bools)} route), "
+              f"unpack_bits, or_words == plain at N={rows}, P={p}, W={w}",
+              flush=True)
+    # pack_bits at each route: N·W not a multiple of a vector block's
+    # 1,024 words, flag bytes other than 0 and 1 (a uint8 map as bool)
+    rows = (1 << 20) + 3
+    for p, offset, route in ((32, 0, "vector"), (64, 0, "vector"),
+                             (96, 0, "vector"), (128, 0, "vector"),
+                             (37, 0, "ballot"), (64, 1, "ballot")):
+        raw = torch.randint(0, 4, (rows * p + offset,), generator=gen,
+                            device=dev, dtype=torch.uint8)
+        raw[offset::37] = 0x80
+        bools = raw[offset:].view(torch.bool).view(rows, p)
+        got_route = ops.pack_bits_route(bools)
+        check(got_route == route, f"pack_bits at P={p}, offset {offset}: "
+              f"{got_route} route, want {route}")
+        err = max_abs_err(ops.pack_bits(bools),
+                          ref.pack_bits_ref(raw[offset:].view(rows, p) != 0))
+        check(err == 0, f"pack_bits ({route}) differs at ({rows}, {p}), "
+              f"offset {offset}: {err}")
+        print(f"phase 2: pack_bits == plain on the {route} route at N={rows}, "
+              f"P={p}, map {offset} B off 16-byte alignment", flush=True)
 
 
 def kernel_row(torch, name, kern, plain, lib, bound, reps, err):
@@ -492,6 +529,11 @@ def phase_spmd_times(torch, tp, sm, ops, ref, u, v, n, cfg, limit, state,
         check(err == 0, f"{name} differs on the captured SPMD round: {err}")
         rows.append(kernel_row(torch, name, kern, plain, lib,
                                (bound_ms(nbytes), "bytes"), reps, err))
+    rows[0]["pack_route"] = ops.pack_bits_route(delta)
+    print(f"phase 5: pack_bits on the captured SPMD round's ({n}, {p_num}) "
+          f"delta: {rows[0]['pack_route']} route, device_ms "
+          f"{rows[0]['device_ms']!r}, bound {rows[0]['bound_ms']!r}",
+          flush=True)
     # the first two-hop chunk of the next round, on this state's words
     ce = min(cfg.edge_chunk, u.shape[0])
     pid = torch.arange(p_num, dtype=torch.int32, device=u.device)
@@ -1227,14 +1269,116 @@ def bag_bound(b, k, d, size, weighted):
                     + b * d * size), "bytes"
 
 
+def bag_sector_bound(ids, d, size, weighted) -> float:
+    """The bound in ms of one bag call with its rows counted as the 32-byte
+    sectors they touch (a random row comes from device memory in whole
+    sectors), exactly from these ids: Σ over slots of (⌊(id·D·s + D·s −
+    1)/32⌋ − ⌊id·D·s/32⌋ + 1) × 32 for a table at a 32-byte aligned
+    address, plus the ids, the weights and the output."""
+    off = ids.long() * (d * size)
+    sectors = int(((off + d * size - 1) // 32 - off // 32 + 1).sum())
+    return bound_ms(32 * sectors + ids.numel() * 4 * (1 + weighted)
+                    + ids.shape[0] * d * size)
+
+
+def bag_bits_check(torch, eb, ebref, tab, i, weights, label) -> None:
+    """The kernel's sum equals the in-order float32 sum bit for bit, with
+    no weights or with 0/1 weights (exact products), and repeats its bits
+    from call to call."""
+    got = eb.embedding_bag(tab, i, weights)
+    check(torch.equal(got, ebref.embedding_bag_inorder_ref(tab, i, weights)),
+          f"embedding_bag at {label} is not the in-order sum bit for bit")
+    check(torch.equal(eb.embedding_bag(tab, i, weights), got),
+          f"embedding_bag at {label} changed its bits from call to call")
+
+
+def bag_cut_sweep(torch, eb, tab, i, reps: int) -> dict:
+    """{bags a block: ms by events} of the kernel on ``tab`` and ``i``
+    (no weights) at the plan's G and at each of 1 .. 48 that fits 48 KB,
+    its threads as the plan would give them, launched through the
+    C entry point (these launches are not counted); and, under
+    ``"index_select"``, torch's gather of the same rows with its (B·K, D)
+    output: where the time stays flat over G and near the gather's, the
+    calls sit on the card's rate of random reads, not on the kernel's
+    loads in flight."""
+    b, k = i.shape
+    d = tab.shape[1]
+    cut = eb.plan(b, k, d, tab.element_size(), False, tab.data_ptr())
+    out = torch.empty((b, d), dtype=tab.dtype, device=tab.device)
+    lib, stream = eb._lib(), torch.cuda.current_stream().cuda_stream
+    times = {}
+    for g in sorted({1, 2, 4, 8, 16, 27, 48, cut.g}):
+        smem = g * k * 4 * (1 + d)
+        if smem > eb.SMEM_BUDGET or g > b:
+            continue
+        threads = min(eb.THREADS, -(-g * k * (d // cut.vec) // 32) * 32)
+
+        def run(g=g, smem=smem, threads=threads):
+            err = lib.embedding_bag(tab.data_ptr(), eb._DTYPES[tab.dtype],
+                                    i.data_ptr(), None, b, k, d, g, k, d,
+                                    cut.vec, threads, smem, out.data_ptr(),
+                                    stream)
+            check(err == 0, f"embedding_bag at G={g}: cudaError_t {err}")
+        times[g] = time_ms(run, reps)
+    times["index_select"] = time_ms(
+        lambda: tab.index_select(0, i.view(-1)), reps)
+    return times
+
+
+def phase_bag_routes(torch, eb, ebref, dev) -> None:
+    """Phase 7, check 1b: the kernel's cuts beyond the serve shapes (one
+    bag in tiles of slots, B = 1, B not a multiple of G; float32 and
+    bf16, weighted with a tenth of the slots padding and not), each bit
+    for bit the in-order sum and within 1e-6 + 1e-5·Σ|w·row| (+ 2^-7
+    |plain| in bf16) of the plain version: 2,048-slot sums of random
+    rows cancel to near 0, where a bound relative to the sum is no
+    bound."""
+    gen = torch.Generator(device=dev).manual_seed(73)
+    for name, v, d, b, k in (("tiles of slots", 1 << 16, 64, 3, 2048),
+                             ("B = 1", 1 << 20, 10, 1, 39),
+                             ("B % G != 0", 1 << 20, 10, 1001, 39),
+                             ("B % G != 0, w1", 1 << 20, 1, 1001, 39)):
+        base = torch.randn((v, d), generator=gen, device=dev)
+        i = torch.randint(0, v, (b, k), generator=gen, device=dev,
+                          dtype=torch.int32)
+        w = (torch.rand((b, k), generator=gen, device=dev) >= 0.1).float()
+        cuts = set()
+        for tab in (base, base.to(torch.bfloat16)):
+            for weights in (None, w):
+                cut = eb.plan(b, k, d, tab.element_size(),
+                              weights is not None, tab.data_ptr())
+                cuts.add(cut)
+                label = f"{name} ({tab.dtype}, weighted={weights is not None})"
+                bag_bits_check(torch, eb, ebref, tab, i, weights, label)
+                got = eb.embedding_bag(tab, i, weights).float()
+                want = plain_bag(ebref, tab, i, weights, "sum").float()
+                terms = plain_bag(ebref, tab.float().abs(), i, weights,
+                                  "sum")
+                rtol = 2.0 ** -7 if tab.dtype == torch.bfloat16 else 0.0
+                err = (got - want).abs()
+                check(bool((err <= 1e-6 + 1e-5 * terms
+                            + rtol * want.abs()).all()),
+                      f"embedding_bag differs from plain at {label}: "
+                      f"{float(err.max())!r}")
+        if name == "tiles of slots":
+            check(all(c.kt < k and c.g == 1 for c in cuts),
+                  f"{name}: cuts {cuts} do not tile the slots")
+        print(f"phase 7: embedding_bag == in-order sum bit for bit and "
+              f"== plain at {name} (B={b}, K={k}, D={d}), float32 and "
+              f"bf16, weighted and not; cuts (g, kt, dt, vec, threads, "
+              f"smem) {sorted(tuple(c) for c in cuts)}", flush=True)
+
+
 def phase_deepfm_kernel(torch, eb, ebref, model, ids):
     """Phase 7, check 1: the embedding_bag kernel against its plain version
     on the card at the serve shapes, for the table (D = 10) and w1 (D = 1),
     sum and mean, weighted (a tenth of the slots padding) and not, float32
     and bfloat16.  float32: 1e-6 + 1e-5 |plain| (sums in another order);
     bfloat16: 1e-6 + 2^-7 |plain| (one bf16 rounding of float32 sums that
-    differ in the last bits may land one bf16 step apart).  Returns the
-    largest float32 error."""
+    differ in the last bits may land one bf16 step apart).  Unweighted and
+    with the 0/1 weights, each sum also equals the in-order float32 sum
+    bit for bit, and repeats its bits.  Returns the largest float32
+    error."""
     gen = torch.Generator(device=ids["serve_p99"].device).manual_seed(71)
     tables = {"table": model.table.detach(), "w1": model.w1.detach()}
     tables.update({f"{k} bf16": t.to(torch.bfloat16)
@@ -1246,6 +1390,9 @@ def phase_deepfm_kernel(torch, eb, ebref, model, ids):
         for name, tab in tables.items():
             kind = "bfloat16" if tab.dtype == torch.bfloat16 else "float32"
             rtol = 2.0 ** -7 if kind == "bfloat16" else 1e-5
+            for weights in (None, w):
+                bag_bits_check(torch, eb, ebref, tab, i, weights,
+                               f"{shape} {name}")
             for mode in ("sum", "mean"):
                 for weights in (None, w):
                     got = eb.embedding_bag(tab, i, weights, mode)
@@ -1258,7 +1405,9 @@ def phase_deepfm_kernel(torch, eb, ebref, model, ids):
                     worst[kind] = max(worst[kind], err)
         print(f"phase 7: embedding_bag == plain at {shape} (B={i.shape[0]}, "
               f"K={i.shape[1]}): table D=10 and w1 D=1, sum and mean, "
-              f"weighted and not, float32 and bfloat16", flush=True)
+              f"weighted and not, float32 and bfloat16; the sums == the "
+              f"in-order sum bit for bit, the same bits call to call",
+              flush=True)
     print(f"phase 7: embedding_bag max abs err float32 "
           f"{worst['float32']!r} (tol 1e-6 + 1e-5|plain|), bfloat16 "
           f"{worst['bfloat16']!r} (tol 1e-6 + 2^-7|plain|)", flush=True)
@@ -1300,6 +1449,7 @@ def phase_deepfm(torch, args):
           for s in ("serve_p99", "serve_bulk")}
     ids = {s: dfm._field_ids(x, cfg) for s, x in xs.items()}
     worst = phase_deepfm_kernel(torch, eb, ebref, model, ids)
+    phase_bag_routes(torch, eb, ebref, dev)
 
     # check 2: the card's forward against the CPU's on the same parameters
     cpu = copy.deepcopy(model).to("cpu")
@@ -1377,6 +1527,9 @@ def phase_deepfm(torch, args):
             tag = "" if (shape, name) == ("serve_bulk", "table") else \
                 f"_{shape}_{name}"
             row.update({
+                "sector_bound_ms" + tag: bag_sector_bound(i, d, 4, False),
+                "plan" + tag: eb.plan(b, k, d, 4, False,
+                                      tab.data_ptr())._asdict(),
                 "ms" + tag: time_ms(lambda: eb.embedding_bag(tab, i),
                                     args.reps),
                 "plain_ms" + tag: time_ms(
@@ -1389,10 +1542,17 @@ def phase_deepfm(torch, args):
                     torch, lambda: eb.embedding_bag(tab, i), args.reps)[0],
                 "library_device_ms" + tag: device_ms(
                     torch, lambda: fe(i, tab, mode="sum"), args.reps)[0]})
+            if shape == "serve_bulk":
+                row["cut_sweep_ms" + tag] = bag_cut_sweep(torch, eb, tab, i,
+                                                          args.reps)
+                print(f"phase 7: embedding_bag at {shape} {name}, ms by "
+                      f"events for G bags a block (and torch's gather): "
+                      f"{row['cut_sweep_ms' + tag]}", flush=True)
             print(f"phase 7: embedding_bag at {shape} {name} (B={b}, K={k}, "
-                  f"D={d}): ms {row['ms' + tag]!r}, device_ms "
-                  f"{row['device_ms' + tag]!r}, bound "
-                  f"{row['bound_ms' + tag]!r} (bytes), plain "
+                  f"D={d}; cut {row['plan' + tag]}): ms {row['ms' + tag]!r}, "
+                  f"device_ms {row['device_ms' + tag]!r}, bound "
+                  f"{row['bound_ms' + tag]!r} (bytes), sector bound "
+                  f"{row['sector_bound_ms' + tag]!r}, plain "
                   f"{row['plain_ms' + tag]!r}, F.embedding_bag "
                   f"{row['library_ms' + tag]!r} (device_ms "
                   f"{row['library_device_ms' + tag]!r})", flush=True)
@@ -1755,13 +1915,21 @@ def phase_lm(torch, args):
             "bound_by" + tag: "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms" + tag: time_ms(
                 lambda: sdpa(qh, kh, vh, is_causal=causal),
-                3 if causal else args.reps, 1)})
+                3 if causal else args.reps, 1),
+            "device_ms" + tag: device_ms(torch, lambda: fa.flash_attention(
+                qq, kk, vv, causal=causal), args.reps)[0],
+            "library_device_ms" + tag: device_ms(
+                torch, lambda: sdpa(qh, kh, vh, is_causal=causal),
+                args.reps)[0]})
         del qh, kh, vh
         print(f"phase 8: flash_attention at {name} layer (B={bq}, S={sq}, "
-              f"T={t}, H={h}, HK={kk.shape[2]}, D={d}): ms {row['ms' + tag]!r}, bound "
-              f"{row['bound_ms' + tag]!r} ({row['bound_by' + tag]}), plain "
+              f"T={t}, H={h}, HK={kk.shape[2]}, D={d}): ms "
+              f"{row['ms' + tag]!r}, device_ms {row['device_ms' + tag]!r}, "
+              f"bound {row['bound_ms' + tag]!r} ({row['bound_by' + tag]}), "
+              f"plain "
               f"{'chunked ' if causal else ''}{row['plain_ms' + tag]!r}, "
-              f"SDPA {row['library_ms' + tag]!r}", flush=True)
+              f"SDPA {row['library_ms' + tag]!r} (device_ms "
+              f"{row['library_device_ms' + tag]!r})", flush=True)
     del kc, vc, model
     torch.cuda.empty_cache()
     return row

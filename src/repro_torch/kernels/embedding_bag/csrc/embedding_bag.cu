@@ -12,25 +12,39 @@
 //           marks a padding slot, whose row is still read and multiplied
 //           by 0 (as on the TPU: a non-finite row gives NaN).
 //   out     (B, D) in the table's type, written once.
-//   out[b, d] = Σ_k weights[b, k] · table[ids[b, k], d], summed in float32
-//   registers over k in order (no atomics: the order is fixed), then
-//   rounded once to the table's type.
+//   out[b, d] = fmaf(row_k, w_k, acc) over k = 0..K-1 in order, from
+//   acc = 0 in float32, then rounded once to the table's type.  The
+//   order is fixed (no atomics, no tree), so the bits are those of a
+//   slot-by-slot float32 sum and the same from call to call.
 //
 //   Bound: bytes.  The rows B·K·D·sizeof(T), the ids B·K·4 (+ the weights
 //   B·K·4 when given) and the output B·D·sizeof(T), against 3.35 TB/s;
-//   the 2·B·K·D operations are nothing beside them.
+//   the 2·B·K·D operations are nothing beside them.  A random row comes
+//   from device memory in whole 32-byte sectors, so the rows really cost
+//   the sectors they touch (a 40-byte row two, a 4-byte row one).
 //
-//   Design (simple first): the serving rows are narrow (D = 10, 40 bytes;
-//   D = 1 for the first-order weights), so one warp per bag would idle 22
-//   or 31 of its 32 lanes.  Instead every thread owns one output element
-//   (b, d): consecutive threads take consecutive d of a bag and then the
-//   next bag, so a warp covers 32 / D bags with every lane busy, and the
-//   D threads of a bag read one row as one contiguous run.  Each thread
-//   loops over k in order, loading ids[b, k] and weights[b, k] (the same
-//   address for the D threads of a bag: one broadcast) and its element
-//   of the row.  Offsets are 64-bit (id · D reaches 4.1e8 at full size).
-//   No shared memory and no prefetch of the next row: rows are random
-//   gathers, and the many warps in flight hide their latency.
+//   Design: the rows are random gathers of 4 to 40 bytes, so the kernel
+//   is bound by how many loads are in flight, not by instructions.  A
+//   block takes G whole bags (or, for a bag whose K·D values do not fit
+//   the shared-memory budget, one bag in tiles of KT slots, in order):
+//   * stage: the block's G·K ids (and weights) are one contiguous run;
+//     its threads copy it into shared memory with 16-byte loads between
+//     a scalar head and tail;
+//   * gather: every thread issues its share of the G·K row loads, GATHER
+//     of them back to back before it stores any, so all are in flight
+//     together.  Consecutive threads take consecutive VEC-element pieces
+//     of one row (VEC elements = 16, 8 or 4 bytes where the row length
+//     and the table's address allow), and the values go to shared memory
+//     as float32;
+//   * sum: after one barrier the thread of output (b, d) runs the fmaf
+//     chain over k in order from shared memory and stores once.  Across
+//     tiles the chain's value waits in shared memory.
+//   A warp-shuffle tree would change the order of the sum and its last
+//   bits; the in-order chain keeps the bits of the one-thread-an-output
+//   kernel this design replaced.  ops.plan picks
+//   G (at least 2 blocks an SM where B allows), KT, the column tile and
+//   VEC; the entry point refuses a plan the kernel cannot run.  Offsets
+//   into the table are 64-bit (id · D reaches 4.1e8 at full size).
 //
 // Plain C interface: device pointers and a cudaStream_t passed as void*;
 // launches on that stream, does not synchronise, allocates nothing, and
@@ -38,47 +52,161 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int GATHER = 8;      // row loads a thread issues before storing
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);   // round to nearest even, as torch's cast
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-bag_kernel(const T* __restrict__ table, const int* __restrict__ ids,
-           const float* __restrict__ w, long long total, int k, int d,
-           T* __restrict__ out) {
-  const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (e >= total) return;
-  const long long b = e / d;
-  const int c = (int)(e - b * d);
-  const int* bag_ids = ids + b * k;
-  const float* bag_w = w ? w + b * k : nullptr;
-  float acc = 0.f;
-  for (int j = 0; j < k; ++j) {
-    const float row = to_f32(table[(long long)bag_ids[j] * d + c]);
-    acc = fmaf(row, bag_w ? bag_w[j] : 1.f, acc);
+// VEC elements of T loaded as one access of VEC * sizeof(T) bytes
+template <int BYTES> struct Raw;
+template <> struct Raw<16> { typedef uint4 type; };
+template <> struct Raw<8> { typedef uint2 type; };
+template <> struct Raw<4> { typedef unsigned type; };
+template <> struct Raw<2> { typedef unsigned short type; };
+
+// 32-bit word i of a load (i is a constant after unrolling)
+__device__ __forceinline__ unsigned word_of(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+__device__ __forceinline__ unsigned word_of(const uint2& r, int i) {
+  return i == 0 ? r.x : r.y;
+}
+__device__ __forceinline__ unsigned word_of(unsigned r, int) { return r; }
+
+template <typename T, int VEC>
+struct Piece {
+  typedef typename Raw<VEC * sizeof(T)>::type raw;
+  static __device__ __forceinline__ raw load(const T* p) {
+    return __ldg(reinterpret_cast<const raw*>(p));
   }
-  store(out + e, acc);
+  // the VEC values as float32 into dst[0 .. VEC-1]: a float32 is a word;
+  // a bfloat16 is the high half of a float32's bits (exact), element 2i
+  // in the low half of word i, 2i + 1 in the high half (little-endian)
+  static __device__ __forceinline__ void put(const raw& r, float* dst) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        dst[i] = __uint_as_float(word_of(r, i));
+      } else if constexpr (VEC == 1) {
+        dst[i] = __uint_as_float((unsigned)r << 16);
+      } else {
+        const unsigned x = word_of(r, i / 2);
+        dst[i] = __uint_as_float(i & 1 ? x & 0xffff0000u : x << 16);
+      }
+    }
+  }
+};
+
+// src[0 .. n-1] (32-bit values: ids or weights) into dst, 16-byte loads
+// between a scalar head and tail
+__device__ __forceinline__ void copy_run(const unsigned* __restrict__ src,
+                                         int n, unsigned* __restrict__ dst) {
+  int head = (int)((16 - ((uintptr_t)src & 15)) & 15) / 4;
+  head = head < n ? head : n;
+  const int body = (n - head) / 4;
+  for (int i = threadIdx.x; i < head; i += blockDim.x)
+    dst[i] = __ldg(src + i);
+  const uint4* s4 = reinterpret_cast<const uint4*>(src + head);
+  unsigned* d = dst + head;
+  for (int i = threadIdx.x; i < body; i += blockDim.x) {
+    const uint4 v = __ldg(s4 + i);
+    d[4 * i] = v.x;
+    d[4 * i + 1] = v.y;
+    d[4 * i + 2] = v.z;
+    d[4 * i + 3] = v.w;
+  }
+  for (int i = head + 4 * body + threadIdx.x; i < n; i += blockDim.x)
+    dst[i] = __ldg(src + i);
 }
 
-template <typename T>
+// grid (ceil(B / g), ceil(D / dt)); block: g bags (g == 1 when kt < k),
+// the columns [blockIdx.y * dt, + dt) of their outputs, slots in tiles
+// of kt.  Shared memory: ids[g·kt], weights[g·kt] (when given),
+// rows[g·kt·dt] float32, and the carried sums[g·dt] when kt < k.
+template <typename T, int VEC>
+__global__ void bag_kernel(const T* __restrict__ table,
+                           const int* __restrict__ ids,
+                           const float* __restrict__ w, long long b, int k,
+                           int d, int g, int kt, int dt,
+                           T* __restrict__ out) {
+  extern __shared__ float smem[];
+  typedef Piece<T, VEC> P;
+  const long long bag0 = (long long)blockIdx.x * g;
+  const int gb = (int)(b - bag0 < g ? b - bag0 : g);     // bags here
+  const int c_lo = blockIdx.y * dt;
+  const int dc = d - c_lo < dt ? d - c_lo : dt;         // columns here
+  int* ids_s = reinterpret_cast<int*>(smem);
+  float* w_s = smem + g * kt;
+  float* rows_s = w_s + (w ? g * kt : 0);
+  float* acc_s = rows_s + g * kt * dt;
+  const int units = dc / VEC;                            // pieces a row
+  const int tpr = units < (int)blockDim.x ? units : (int)blockDim.x;
+  const int rpp = blockDim.x / tpr;                      // rows a pass
+  const int r0 = threadIdx.x / tpr, c0 = threadIdx.x - r0 * tpr;
+  const int outs = gb * dc;
+  for (int k0 = 0; k0 < k; k0 += kt) {
+    const int kn = k - k0 < kt ? k - k0 : kt;
+    const int ns = gb * kn;             // one run: gb == 1 or kn == k
+    copy_run(reinterpret_cast<const unsigned*>(ids + bag0 * k + k0), ns,
+             reinterpret_cast<unsigned*>(ids_s));
+    if (w)
+      copy_run(reinterpret_cast<const unsigned*>(w + bag0 * k + k0), ns,
+               reinterpret_cast<unsigned*>(w_s));
+    __syncthreads();
+    if (r0 < rpp) {
+      for (int cu = c0; cu < units; cu += tpr) {
+        const T* col = table + c_lo + cu * VEC;
+        for (int s = r0; s < ns; s += GATHER * rpp) {
+          typename P::raw v[GATHER];
+#pragma unroll
+          for (int j = 0; j < GATHER; ++j) {
+            const int sj = s + j * rpp;
+            if (sj < ns) v[j] = P::load(col + (long long)ids_s[sj] * d);
+          }
+#pragma unroll
+          for (int j = 0; j < GATHER; ++j) {
+            const int sj = s + j * rpp;
+            if (sj < ns) P::put(v[j], rows_s + sj * dc + cu * VEC);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    const bool last = k0 + kn == k;
+    for (int o = threadIdx.x; o < outs; o += blockDim.x) {
+      const int gg = o / dc, c = o - gg * dc;
+      const float* r = rows_s + gg * kn * dc + c;
+      const float* ws = w_s + gg * kn;
+      float acc = k0 ? acc_s[o] : 0.f;
+      if (w) {
+        for (int j = 0; j < kn; ++j) acc = fmaf(r[j * dc], ws[j], acc);
+      } else {
+        for (int j = 0; j < kn; ++j) acc = fmaf(r[j * dc], 1.f, acc);
+      }
+      if (last)
+        store(out + (bag0 + gg) * d + c_lo + c, acc);
+      else
+        acc_s[o] = acc;
+    }
+    if (!last) __syncthreads();         // the next tile reuses the buffers
+  }
+}
+
+template <typename T, int VEC>
 int launch(const void* table, const int* ids, const float* w, long long b,
-           int k, int d, void* out, cudaStream_t s) {
-  const long long total = b * d;
-  const long long blocks = (total + THREADS - 1) / THREADS;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  bag_kernel<T><<<(unsigned)blocks, THREADS, 0, s>>>(
-      static_cast<const T*>(table), ids, w, total, k, d,
+           int k, int d, int g, int kt, int dt, int threads, int smem,
+           void* out, cudaStream_t s) {
+  const long long gx = (b + g - 1) / g;
+  const int gy = (d + dt - 1) / dt;
+  if (gx > 0x7fffffffLL || gy > 65535) return (int)cudaErrorInvalidValue;
+  bag_kernel<T, VEC><<<dim3((unsigned)gx, (unsigned)gy), threads, smem, s>>>(
+      static_cast<const T*>(table), ids, w, b, k, d, g, kt, dt,
       static_cast<T*>(out));
   return (int)cudaGetLastError();
 }
@@ -86,13 +214,47 @@ int launch(const void* table, const int* ids, const float* w, long long b,
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (the table's and the output's type).
+// g, kt, dt, vec, threads and smem are ops.plan's: bags a block, slots a
+// tile, columns a block, elements a load, threads a block and the
+// dynamic shared-memory bytes (at most the 48 KB a block gets without
+// opting in: the plan tiles the slots to fit).  A plan the kernel cannot
+// run is refused with cudaErrorInvalidValue before any launch.
 extern "C" int embedding_bag(const void* table, int dtype, const int* ids,
                              const float* weights, long long b, int k,
-                             int d, void* out, void* stream) {
+                             int d, int g, int kt, int dt, int vec,
+                             int threads, int smem, void* out,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(table, ids, weights, b, k, d, out, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(table, ids, weights, b, k, d, out, s);
+  const int size = dtype == 0 ? 4 : 2;
+  const long long need =
+      4LL * g * kt * (1 + (weights != nullptr) + dt) + (kt < k ? 4LL * g * dt
+                                                               : 0);
+  if (b < 1 || k < 1 || d < 1 || g < 1 || kt < 1 || kt > k || dt < 1 ||
+      dt > d || (kt < k && g != 1) || vec < 1 || dt % vec || d % vec ||
+      (uintptr_t)table % (vec * size) || threads < 32 || threads > 1024 ||
+      threads % 32 || smem < need || smem > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    switch (vec) {
+      case 1: return launch<float, 1>(table, ids, weights, b, k, d, g, kt,
+                                      dt, threads, smem, out, s);
+      case 2: return launch<float, 2>(table, ids, weights, b, k, d, g, kt,
+                                      dt, threads, smem, out, s);
+      case 4: return launch<float, 4>(table, ids, weights, b, k, d, g, kt,
+                                      dt, threads, smem, out, s);
+    }
+  } else if (dtype == 1) {
+    typedef __nv_bfloat16 bf;
+    switch (vec) {
+      case 1: return launch<bf, 1>(table, ids, weights, b, k, d, g, kt, dt,
+                                   threads, smem, out, s);
+      case 2: return launch<bf, 2>(table, ids, weights, b, k, d, g, kt, dt,
+                                   threads, smem, out, s);
+      case 4: return launch<bf, 4>(table, ids, weights, b, k, d, g, kt, dt,
+                                   threads, smem, out, s);
+      case 8: return launch<bf, 8>(table, ids, weights, b, k, d, g, kt, dt,
+                                   threads, smem, out, s);
+    }
+  }
   return (int)cudaErrorInvalidValue;
 }

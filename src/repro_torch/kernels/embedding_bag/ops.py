@@ -7,11 +7,12 @@ version in ``ref.py``; a CUDA tensor goes to the hand-written kernel in
 else raises.  There is no fallback from the kernel to the plain version.
 The wrapper checks its inputs, allocates the output, launches on the
 current stream and adds one to ``launches["embedding_bag"]`` per kernel
-call.
+call.  :func:`plan` decides how the kernel cuts the bags into blocks.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -20,9 +21,54 @@ from repro_torch.kernels.embedding_bag import ref
 launches = {"embedding_bag": 0}
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P, ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_int, _P, _P]
+_ARGTYPES = [_P, ctypes.c_int, _P, _P, ctypes.c_longlong,
+             *[ctypes.c_int] * 8, _P, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+SMS = 132                  # the H100's SMs: at least 2 blocks an SM
+THREADS = 256              # the most threads a block
+SMEM_BUDGET = 48 * 1024    # a block's shared memory without opting in
+MAX_COLS = 1024            # columns of the output a block
+UNITS = 4 * THREADS        # row loads a block aims at where B allows
+
+
+class Plan(NamedTuple):
+    """How the kernel cuts a call: ``g`` bags a block, slots in tiles of
+    ``kt`` (``kt < K`` only with ``g == 1``), ``dt`` columns a block,
+    ``vec`` elements a load, ``threads`` a block, ``smem`` bytes of
+    dynamic shared memory."""
+    g: int
+    kt: int
+    dt: int
+    vec: int
+    threads: int
+    smem: int
+
+
+def plan(b: int, k: int, d: int, size: int, weighted: bool,
+         table_ptr: int) -> Plan:
+    """The kernel's cut of a (B, K) call on a (V, D) table of ``size``-byte
+    elements at address ``table_ptr``.  A load takes 16, 8 or 4 bytes of a
+    row where D and the address allow.  Whole bags fit in shared memory
+    (ids, weights and K·dt float32 values a bag) unless K·D is large; then
+    one bag a block, in tiles of slots.  G is the least of what fits, what
+    gives a block ~UNITS row loads, and B / (2 · SMS)."""
+    vec = next((n for n in (16 // size, 8 // size, 4 // size)
+                if n > 1 and d % n == 0 and table_ptr % (n * size) == 0), 1)
+    dt = min(d, MAX_COLS)
+    per_slot = 4 * (2 if weighted else 1) + 4 * dt
+    if k * per_slot <= SMEM_BUDGET:
+        kt = k
+        g = max(1, min(SMEM_BUDGET // (k * per_slot),
+                       -(-UNITS // (k * (dt // vec))), b // (2 * SMS), b))
+        smem = g * k * per_slot
+    else:
+        g = 1
+        kt = (SMEM_BUDGET - 4 * dt) // per_slot
+        smem = kt * per_slot + 4 * dt
+    work = g * max(kt * (dt // vec), dt)
+    threads = min(THREADS, max(32, -(-work // 32) * 32))
+    return Plan(g, kt, dt, vec, threads, smem)
 
 
 def reset_launches() -> None:
@@ -82,9 +128,11 @@ def _bag_sum(table, ids, weights):
         return out
     if k == 0:
         return out.zero_()
+    cut = plan(b, k, d, table.element_size(), weights is not None,
+               table.data_ptr())
     err = _lib().embedding_bag(
         table.data_ptr(), _DTYPES[table.dtype], ids.data_ptr(),
-        None if weights is None else weights.data_ptr(), b, k, d,
+        None if weights is None else weights.data_ptr(), b, k, d, *cut,
         out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"embedding_bag failed with cudaError_t {err}")

@@ -111,10 +111,18 @@
 //   holds a word as the int32 bit pattern of the reference's uint32 word.
 //   All three are memory-bound integer passes; their bound is the bytes
 //   they stream (N*P flag bytes, 4*N*W word bytes).
-//   * pack_bits: one warp per (row, word).  Lane l reads flag byte 32w + l
-//     of the row (0 past P), and __ballot_sync hands back the word with
-//     lane l's flag in bit l, which is the LSB-first layout; lane 0 stores
-//     it.  A warp's 32 loads are one 32-byte sector of the row.
+//   * pack_bits, vector route (P % 32 == 0 and a 16-byte aligned map,
+//     the SPMD round's (N, 64) delta): word t is bytes 32t .. 32t + 31 of
+//     the map, so no division; one thread a word turns two 16-byte loads
+//     into 32 bits (__vcmpne4, a mask and a multiply gather each 4 flag
+//     bytes into 4 bits) and stores 4 bytes.  Each thread has 4 words
+//     (8 loads) in flight, so a warp streams 4 KB a step where the warp a
+//     word of the ballot route has 32 bytes in flight.
+//   * pack_bits, ballot route (ragged P, an unaligned view): one warp per
+//     (row, word).  Lane l reads flag byte 32w + l of the row (0 past P),
+//     and __ballot_sync hands back the word with lane l's flag in bit l,
+//     which is the LSB-first layout; lane 0 stores it.  The (row, word)
+//     of the warp's grid stride is divided once, outside the loop.
 //   * unpack_bits: one thread per 4 flag bytes, one uchar4 store, when
 //     P % 4 == 0 (the 4 bits lie in one word since 32 % 4 == 0); else one
 //     thread per byte.  Words are read unsigned: the shift is logical.
@@ -769,29 +777,98 @@ static int grid_blocks(long long work, int threads) {
   return (int)(blocks > 132 * 16 ? 132 * 16 : blocks);
 }
 
-__global__ void pack_bits_kernel(const uint8_t* __restrict__ bools,
-                                 long long n, int p, int w,
-                                 unsigned* __restrict__ words) {
-  const int lane = threadIdx.x & 31;
-  const long long total = n * w;
-  const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
-  // t is warp-uniform, so every lane joins each ballot
-  for (long long t = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-       t < total; t += warps) {
-    const long long row = t / w;
-    const int col = (int)(t - row * w) * 32 + lane;
-    const bool b = col < p && bools[row * p + col] != 0;
-    const unsigned word = __ballot_sync(0xffffffffu, b);
-    if (lane == 0) words[t] = word;
+// The 4 flags of x's bytes as bits 0-3, byte j -> bit j: __vcmpne4 sets
+// a byte to 0xFF where it is not 0, & 0x80808080 keeps bit 7 of each,
+// and the product by 2^0 + 2^7 + 2^14 + 2^21 moves byte j's bit 8j + 7
+// to bit 28 + j; its 16 partial products land on 16 different bits, so
+// nothing carries into bits 28-31.
+__device__ __forceinline__ unsigned flag_nibble(unsigned x) {
+  return ((__vcmpne4(x, 0u) & 0x80808080u) * 0x00204081u) >> 28;
+}
+
+constexpr int PACK_THREADS = 256;
+constexpr int PACK_WORDS = 4;      // words a thread, all loads in flight
+
+// P % 32 == 0 and a 16-byte aligned map: word t is bytes 32t .. 32t + 31
+// of the map, two 16-byte loads; one thread a word, PACK_WORDS words a
+// thread, a block's words contiguous.  I is the index type (32-bit where
+// 2 * total fits).
+template <typename I>
+__global__ void __launch_bounds__(PACK_THREADS)
+pack_vec_kernel(const uint4* __restrict__ src, I total,
+                unsigned* __restrict__ words) {
+  const I base = (I)blockIdx.x * (PACK_THREADS * PACK_WORDS) + threadIdx.x;
+  uint4 lo[PACK_WORDS], hi[PACK_WORDS];
+#pragma unroll
+  for (int j = 0; j < PACK_WORDS; ++j) {
+    const I t = base + (I)(j * PACK_THREADS);
+    if (t < total) {
+      lo[j] = __ldg(src + 2 * t);
+      hi[j] = __ldg(src + 2 * t + 1);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < PACK_WORDS; ++j) {
+    const I t = base + (I)(j * PACK_THREADS);
+    if (t < total)
+      words[t] = flag_nibble(lo[j].x) | flag_nibble(lo[j].y) << 4 |
+                 flag_nibble(lo[j].z) << 8 | flag_nibble(lo[j].w) << 12 |
+                 flag_nibble(hi[j].x) << 16 | flag_nibble(hi[j].y) << 20 |
+                 flag_nibble(hi[j].z) << 24 | flag_nibble(hi[j].w) << 28;
   }
 }
 
-extern "C" int ne_pack_bits(const uint8_t* bools, long long n, int p, int w,
-                            unsigned* words, void* stream) {
+// Any P and alignment: one warp a (row, word); the row and column of the
+// warp's word and of its stride are divided once, then stepped.
+__global__ void pack_ballot_kernel(const uint8_t* __restrict__ bools,
+                                   long long n, int p, int w,
+                                   unsigned* __restrict__ words) {
+  const int lane = threadIdx.x & 31;
   const long long total = n * w;
-  if (total > 0)
-    pack_bits_kernel<<<grid_blocks(total * 32, 256), 256, 0,
-                       (cudaStream_t)stream>>>(bools, n, p, w, words);
+  const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  long long t = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  long long row = t / w;
+  int col = (int)(t - row * w);
+  const long long drow = warps / w;
+  const int dcol = (int)(warps - drow * w);
+  // t is warp-uniform, so every lane joins each ballot
+  for (; t < total; t += warps) {
+    const int c = col * 32 + lane;
+    const bool b = c < p && bools[row * p + c] != 0;
+    const unsigned word = __ballot_sync(0xffffffffu, b);
+    if (lane == 0) words[t] = word;
+    row += drow;
+    col += dcol;
+    if (col >= w) {
+      col -= w;
+      ++row;
+    }
+  }
+}
+
+// vec: 1 for the vector route (the caller has checked P % 32 == 0 and a
+// 16-byte aligned map; refused otherwise), 0 for the ballot route.
+extern "C" int ne_pack_bits(const uint8_t* bools, long long n, int p, int w,
+                            int vec, unsigned* words, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long total = n * w;
+  if (vec && (p % 32 || (uintptr_t)bools % 16))
+    return (int)cudaErrorInvalidValue;
+  if (total > 0 && vec) {
+    const long long per = PACK_THREADS * PACK_WORDS;
+    const long long blocks = (total + per - 1) / per;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const uint4* src = reinterpret_cast<const uint4*>(bools);
+    if (2 * total + 2 * per < 0xffffffffLL)
+      pack_vec_kernel<unsigned><<<(unsigned)blocks, PACK_THREADS, 0, s>>>(
+          src, (unsigned)total, words);
+    else
+      pack_vec_kernel<long long><<<(unsigned)blocks, PACK_THREADS, 0, s>>>(
+          src, total, words);
+  } else if (total > 0) {
+    pack_ballot_kernel<<<grid_blocks(total * 32, 256), 256, 0, s>>>(
+        bools, n, p, w, words);
+  }
   return (int)cudaGetLastError();
 }
 

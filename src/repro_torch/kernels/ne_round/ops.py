@@ -39,8 +39,8 @@ _ARGTYPES = {
                   ctypes.c_int, _P, _P, _P, _P, _P],
     "ne_two_hop_best": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
                         _P, _P, ctypes.c_longlong, _P, _P],
-    "ne_pack_bits": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
-                     _P],
+    "ne_pack_bits": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, _P, _P],
     "ne_unpack_bits": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                        _P, _P],
     "ne_or_words": [_P, _P, ctypes.c_longlong, _P, _P],
@@ -199,6 +199,14 @@ def claim_scatter(sel_idx, sel_valid, edges_per_part, num_vertices: int,
     return out
 
 
+def pack_bits_route(bools) -> str:
+    """The kernel that packs ``bools`` on the card: ``"vector"`` (one
+    thread a word, 16-byte loads) where P % 32 == 0 and the map is 16-byte
+    aligned, else ``"ballot"`` (one warp a word)."""
+    vec = bools.shape[1] % 32 == 0 and bools.data_ptr() % 16 == 0
+    return "vector" if vec else "ballot"
+
+
 def pack_bits(bools):
     """(N, P) bool → (N, ceil(P/32)) int32 words, LSB-first, pad bits 0."""
     if _route(bools) == "cpu":
@@ -207,7 +215,9 @@ def pack_bits(bools):
     _check(bools, torch.bool, (n, p), "bools")
     w = ref.replica_words(p)
     words = torch.empty((n, w), dtype=torch.int32, device=bools.device)
-    err = _lib().ne_pack_bits(_ptr(bools), n, p, w, _ptr(words), _stream())
+    err = _lib().ne_pack_bits(_ptr(bools), n, p, w,
+                              int(pack_bits_route(bools) == "vector"),
+                              _ptr(words), _stream())
     _raise_on(err, "ne_pack_bits")
     launches["pack_bits"] += 1
     return words

@@ -109,6 +109,19 @@ def test_bits_front_door_routes_by_device():
         ops.or_words(meta, w[:4])
 
 
+@pytest.mark.parametrize("p,offset,route", [
+    (32, 0, "vector"), (64, 0, "vector"), (128, 0, "vector"),
+    (64, 1, "ballot"), (64, 16, "vector"), (37, 0, "ballot"),
+    (1, 0, "ballot")])
+def test_pack_bits_route_by_p_and_alignment(p, offset, route):
+    """The card's route follows P % 32 and the map's 16-byte alignment
+    (torch's allocations are aligned; a view may not be)."""
+    base = torch.zeros(10 * p + offset, dtype=torch.bool)
+    x = base[offset:].view(10, p)
+    assert base.data_ptr() % 16 == 0
+    assert ops.pack_bits_route(x) == route
+
+
 # --------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # --------------------------------------------------------------------------
@@ -150,3 +163,26 @@ def test_or_words_kernel_matches_plain(cuda, offset):
     a, b = (f[offset:].view(n, w) for f in flat)
     torch.testing.assert_close(ops.or_words(a, b), ref.or_words_ref(a, b),
                                rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,offset,route", [
+    (32, 0, "vector"), (64, 0, "vector"), (96, 0, "vector"),
+    (128, 0, "vector"), (64, 1, "ballot"), (37, 0, "ballot")])
+def test_pack_bits_routes_match_plain(cuda, p, offset, route):
+    """The vector route (P % 32 == 0, a 16-byte aligned map) and the
+    ballot route (ragged P, a view 1 byte off) exactly equal the plain
+    version; N·W is not a multiple of a vector block's 1,024 words, and
+    flags that are not 0 or 1 (a uint8 map viewed as bool) count as set."""
+    n = (1 << 16) + 3
+    gen = torch.Generator(device=cuda).manual_seed(p + offset)
+    raw = torch.randint(0, 4, (n * p + offset,), generator=gen, device=cuda,
+                        dtype=torch.uint8)
+    raw[offset::37] = 0x80                   # a flag byte with bit 7 alone
+    x = raw[offset:].view(torch.bool).view(n, p)
+    assert ops.pack_bits_route(x) == route
+    before = ops.launches["pack_bits"]
+    got = ops.pack_bits(x)
+    want = ref.pack_bits_ref(raw[offset:].view(n, p) != 0)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert ops.launches["pack_bits"] == before + 1
