@@ -14,10 +14,14 @@ Phases, each printing its lines; any failed check exits non-zero:
    rows at N = 2^22 and the rows its draw ran counted on the device, and
    over an 8-row chunk view; ``two_hop_best`` at the two-hop chunk on
    bool rows and packed words; the bit-packing kernels also at a ragged
-   P = 37 and at the two-hop chunk shape, and ``pack_bits`` on each of
-   its routes: the vector route at P = 32, 64, 96, 128, the ballot route
-   at P = 37 and on a view 1 byte off alignment), exactly: the kernels
-   are integer math, so the tolerance is 0;
+   P = 37 and at the two-hop chunk shape, and each on each of its routes
+   at 2^20 + 3 rows: ``pack_bits``'s vector route at P = 32, 64, 96, 128,
+   its ballot route at P = 37 and on a view 1 byte off alignment;
+   ``unpack_bits``'s vector route at P = 32, 64, 96, 128 and its generic
+   route at P = 37 and 48; ``or_words``'s vector route and its scalar
+   route on views one word off alignment; each the same bits from call
+   to call), exactly: the kernels are integer math, so the tolerance is
+   0;
 3. the main path: ``partition`` of the RMAT graph (edge factor 16,
    P = 64, the other NEConfig fields at their defaults) on the card, with
    the kernel launch counts set to 0 just before and read just after
@@ -39,7 +43,10 @@ Phases, each printing its lines; any failed check exits non-zero:
    words) beside its plain version's, a library call's and its bound
    (bytes, or a restart draw's integer operations), as one JSON line;
    each also with the device time of its own kernels and of the library
-   call's (torch.profiler), and the route ``pack_bits`` took;
+   call's (torch.profiler), and the route each bit-packing kernel took,
+   the device time of a ``copy_`` of its bytes (the card's streaming
+   rate) and the 16-byte loads and stores of the vector kernels
+   (``cuobjdump -sass``);
    ``claim_scatter``'s one launch a call;
 6. full-graph GIN training (gin-tu, 5 layers, d_hidden 64) over the
    vertex-cut engine in a world-1 NCCL group, on a graph of Cora's size
@@ -468,6 +475,39 @@ def phase_bit_kernels(torch, ops, ref, n, dev, p_num, chunk):
               f"offset {offset}: {err}")
         print(f"phase 2: pack_bits == plain on the {route} route at N={rows}, "
               f"P={p}, map {offset} B off 16-byte alignment", flush=True)
+    # unpack_bits at each route: 2·N·W not a multiple of a vector block's
+    # 2,048 halves, bit 31 and pad bits set
+    for p, route in ((32, "vector"), (64, "vector"), (96, "vector"),
+                     (128, "vector"), (37, "generic"), (48, "generic")):
+        words = random_words(torch, gen, rows, ref.replica_words(p), dev)
+        got_route = ops.unpack_bits_route(words, p)
+        check(got_route == route, f"unpack_bits at P={p}: {got_route} "
+              f"route, want {route}")
+        got = ops.unpack_bits(words, p)
+        err = max_abs_err(got, ref.unpack_bits_ref(words, p))
+        check(err == 0, f"unpack_bits ({route}) differs at ({rows}, {p}): "
+              f"{err}")
+        check(torch.equal(ops.unpack_bits(words, p), got),
+              f"unpack_bits ({route}) differs from call to call at P={p}")
+        print(f"phase 2: unpack_bits == plain on the {route} route at "
+              f"N={rows}, P={p}, W={words.shape[1]}, the same bits call to "
+              "call", flush=True)
+    # or_words at each route: N·W % 4 == 2 (the vector route's tail
+    # words); views one word off 16-byte alignment take the scalar route
+    for offset, route in ((0, "vector"), (1, "scalar")):
+        a, b = (random_words(torch, gen, rows * 2 + offset, 1, dev)
+                .view(-1)[offset:].view(rows, 2) for _ in range(2))
+        got_route = ops.or_words_route(a, b, torch.empty_like(a))
+        check(got_route == route, f"or_words at offset {offset}: "
+              f"{got_route} route, want {route}")
+        got = ops.or_words(a, b)
+        err = max_abs_err(got, ref.or_words_ref(a, b))
+        check(err == 0, f"or_words ({route}) differs at ({rows}, 2): {err}")
+        check(torch.equal(ops.or_words(a, b), got),
+              f"or_words ({route}) differs from call to call")
+        print(f"phase 2: or_words == plain on the {route} route at "
+              f"({rows}, 2), operands {4 * offset} B off 16-byte alignment, "
+              "the same bits call to call", flush=True)
 
 
 def kernel_row(torch, name, kern, plain, lib, bound, reps, err):
@@ -485,6 +525,15 @@ def kernel_row(torch, name, kern, plain, lib, bound, reps, err):
         "library_device_ms": None if lib is None
         else device_ms(torch, lib, reps)[0],
     }
+
+
+def copy_device_ms(torch, nbytes, dev, reps) -> float:
+    """Device ms of one torch ``copy_`` that reads ``nbytes / 2`` and
+    writes ``nbytes / 2``: the rate the card streams a call's bytes at,
+    the yardstick of a kernel bound by its bytes."""
+    src = torch.ones(nbytes // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    return device_ms(torch, lambda: dst.copy_(src), reps)[0]
 
 
 def two_hop_bound(un, ce, row_bytes, p_num):
@@ -529,11 +578,18 @@ def phase_spmd_times(torch, tp, sm, ops, ref, u, v, n, cfg, limit, state,
         check(err == 0, f"{name} differs on the captured SPMD round: {err}")
         rows.append(kernel_row(torch, name, kern, plain, lib,
                                (bound_ms(nbytes), "bytes"), reps, err))
+        rows[-1]["copy_device_ms"] = copy_device_ms(torch, nbytes, u.device,
+                                                    reps)
     rows[0]["pack_route"] = ops.pack_bits_route(delta)
-    print(f"phase 5: pack_bits on the captured SPMD round's ({n}, {p_num}) "
-          f"delta: {rows[0]['pack_route']} route, device_ms "
-          f"{rows[0]['device_ms']!r}, bound {rows[0]['bound_ms']!r}",
-          flush=True)
+    rows[1]["unpack_route"] = ops.unpack_bits_route(words, p_num)
+    rows[2]["or_route"] = ops.or_words_route(words, packed,
+                                             torch.empty_like(words))
+    for r, key in zip(rows, ("pack_route", "unpack_route", "or_route")):
+        print(f"phase 5: {r['name']} on the captured SPMD round's ({n}, "
+              f"{p_num}) map: {r[key]} route, device_ms {r['device_ms']!r}, "
+              f"bound {r['bound_ms']!r}, library device_ms "
+              f"{r['library_device_ms']!r}, a copy_ of its bytes "
+              f"{r['copy_device_ms']!r}", flush=True)
     # the first two-hop chunk of the next round, on this state's words
     ce = min(cfg.edge_chunk, u.shape[0])
     pid = torch.arange(p_num, dtype=torch.int32, device=u.device)
@@ -2027,7 +2083,9 @@ def main() -> None:
     ptxas_report(build, "ne_round", ("claim_kernel", "select_scan_kernel",
                                      "select_pass_kernel",
                                      "select_finish_kernel",
-                                     "restart_draw_kernel", "two_hop_kernel"),
+                                     "restart_draw_kernel", "two_hop_kernel",
+                                     "unpack_vec_kernel", "pack_vec_kernel",
+                                     "or_vec_kernel"),
                  "phase 2")
     tool = cuobjdump()
     draw_sass = None if tool is None else sass_counts(
@@ -2148,6 +2206,14 @@ def main() -> None:
                                             cfg, limit, st_sm, args.reps)
     for r in bit_rows:
         r["launches"] = launches_sm[r["name"]]
+    if tool is not None:       # 16-byte loads and stores the kernels issue
+        for r, kern in zip(bit_rows[1:], ("unpack_vec_kernel",
+                                          "or_vec_kernel")):
+            r["sass"] = sass_counts(tool, build, "ne_round", kern,
+                                    ("LDG.E.128", "LDG.E.CONSTANT",
+                                     "STG.E.128"))
+            print(f"phase 5: {kern} instructions ({tool} -sass): "
+                  f"{r['sass']}", flush=True)
     row = next(r for r in rows if r["name"] == "two_hop_best")
     row.update(words_keys, launches_spmd=launches_sm["two_hop_best"])
     del st_sm, u, v, mask, g

@@ -123,11 +123,33 @@
 //     and __ballot_sync hands back the word with lane l's flag in bit l,
 //     which is the LSB-first layout; lane 0 stores it.  The (row, word)
 //     of the warp's grid stride is divided once, outside the loop.
-//   * unpack_bits: one thread per 4 flag bytes, one uchar4 store, when
-//     P % 4 == 0 (the 4 bits lie in one word since 32 % 4 == 0); else one
-//     thread per byte.  Words are read unsigned: the shift is logical.
-//   * or_words: int4 (16-byte) loads and stores while all three pointers
-//     are 16-byte aligned, a scalar tail; scalar throughout otherwise.
+//   * unpack_bits, vector route (P == 32 W: the SPMD round's whole-map
+//     unpack, (N, 2) words -> (N, 64) flags, once a round): the call
+//     writes 8 flag bytes for every byte it reads, so its bound is the
+//     flag stores (268 of its 302 MB at N = 2^22).  The first port gave a
+//     thread 4 flag bytes (one 4-byte store, a 64-bit division to find
+//     the word, each word loaded 8 times) in a grid-stride loop capped at
+//     2,112 blocks.  Now word t's flags are bytes 32t .. 32t + 31, so no
+//     division: a thread takes 8 halves of 16 flags, loads all 8 first,
+//     and turns each 4-bit nibble into 4 flag bytes with one multiply and
+//     a mask (nibble_flags, the inverse of flag_nibble); each half is one
+//     16-byte store, and a warp's store instruction covers 512 contiguous
+//     bytes (lane l of step j writes half 256j + l of its block), where
+//     one thread a word would write two 16-byte halves 32 bytes apart per
+//     instruction.  Words are read unsigned: the shift is logical.
+//   * unpack_bits, generic route (ragged P, or more words than P needs):
+//     the first port's kernel: one thread per 4 flag bytes when P % 4 ==
+//     0 (the 4 bits lie in one word since 32 % 4 == 0), else one a byte.
+//   * or_words, vector route (a, b and out 16-byte aligned: every call of
+//     the round, on torch's allocations): bound by its 12 bytes a word.
+//     The first port had one int4 pair in flight a thread in a capped
+//     grid-stride loop, and lost ~1 % to torch.bitwise_or.  Now a block
+//     ORs 1,024 contiguous int4s, a thread issues its 8 16-byte loads (4
+//     of a, 4 of b) before the first OR, the grid covers the words (2,048
+//     blocks at (2^22, 2)) with no stride loop, the index is 32-bit where
+//     it fits, and the last block takes the count % 4 tail words.
+//   * or_words, scalar route (an operand off 16-byte alignment): the same
+//     shape with 4-byte words.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -872,6 +894,49 @@ extern "C" int ne_pack_bits(const uint8_t* bools, long long n, int p, int w,
   return (int)cudaGetLastError();
 }
 
+// The 4 flags of bits 0-3 of nib as bytes 0-3, bit j -> byte j (0 or 1):
+// the inverse of flag_nibble.  The product by 2^0 + 2^7 + 2^14 + 2^21
+// puts bit j at 8j by its j-th partial product; the 16 partial products
+// land on bits 0-3, 7-10, 14-17 and 21-24, so nothing carries, and the
+// mask keeps bits 0, 8, 16 and 24.
+__device__ __forceinline__ unsigned nibble_flags(unsigned nib) {
+  return (nib * 0x00204081u) & 0x01010101u;
+}
+
+constexpr int UNPACK_THREADS = 256;
+constexpr int UNPACK_HALVES = 8;   // 16-flag halves a thread, loads first
+
+// P == 32 W: word t's flags are bytes 32t .. 32t + 31 of the map, so half
+// h (bits 16(h % 2) .. + 15 of word h / 2) is the h-th 16-byte piece of
+// it.  Lane l of a warp's j-th step stores half base + 256 j + l: each
+// store instruction of a warp writes 512 contiguous bytes, and the two
+// lanes of a word read the same 4 bytes.  I is the index type (32-bit
+// where the halves fit).
+template <typename I>
+__global__ void __launch_bounds__(UNPACK_THREADS)
+unpack_vec_kernel(const unsigned* __restrict__ words, I halves,
+                  uint4* __restrict__ bools) {
+  const I base = (I)blockIdx.x * (UNPACK_THREADS * UNPACK_HALVES) +
+                 threadIdx.x;
+  unsigned bits[UNPACK_HALVES];
+#pragma unroll
+  for (int j = 0; j < UNPACK_HALVES; ++j) {
+    const I h = base + (I)(j * UNPACK_THREADS);
+    bits[j] = h < halves ? __ldg(words + (h >> 1)) >> ((h & 1) * 16) : 0u;
+  }
+#pragma unroll
+  for (int j = 0; j < UNPACK_HALVES; ++j) {
+    const I h = base + (I)(j * UNPACK_THREADS);
+    if (h < halves)
+      bools[h] = make_uint4(nibble_flags(bits[j] & 15u),
+                            nibble_flags((bits[j] >> 4) & 15u),
+                            nibble_flags((bits[j] >> 8) & 15u),
+                            nibble_flags((bits[j] >> 12) & 15u));
+  }
+}
+
+// Any P: one thread per 4 flag bytes (one uchar4 store) when P % 4 == 0,
+// the 4 bits lying in one word since 32 % 4 == 0; else one per byte.
 template <int VEC>
 __global__ void unpack_bits_kernel(const unsigned* __restrict__ words,
                                    long long n, int p, int w,
@@ -894,44 +959,125 @@ __global__ void unpack_bits_kernel(const unsigned* __restrict__ words,
   }
 }
 
-// bools must be 4-byte aligned (the wrapper allocates it)
+// vec: 1 for the vector route (the caller has checked P == 32 W; refused
+// otherwise, and for a map that is not 16-byte aligned), 0 for the
+// generic route.  bools must be 4-byte aligned (the wrapper allocates it).
 extern "C" int ne_unpack_bits(const unsigned* words, long long n, int p,
-                              int w, uint8_t* bools, void* stream) {
+                              int w, int vec, uint8_t* bools, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0 && p % 4 == 0)
+  if (vec && (p != 32 * w || (uintptr_t)bools % 16))
+    return (int)cudaErrorInvalidValue;
+  const long long halves = 2 * n * w;
+  if (n > 0 && vec) {
+    const long long per = UNPACK_THREADS * UNPACK_HALVES;
+    const long long blocks = (halves + per - 1) / per;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    uint4* out = reinterpret_cast<uint4*>(bools);
+    if (halves + per < 0xffffffffLL)
+      unpack_vec_kernel<unsigned><<<(unsigned)blocks, UNPACK_THREADS, 0, s>>>(
+          words, (unsigned)halves, out);
+    else
+      unpack_vec_kernel<long long><<<(unsigned)blocks, UNPACK_THREADS, 0,
+                                      s>>>(words, halves, out);
+  } else if (n > 0 && p % 4 == 0) {
     unpack_bits_kernel<4><<<grid_blocks(n * (p / 4), 256), 256, 0, s>>>(
         words, n, p, w, bools);
-  else if (n > 0)
+  } else if (n > 0) {
     unpack_bits_kernel<1><<<grid_blocks(n * p, 256), 256, 0, s>>>(
         words, n, p, w, bools);
+  }
   return (int)cudaGetLastError();
 }
 
-__global__ void or_words_kernel(const int* __restrict__ a,
-                                const int* __restrict__ b, long long count,
-                                long long count4, int* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int4* a4 = reinterpret_cast<const int4*>(a);
-  const int4* b4 = reinterpret_cast<const int4*>(b);
-  int4* o4 = reinterpret_cast<int4*>(out);
-  for (long long i = tid; i < count4; i += stride) {
-    const int4 x = __ldg(a4 + i), y = __ldg(b4 + i);
-    o4[i] = make_int4(x.x | y.x, x.y | y.y, x.z | y.z, x.w | y.w);
+constexpr int OR_THREADS = 256;
+constexpr int OR_VEC = 4;          // items of a and of b a thread, loads first
+
+// All three pointers 16-byte aligned: a block ORs OR_THREADS * OR_VEC
+// contiguous int4s (16 KB of output), a thread's 2 * OR_VEC 16-byte loads
+// all in flight before the first OR; the last block also ORs the `tail`
+// (count % 4) words past the last int4.  I is the index type.
+template <typename I>
+__global__ void __launch_bounds__(OR_THREADS)
+or_vec_kernel(const int4* __restrict__ a, const int4* __restrict__ b,
+              I count4, I tail, int4* __restrict__ out) {
+  const I base = (I)blockIdx.x * (OR_THREADS * OR_VEC) + threadIdx.x;
+  int4 x[OR_VEC], y[OR_VEC];
+#pragma unroll
+  for (int j = 0; j < OR_VEC; ++j) {
+    const I i = base + (I)(j * OR_THREADS);
+    if (i < count4) {
+      x[j] = __ldg(a + i);
+      y[j] = __ldg(b + i);
+    }
   }
-  for (long long i = count4 * 4 + tid; i < count; i += stride)
-    out[i] = a[i] | b[i];
+#pragma unroll
+  for (int j = 0; j < OR_VEC; ++j) {
+    const I i = base + (I)(j * OR_THREADS);
+    if (i < count4)
+      out[i] = make_int4(x[j].x | y[j].x, x[j].y | y[j].y, x[j].z | y[j].z,
+                         x[j].w | y[j].w);
+  }
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x < tail) {
+    const I i = count4 * 4 + threadIdx.x;
+    reinterpret_cast<int*>(out)[i] =
+        __ldg(reinterpret_cast<const int*>(a) + i) |
+        __ldg(reinterpret_cast<const int*>(b) + i);
+  }
 }
 
+// Any alignment: a block ORs OR_THREADS * OR_VEC contiguous words, a
+// thread's loads all in flight before the first OR.
+template <typename I>
+__global__ void __launch_bounds__(OR_THREADS)
+or_scalar_kernel(const int* __restrict__ a, const int* __restrict__ b,
+                 I count, int* __restrict__ out) {
+  const I base = (I)blockIdx.x * (OR_THREADS * OR_VEC) + threadIdx.x;
+  int x[OR_VEC], y[OR_VEC];
+#pragma unroll
+  for (int j = 0; j < OR_VEC; ++j) {
+    const I i = base + (I)(j * OR_THREADS);
+    if (i < count) {
+      x[j] = __ldg(a + i);
+      y[j] = __ldg(b + i);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < OR_VEC; ++j) {
+    const I i = base + (I)(j * OR_THREADS);
+    if (i < count) out[i] = x[j] | y[j];
+  }
+}
+
+// vec: 1 for the vector route (the caller has checked that a, b and out
+// are 16-byte aligned; refused otherwise), 0 for the scalar route.
 extern "C" int ne_or_words(const int* a, const int* b, long long count,
-                           int* out, void* stream) {
-  const bool aligned =
-      (((uintptr_t)a | (uintptr_t)b | (uintptr_t)out) & 15) == 0;
-  const long long count4 = aligned ? count / 4 : 0;
-  const long long work = count4 + (count - count4 * 4);
-  if (count > 0)
-    or_words_kernel<<<grid_blocks(work, 256), 256, 0,
-                      (cudaStream_t)stream>>>(a, b, count, count4, out);
+                           int vec, int* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec && (((uintptr_t)a | (uintptr_t)b | (uintptr_t)out) & 15))
+    return (int)cudaErrorInvalidValue;
+  if (count <= 0) return (int)cudaGetLastError();
+  const long long per = OR_THREADS * OR_VEC;
+  const long long items = vec ? count / 4 : count;
+  const long long blocks = items > 0 ? (items + per - 1) / per : 1;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool narrow = count + per < 0xffffffffLL;
+  if (vec) {
+    const int4* a4 = reinterpret_cast<const int4*>(a);
+    const int4* b4 = reinterpret_cast<const int4*>(b);
+    int4* o4 = reinterpret_cast<int4*>(out);
+    if (narrow)
+      or_vec_kernel<unsigned><<<(unsigned)blocks, OR_THREADS, 0, s>>>(
+          a4, b4, (unsigned)items, (unsigned)(count % 4), o4);
+    else
+      or_vec_kernel<long long><<<(unsigned)blocks, OR_THREADS, 0, s>>>(
+          a4, b4, items, count % 4, o4);
+  } else if (narrow) {
+    or_scalar_kernel<unsigned><<<(unsigned)blocks, OR_THREADS, 0, s>>>(
+        a, b, (unsigned)count, out);
+  } else {
+    or_scalar_kernel<long long><<<(unsigned)blocks, OR_THREADS, 0, s>>>(
+        a, b, count, out);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -42,8 +42,8 @@ _ARGTYPES = {
     "ne_pack_bits": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                      ctypes.c_int, _P, _P],
     "ne_unpack_bits": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       _P, _P],
-    "ne_or_words": [_P, _P, ctypes.c_longlong, _P, _P],
+                       ctypes.c_int, _P, _P],
+    "ne_or_words": [_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P],
 }
 MAX_K_SEL = 4096   # select_finish sorts K + 2,048 keys in 64 KB of shared
                    # memory
@@ -223,6 +223,14 @@ def pack_bits(bools):
     return words
 
 
+def unpack_bits_route(words, num_partitions: int) -> str:
+    """The kernel that unpacks ``words`` on the card: ``"vector"`` (one
+    thread a 16-flag half, 16-byte stores) where P == 32 W, so that word t
+    is flag bytes 32t .. 32t + 31 of the map, else ``"generic"``."""
+    vec = num_partitions == 32 * words.shape[1]
+    return "vector" if vec else "generic"
+
+
 def unpack_bits(words, num_partitions: int):
     """(N, W) int32 words → (N, P) bool, contiguous: the inverse of
     :func:`pack_bits`."""
@@ -235,7 +243,8 @@ def unpack_bits(words, num_partitions: int):
                          f"[1, {32 * w}] for {w} words")
     bools = torch.empty((n, num_partitions), dtype=torch.bool,
                         device=words.device)
-    err = _lib().ne_unpack_bits(_ptr(words), n, num_partitions, w,
+    vec = unpack_bits_route(words, num_partitions) == "vector"
+    err = _lib().ne_unpack_bits(_ptr(words), n, num_partitions, w, int(vec),
                                 _ptr(bools), _stream())
     _raise_on(err, "ne_unpack_bits")
     launches["unpack_bits"] += 1
@@ -273,6 +282,15 @@ def two_hop_best(vparts, uu, vv, un, enc_vec, num_partitions: int):
     return best
 
 
+def or_words_route(a, b, out) -> str:
+    """The kernel that ORs ``a`` and ``b`` into ``out`` on the card:
+    ``"vector"`` (16-byte loads and stores) where all three are 16-byte
+    aligned (torch's allocations are; a view may not be), else
+    ``"scalar"``."""
+    vec = (a.data_ptr() | b.data_ptr() | out.data_ptr()) % 16 == 0
+    return "vector" if vec else "scalar"
+
+
 def or_words(a, b):
     """Element-wise OR of two packed replica maps of one shape."""
     if _route(a, b) == "cpu":
@@ -280,8 +298,9 @@ def or_words(a, b):
     _check(a, torch.int32, a.shape, "a")
     _check(b, torch.int32, a.shape, "b")
     out = torch.empty_like(a)
-    err = _lib().ne_or_words(_ptr(a), _ptr(b), a.numel(), _ptr(out),
-                             _stream())
+    vec = or_words_route(a, b, out) == "vector"
+    err = _lib().ne_or_words(_ptr(a), _ptr(b), a.numel(), int(vec),
+                             _ptr(out), _stream())
     _raise_on(err, "ne_or_words")
     launches["or_words"] += 1
     return out

@@ -17,7 +17,7 @@ from repro.kernels.ne_round import ne_round as ne_pl
 from repro.kernels.ne_round import ref as jref
 from repro_torch.kernels.ne_round import ops, ref
 
-P_LIST = [1, 31, 32, 37, 64, 100]
+P_LIST = [1, 31, 32, 37, 64, 96, 100, 128]
 
 
 def _bools(n, p, seed):
@@ -122,6 +122,29 @@ def test_pack_bits_route_by_p_and_alignment(p, offset, route):
     assert ops.pack_bits_route(x) == route
 
 
+@pytest.mark.parametrize("p,w,route", [
+    (32, 1, "vector"), (64, 2, "vector"), (96, 3, "vector"),
+    (128, 4, "vector"), (37, 2, "generic"), (48, 2, "generic"),
+    (1, 1, "generic"), (64, 3, "generic")])
+def test_unpack_bits_route_by_p(p, w, route):
+    """The card's route follows P == 32 W: word t is then flag bytes
+    32t .. 32t + 31 of the map.  Ragged P, and words past those P needs,
+    take the generic kernel."""
+    words = torch.zeros((10, w), dtype=torch.int32)
+    assert ops.unpack_bits_route(words, p) == route
+
+
+@pytest.mark.parametrize("offsets,route", [
+    ((0, 0, 0), "vector"), ((4, 4, 4), "vector"), ((1, 0, 0), "scalar"),
+    ((0, 1, 0), "scalar"), ((0, 0, 1), "scalar"), ((2, 2, 2), "scalar")])
+def test_or_words_route_by_alignment(offsets, route):
+    """The card's route follows the 16-byte alignment of a, b and out
+    together (offsets in int32 words from torch's aligned allocations)."""
+    a, b, out = (torch.zeros(20 + k, dtype=torch.int32)[k:]
+                 for k in offsets)
+    assert ops.or_words_route(a, b, out) == route
+
+
 # --------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # --------------------------------------------------------------------------
@@ -152,17 +175,24 @@ def test_pack_unpack_kernels_match_plain(cuda, p):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("offset", [0, 1])
-def test_or_words_kernel_matches_plain(cuda, offset):
-    """``offset`` 1 makes every operand 4 bytes off 16-byte alignment:
-    the kernel's scalar path."""
-    n, w = (1 << 16) + 3, 2
+@pytest.mark.parametrize("offset,route", [(0, "vector"), (1, "scalar"),
+                                          (4, "vector")])
+def test_or_words_kernel_matches_plain(cuda, offset, route):
+    """Both routes exactly equal the plain version at a word count that is
+    not a multiple of 4 (the vector route's tail); ``offset`` words off
+    the allocation (1: every operand 4 bytes off 16-byte alignment, the
+    scalar route); two calls give the same bits."""
+    n, w = (1 << 20) + 3, 2
     flat = [torch.from_numpy(_words(n * w + offset, 32, s)
                              .view(np.int32).ravel()).to(cuda)
             for s in (5, 6)]
     a, b = (f[offset:].view(n, w) for f in flat)
-    torch.testing.assert_close(ops.or_words(a, b), ref.or_words_ref(a, b),
-                               rtol=0, atol=0)
+    assert ops.or_words_route(a, b, torch.empty_like(a)) == route
+    before = ops.launches["or_words"]
+    got = ops.or_words(a, b)
+    torch.testing.assert_close(got, ref.or_words_ref(a, b), rtol=0, atol=0)
+    assert torch.equal(ops.or_words(a, b), got)
+    assert ops.launches["or_words"] == before + 2
 
 
 @pytest.mark.gpu
@@ -186,3 +216,24 @@ def test_pack_bits_routes_match_plain(cuda, p, offset, route):
     want = ref.pack_bits_ref(raw[offset:].view(n, p) != 0)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert ops.launches["pack_bits"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,route", [
+    (32, "vector"), (64, "vector"), (96, "vector"), (128, "vector"),
+    (37, "generic"), (48, "generic")])
+def test_unpack_bits_routes_match_plain(cuda, p, route):
+    """Both routes exactly equal the plain version, with bit 31 and pad
+    bits set; 2·N·W is not a multiple of a vector block's 2,048 halves;
+    two calls give the same bits."""
+    n = (1 << 20) + 3
+    words = torch.from_numpy(_words(n, p, p, pad_bits=True)
+                             .view(np.int32)).to(cuda)
+    assert ops.unpack_bits_route(words, p) == route
+    before = ops.launches["unpack_bits"]
+    got = ops.unpack_bits(words, p)
+    torch.testing.assert_close(got, ref.unpack_bits_ref(words, p), rtol=0,
+                               atol=0)
+    assert torch.equal(ops.unpack_bits(words, p), got)
+    assert ops.launches["unpack_bits"] == before + 2
+
