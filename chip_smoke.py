@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port of Distributed NE on one NVIDIA card.
 
     python3 chip_smoke.py                 # the full run (RMAT scale 22)
-    python3 chip_smoke.py --scale 16      # a quicker rehearsal of 1-6
+    python3 chip_smoke.py --scale 16      # a quicker rehearsal of 1-6, 9
 
 Phases, each printing its lines; any failed check exits non-zero:
 
@@ -91,7 +91,19 @@ Phases, each printing its lines; any failed check exits non-zero:
    before and read just after, and the kernel's times (events and device
    time) at the prefill_32k and decode_32k layers beside its bound, the
    plain version's and ``F.scaled_dot_product_attention``'s.  Rows 7, 8
-   and 9 join the line.
+   and 9 join the line;
+9. the driver from the store: phase 3's canonical edge list written as
+   an EdgeFile; ``PartitionDriver`` in spmd mode from it, in a world-1
+   NCCL group in a child process (a CUDA context of its own), with a
+   snapshot every rounds / 8 rounds, killed by SIGKILL right after the
+   fourth is published; resumed in this process from the newest snapshot
+   with the launch counts set to 0 just before and read just after (each
+   NE row of the line gets them as ``launches_driver``); the resumed run
+   must equal phase 3's result bit for bit (at scale 22: 448 rounds, RF
+   1.7922852039337158, EB 1.10000089317367) with launches matching the
+   resumed rounds; its time a round beside phase 3b's, the ingest,
+   snapshot save and restore times (the driver's obs spans) and peak
+   memory; then the result saved as an artifact, loaded back and equal.
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU
 fallback: without a CUDA device the script exits non-zero.
@@ -141,6 +153,12 @@ ER_DEGREE = 6.5                    # |E| after dedup 10,545 (10,556 - 0.1 %)
 GNN_STEPS = 20                     # examples/train_gnn_partitioned.py:
 GNN_OPT = dict(lr=3e-3, weight_decay=0.0, warmup_steps=20)   # its OptConfig
 CHECK_STEPS = 3                    # card against CPU
+# phase 9: a snapshot every (phase 3's rounds) / 8 rounds, the child killed
+# after the fourth (rounds 56-224 of 448 at scale 22); the resumed run must
+# give the main path's rounds, RF and EB at scale 22 (PERF.md §5)
+DRIVER_SNAPSHOTS_BEFORE_KILL = 4
+SCALE22_RESULT = (448, 1.7922852039337158, 1.10000089317367)
+CHILD_TIMEOUT_S = 600
 REPLACES = {
     "one_hop": "src/repro/kernels/ne_round/ne_round.py:80",
     "select": "src/repro/kernels/ne_round/ne_round.py:188",
@@ -2016,6 +2034,185 @@ def spmd_rounds(torch, sm, g, cfg, limit, rounds):
     return state, u, v, mask
 
 
+def child_trace(snap_dir: str) -> str:
+    """The killed child's obs log, beside its snapshot dir."""
+    return snap_dir + ".trace.jsonl"
+
+
+def driver_child(ef_path: str, snap_dir: str, every: int, kill_at: int,
+                 device: str) -> None:
+    """Phase 9's killed run, in a process (and CUDA context) of its own:
+    ``PartitionDriver`` in spmd mode on the EdgeFile at ``ef_path`` in a
+    world-1 group, a snapshot every ``every`` rounds, the process killed
+    by SIGKILL right after the step that publishes round ``kill_at``'s
+    snapshot.  Its spans go to :func:`child_trace`, flushed first."""
+    import signal
+
+    import torch
+    from repro_torch.core import partitioner as tp
+    from repro_torch.dist import compat
+    from repro_torch.io import EdgeFile
+    from repro_torch.obs import trace as obs
+    from repro_torch.runtime import PartitionDriver
+
+    dev = torch.device(device)
+    obs.configure(path=child_trace(snap_dir))
+    cfg = tp.NEConfig(num_partitions=PARTITIONS)
+    with compat.world1("nccl" if dev.type == "cuda" else "gloo"):
+        drv = PartitionDriver(EdgeFile(ef_path), cfg, snapshot_dir=snap_dir,
+                              snapshot_every=every,
+                              keep=DRIVER_SNAPSHOTS_BEFORE_KILL, device=dev)
+        while not drv.done:
+            if drv.step() == kill_at:
+                obs.flush()
+                os.kill(os.getpid(), signal.SIGKILL)
+    fail(f"phase 9: the run reached its fixed point before round {kill_at}")
+
+
+def span_seconds(events, name: str) -> list:
+    """The durations (s) of the named spans of an obs event list."""
+    return [e["dur"] / 1e6 for e in events
+            if e["ev"] == "span" and e["name"] == name]
+
+
+def phase_driver(torch, np, edges, res, per_round_3b: float, chunks: int,
+                 dev, scale: int) -> dict:
+    """Phase 9: the driver from the store.  Phase 3's edge list goes into
+    a canonical EdgeFile; a child process runs ``PartitionDriver`` in
+    spmd mode from it with snapshots and is killed by SIGKILL; this
+    process resumes from the newest snapshot (launch counts set to 0
+    just before), runs to the fixed point and must equal phase 3's result
+    bit for bit; then the result goes through an artifact and back.
+    Returns the resumed run's launch counts."""
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.core import partitioner as tp
+    from repro_torch.dist import compat
+    from repro_torch.io import FLAG_CANONICAL, write_edgefile
+    from repro_torch.kernels.ne_round import ops
+    from repro_torch.obs import trace as obs
+    from repro_torch.runtime import PartitionDriver, load_artifact
+
+    t_phase = time.perf_counter()
+    every = max(res.rounds // (2 * DRIVER_SNAPSHOTS_BEFORE_KILL), 1)
+    kill_at = DRIVER_SNAPSHOTS_BEFORE_KILL * every
+    cfg = tp.NEConfig(num_partitions=PARTITIONS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    try:
+        ef_path = os.path.join(tmp, "main.edges")
+        t0 = time.perf_counter()
+        ef = write_edgefile(ef_path, edges, num_vertices=1 << scale,
+                            flags=FLAG_CANONICAL)
+        print(f"phase 9: canonical EdgeFile of phase 3's edge list: "
+              f"{ef.num_edges} edges in {ef.num_blocks} blocks, "
+              f"{os.path.getsize(ef_path)} B, written in "
+              f"{time.perf_counter() - t0!r} s", flush=True)
+
+        # --- the killed run, in a child process ----------------------------
+        snap = os.path.join(tmp, "snap")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()       # room for the child's context
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--driver-child",
+             ef_path, snap, str(every), str(kill_at), str(dev)],
+            capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+        check(child.returncode == -signal.SIGKILL,
+              f"phase 9: the child exited {child.returncode}, not killed by "
+              f"SIGKILL: {child.stdout[-2000:]} {child.stderr[-3000:]}")
+        published = sorted(int(d.split("_")[1]) for d in os.listdir(snap)
+                           if d.startswith("step_"))
+        want_steps = [every * (i + 1)
+                      for i in range(DRIVER_SNAPSHOTS_BEFORE_KILL)]
+        check(published == want_steps,
+              f"phase 9: published rounds {published}, not {want_steps}")
+        with open(child_trace(snap)) as f:
+            events = [json.loads(line) for line in f]
+        rounds_s = span_seconds(events, "round")
+        saves = span_seconds(events, "snapshot")
+        snap_bytes = sum(os.path.getsize(os.path.join(snap, d, f))
+                         for d in os.listdir(snap) if d.startswith("step_")
+                         for f in os.listdir(os.path.join(snap, d)))
+        print(f"phase 9: child killed by SIGKILL after round {kill_at}, "
+              f"{child_s!r} s after its start; snapshots published at "
+              f"rounds {published} ({snap_bytes} B in all); its ingest "
+              f"{span_seconds(events, 'ingest')} s, {len(rounds_s)} rounds "
+              f"({float(np.median(rounds_s)) * 1e3!r} ms median, snapshot "
+              f"rounds included), snapshot saves {saves} s", flush=True)
+
+        # --- resume in this process: the main path of the phase -------------
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        tracer = obs.configure(path=None)
+        try:
+            with compat.world1(backend):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                drv = PartitionDriver.resume(ef, cfg, snap, device=dev)
+                start = drv.rounds
+                got = drv.run()
+                wall = time.perf_counter() - t0
+                launches = dict(ops.launches)
+                peak = torch.cuda.max_memory_allocated()
+                art_dir = os.path.join(tmp, "artifact")
+                t0 = time.perf_counter()
+                drv.save_artifact(art_dir)
+                save_s = time.perf_counter() - t0
+        finally:
+            obs.disable()
+        events = tracer.events
+        rounds_s = span_seconds(events, "round")
+        resumed = got.rounds - start
+        st = got.stats
+        print(f"phase 9: resumed from round {start} in a world-1 "
+              f"{backend.upper()} group: rounds={got.rounds} leftover="
+              f"{got.leftover} RF={st.replication_factor!r} "
+              f"EB={st.edge_balance!r} wall={wall!r} s; ingest "
+              f"{span_seconds(events, 'ingest')} s, restore "
+              f"{span_seconds(events, 'restore')} s, finalize "
+              f"{span_seconds(events, 'finalize')} s; {len(rounds_s)} "
+              f"rounds at {float(np.mean(rounds_s)) * 1e3!r} ms a round "
+              f"(phase 3b: {per_round_3b * 1e3!r} ms); peak_mem={peak} B "
+              f"launches={launches}", flush=True)
+        check(start == kill_at,
+              f"phase 9: resumed from round {start}, not {kill_at}")
+        check(same_result(np, got, res),
+              "phase 9: the resumed run differs from phase 3's result")
+        if scale == 22:
+            check((got.rounds, st.replication_factor, st.edge_balance)
+                  == SCALE22_RESULT,
+                  f"phase 9: rounds, RF, EB are not {SCALE22_RESULT}")
+        want = {"select": resumed, "restart_draw": resumed,
+                "one_hop": resumed, "claim_scatter": resumed,
+                "pack_bits": 2 * resumed, "or_words": 2 * resumed,
+                "unpack_bits": resumed, "two_hop_best": resumed * chunks}
+        check(launches == want and resumed > 0,
+              f"phase 9: launch counts {launches} are not {want}")
+
+        # --- the artifact and back -------------------------------------------
+        t0 = time.perf_counter()
+        back = load_artifact(art_dir).result()
+        load_s = time.perf_counter() - t0
+        art_bytes = sum(os.path.getsize(os.path.join(art_dir, f))
+                        for f in os.listdir(art_dir))
+        check(all(np.array_equal(getattr(back, f), getattr(got, f))
+                  for f in ("edge_part", "vparts", "edges_per_part"))
+              and (back.rounds, back.leftover) == (got.rounds, got.leftover),
+              "phase 9: the artifact's result differs from the run's")
+        print(f"phase 9: == phase 3 bit for bit; launch counts match the "
+              f"resumed rounds {start + 1}-{got.rounds}; artifact "
+              f"{art_bytes} B in {len(os.listdir(art_dir))} files, saved in "
+              f"{save_s!r} s, loaded back in {load_s!r} s and equal; phase "
+              f"9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -2025,11 +2222,15 @@ def main() -> None:
     ap.add_argument("--time-round", type=int, default=20,
                     help="round whose inputs the kernel timings use")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--driver-child", nargs=5, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
     sys.path.insert(0, SRC)
+    if args.driver_child:
+        ef_path, snap, every, kill_at, device = args.driver_child
+        driver_child(ef_path, snap, int(every), int(kill_at), device)
     import numpy as np
     import torch
 
@@ -2216,6 +2417,7 @@ def main() -> None:
                   f"{r['sass']}", flush=True)
     row = next(r for r in rows if r["name"] == "two_hop_best")
     row.update(words_keys, launches_spmd=launches_sm["two_hop_best"])
+    main_edges = g.edges.cpu().numpy()       # phase 9 writes them to a file
     del st_sm, u, v, mask, g
 
     # --- phase 6: GIN training over the vertex-cut engine -------------------
@@ -2225,8 +2427,15 @@ def main() -> None:
     t0 = time.perf_counter()
     bag_row = phase_deepfm(torch, args)
     flash_row = phase_lm(torch, args)
-    print(f"phases 7-8: {time.perf_counter() - t0:.1f} s; the script: "
-          f"{time.perf_counter() - T_START:.1f} s", flush=True)
+    print(f"phases 7-8: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # --- phase 9: the driver from the store, killed and resumed -------------
+    launches_drv = phase_driver(torch, np, main_edges, res,
+                                wall_sm / max(rounds, 1), chunks, dev,
+                                args.scale)
+    for r in rows + bit_rows:
+        r["launches_driver"] = launches_drv[r["name"]]
+    print(f"the script: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": rows + bit_rows + [spmm_row, bag_row,
                                                    flash_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,16 @@
 The same canonical representation as the reference package: an undirected
 edge list expanded into 2M directed slots sorted by source vertex, with an
 ``adj_eid`` column mapping each directed slot back to its undirected edge.
-The arrays are built on the host (``repro_torch.io.csr``) and moved to the
-device once.
+The arrays are built on the host (``repro_torch.io``: in memory, or
+streamed from the store) and moved to the device once.
+
+The import between this module and ``repro_torch.io`` goes both ways on
+purpose, as in the reference: ``as_graph`` takes the store's handles, and
+the store's device builders (``graph_from_edgefile``,
+``PackedCSR.to_graph``, ``PackedCSR.shard_device``) stage through
+``graph_from_csr`` / ``to_device`` here.  The io side imports this module
+inside those functions only, which keeps ``repro_torch.io`` importable
+without torch.
 """
 from __future__ import annotations
 
@@ -13,8 +21,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.io.csr import (canonicalize_host, csr_from_canonical,
-                                grid_assign_host)
+from repro_torch.io.compress import PackedCSR
+from repro_torch.io.csr import (CSRArrays, canonicalize_host,
+                                csr_from_canonical, grid_assign_host)
+from repro_torch.io.edgefile import EdgeFile
+from repro_torch.io.stream import graph_from_edgefile
 
 _MASK32 = 0xFFFFFFFF
 
@@ -73,17 +84,42 @@ def from_edges(edges: np.ndarray, num_vertices: int | None = None,
         edges = np.asarray(edges, dtype=np.int32)
         n = int(num_vertices if num_vertices is not None
                 else (edges.max() + 1 if edges.size else 0))
-    a = csr_from_canonical(edges, n)
-    return Graph(*(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-                   for x in a))
+    return graph_from_csr(csr_from_canonical(edges, n), dev)
+
+
+def to_device(a: np.ndarray, device=None) -> torch.Tensor:
+    """A host array as a tensor on ``device`` (``None`` means the card)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(
+        resolve_device(device))
+
+
+def graph_from_csr(a: CSRArrays, device=None) -> Graph:
+    """The Graph of host CSR arrays, on ``device`` (``None``: the card)."""
+    dev = resolve_device(device)
+    return Graph(*(to_device(x, dev) for x in a))
 
 
 def as_graph(source, num_vertices: int | None = None, device=None) -> Graph:
-    """Coerce a Graph (returned as-is) or an edge ndarray to a Graph."""
+    """Coerce any graph source to a :class:`Graph` on ``device``.
+
+    A Graph is returned as it is.  An edge ndarray is built with
+    :func:`from_edges`, an ``EdgeFile`` streamed through the bit-identical
+    out-of-core builder (``io.stream.graph_from_edgefile``) and a
+    ``PackedCSR`` decompressed shard by shard (``PackedCSR.to_graph``).
+    """
     if isinstance(source, Graph):
         return source
     if isinstance(source, np.ndarray):
         return from_edges(source, num_vertices, device=device)
+    if isinstance(source, EdgeFile):
+        return graph_from_edgefile(source, num_vertices=num_vertices,
+                                   device=device)
+    if isinstance(source, PackedCSR):
+        if (num_vertices is not None
+                and num_vertices != source.num_vertices):
+            raise ValueError(f"num_vertices={num_vertices} conflicts with "
+                             f"the packed file's {source.num_vertices}")
+        return source.to_graph(device)
     raise TypeError(f"cannot build a Graph from {type(source).__name__}")
 
 

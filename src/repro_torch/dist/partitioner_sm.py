@@ -38,11 +38,13 @@ import torch.distributed as dist
 from repro_torch import random as trandom
 from repro_torch.core.epilogue import alpha_limit, stitch_slices
 from repro_torch.core.graph import (Graph, exclusive_rank, resolve_device,
-                                    shard_edges)
+                                    shard_edges, to_device)
 from repro_torch.core.partitioner import (I32_INF, NEConfig, PartitionResult,
                                           _mark_replicas, finalize_result,
                                           priority_enc, vertex_claims)
 from repro_torch.dist import compat
+from repro_torch.io.edgefile import EdgeFile
+from repro_torch.io.stream import require_canonical, shard_edges_stream
 from repro_torch.kernels.ne_round import ops as ne_ops
 from repro_torch.kernels.ne_round import ref as ne_ref
 
@@ -250,7 +252,7 @@ def stitch_edge_part(ep_sh: np.ndarray, dev: np.ndarray, m: int,
     return stitch_slices(edge_part, {dd: ep_sh[dd] for dd in eids}, eids)
 
 
-def _rank_device(rank: int, device=None) -> torch.device:
+def rank_device(rank: int, device=None) -> torch.device:
     """``device``, or for ``None`` the card ``cuda:(rank % count)``;
     raises without a card."""
     if device is not None:
@@ -261,52 +263,96 @@ def _rank_device(rank: int, device=None) -> torch.device:
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
-def partition_spmd(g: Graph, cfg: NEConfig, group=None,
+def require_group() -> None:
+    """Raise unless a torch.distributed group is initialised."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("the SPMD partitioner runs on every rank of an "
+                           "initialised torch.distributed group (see "
+                           "repro_torch.dist.compat.world1 and spawn)")
+
+
+def shard_input(source, num_devices: int):
+    """Edge shards + metadata from a Graph or a canonical EdgeFile:
+    ``(n, m, edges, shards, masks, dev)`` with host ``edges`` (M, 2)
+    int32 and ``dev`` the (M,) device of each edge.
+
+    The EdgeFile path never builds a CSR: the SPMD partitioner needs only
+    the raw edge shards, so a store handle goes disk → padded shards in
+    two block passes (``io.stream.shard_edges_stream``).
+    """
+    if isinstance(source, Graph):
+        edges = source.edges.cpu().numpy()
+        shards, masks, _, dev = shard_edges(edges, num_devices)
+        return (source.num_vertices, source.num_edges, edges, shards, masks,
+                dev)
+    if not isinstance(source, EdgeFile):
+        raise TypeError(f"the SPMD partitioner takes a Graph or a canonical "
+                        f"EdgeFile, got {type(source).__name__}")
+    require_canonical(source)
+    shards, masks, _, dev, edges = shard_edges_stream(source, num_devices,
+                                                      with_edges=True)
+    return (int(source.num_vertices), int(source.num_edges), edges, shards,
+            masks, dev)
+
+
+def rank_shard(shards: np.ndarray, masks: np.ndarray, rank: int, device):
+    """Rank ``rank``'s (C,) shard columns ``u``, ``v`` and its mask as
+    tensors on ``device``."""
+    return tuple(to_device(a, device) for a in (shards[rank, :, 0],
+                                                shards[rank, :, 1],
+                                                masks[rank]))
+
+
+def spmd_result(state: SpmdState, dev_of: np.ndarray, edges: np.ndarray,
+                cfg: NEConfig, group=None) -> PartitionResult:
+    """Every rank of ``group``: all-gather the shards' assignments, stitch
+    them back to edge order, unpack the replica words and run the host
+    epilogue; every rank returns the same :class:`PartitionResult`."""
+    ep_sh = compat.all_gather_rows(state.edge_part, group).cpu().numpy()
+    edge_part = stitch_edge_part(ep_sh, dev_of, edges.shape[0])
+    vparts = ne_ref.unpack_bits_np(state.vparts.cpu().numpy(),
+                                   cfg.num_partitions)
+    return finalize_result(edge_part, vparts, state.edges_per_part, edges,
+                           cfg, int(state.rounds))
+
+
+def empty_result(n: int, p_num: int) -> PartitionResult:
+    """The result of partitioning a graph with no edges."""
+    return PartitionResult(np.zeros((0,), np.int32),
+                           np.zeros((n, p_num), bool),
+                           np.zeros((p_num,), np.int32), 0, 0)
+
+
+def partition_spmd(g, cfg: NEConfig, group=None,
                    device=None) -> PartitionResult:
     """Run Distributed NE as an SPMD program over 2D-hash edge shards.
 
     Every rank of an initialised process group (``group``, default the
     world) calls it with the same graph and config; it raises without a
-    group.  Each rank shards the edge list on the host, keeps its own
-    shard on ``device`` (``None``: the card ``cuda:(rank % count)``) and
-    runs rounds to the fixed point; then the shards' assignments are
-    all-gathered and stitched, and every rank returns the same host-side
+    group.  ``g`` is a port Graph or a canonical ``io.EdgeFile``
+    (partitioned straight from the store, no CSR built).  Each rank
+    shards the edge list on the host, keeps its own shard on ``device``
+    (``None``: the card ``cuda:(rank % count)``) and runs rounds to the
+    fixed point; then the shards' assignments are all-gathered and
+    stitched, and every rank returns the same host-side
     :class:`PartitionResult` as ``core.partitioner.partition`` does.
     """
-    if not (dist.is_available() and dist.is_initialized()):
-        raise RuntimeError("partition_spmd runs on every rank of an "
-                           "initialised torch.distributed group (see "
-                           "repro_torch.dist.compat.world1 and spawn)")
-    if not isinstance(g, Graph):
-        raise TypeError(f"partition_spmd takes a Graph, got "
-                        f"{type(g).__name__}")
+    require_group()
     rank, world = dist.get_rank(group), dist.get_world_size(group)
-    dev = _rank_device(rank, device)
-    edges = g.edges.cpu().numpy()
-    n, m = g.num_vertices, g.num_edges
+    dev = rank_device(rank, device)
+    n, m, edges, shards, masks, dev_of = shard_input(g, world)
     cfg = cfg.clamped(n)
-    p_num = cfg.num_partitions
     if m == 0:
-        return PartitionResult(np.zeros((0,), np.int32),
-                               np.zeros((n, p_num), bool),
-                               np.zeros((p_num,), np.int32), 0, 0)
+        return empty_result(n, cfg.num_partitions)
 
-    shards, masks, _, dev_of = shard_edges(edges, world)
-    limit = alpha_limit(cfg.alpha, m, p_num)
-    u_loc, v_loc = (torch.from_numpy(np.ascontiguousarray(shards[rank, :, i]))
-                    .to(dev) for i in (0, 1))
-    mask_loc = torch.from_numpy(masks[rank]).to(dev)
+    limit = alpha_limit(cfg.alpha, m, cfg.num_partitions)
+    u_loc, v_loc, mask_loc = rank_shard(shards, masks, rank, dev)
     state = spmd_init_state(shards, masks, n, cfg, device=dev)
     del shards, masks
     while not spmd_done(state, cfg):
         state = spmd_round_step(cfg, limit, n, u_loc, v_loc, mask_loc, state,
                                 group)
-
-    ep_sh = compat.all_gather_rows(state.edge_part, group).cpu().numpy()
-    edge_part = stitch_edge_part(ep_sh, dev_of, m)
-    vparts = ne_ref.unpack_bits_np(state.vparts.cpu().numpy(), p_num)
-    return finalize_result(edge_part, vparts, state.edges_per_part, edges,
-                           cfg, int(state.rounds))
+    return spmd_result(state, dev_of, edges, cfg, group)
 
 
 def spmd_state_from_numpy(arrays: dict, device=None,

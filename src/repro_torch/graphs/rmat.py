@@ -2,14 +2,26 @@
 
 Graph500 parameters (a,b,c,d) = (0.57, 0.19, 0.19, 0.05); edge factor EF
 gives M = EF·2^scale sampled edges before dedup.  A copy of the reference
-package's one-shot generator: the same seed gives the same edges, which
-the tests check.  Vectorized numpy on the host.
+package's generators: the same seed gives the same edges, which the tests
+check.  Vectorized numpy on the host.
+
+* :func:`rmat_edges` — the one-shot array;
+* :func:`rmat_edge_chunks` — a chunked generator with per-chunk spawned
+  PRNG streams, the producer behind ``repro_torch.io.spill_rmat``: no
+  chunk depends on the full edge list, so generation RSS is
+  O(chunk_size).  The stream is deterministic for a fixed ``(seed,
+  chunk_size)`` but is a *different* (equally distributed) sample than
+  ``rmat_edges(seed)``.
 """
 from __future__ import annotations
+
+from typing import Iterator
 
 import numpy as np
 
 GRAPH500 = (0.57, 0.19, 0.19, 0.05)
+
+DEFAULT_CHUNK = 1 << 20
 
 
 def edge_dtype(scale: int) -> np.dtype:
@@ -43,6 +55,29 @@ def rmat_edges(scale: int, edge_factor: int, seed: int = 0,
     # random vertex relabel so degree order isn't the identity
     perm = rng.permutation(n).astype(dtype)
     return np.stack([perm[u], perm[v]], axis=1)
+
+
+def rmat_edge_chunks(scale: int, edge_factor: int, seed: int = 0,
+                     chunk_size: int = DEFAULT_CHUNK,
+                     probs: tuple[float, float, float, float] = GRAPH500,
+                     ) -> Iterator[np.ndarray]:
+    """Yield (k, 2) RMAT edge chunks without materializing the edge list.
+
+    Each chunk draws from its own PRNG stream spawned off ``seed`` (the
+    relabel permutation gets the first child), so the sequence is
+    reproducible chunk-by-chunk and never needs a length-M random buffer.
+    """
+    n = 1 << scale
+    m = n * edge_factor
+    dtype = edge_dtype(scale)
+    num_chunks = (m + chunk_size - 1) // chunk_size
+    children = np.random.SeedSequence(seed).spawn(num_chunks + 1)
+    perm = np.random.default_rng(children[0]).permutation(n).astype(dtype)
+    for i in range(num_chunks):
+        count = min(chunk_size, m - i * chunk_size)
+        rng = np.random.default_rng(children[i + 1])
+        u, v = _rmat_bits(rng, count, scale, probs, dtype)
+        yield np.stack([perm[u], perm[v]], axis=1)
 
 
 def rmat(scale: int, edge_factor: int, seed: int = 0, device=None):

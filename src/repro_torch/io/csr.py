@@ -24,6 +24,15 @@ class CSRArrays(NamedTuple):
     degree: np.ndarray      # (N,) int32
 
 
+def to_numpy(x) -> np.ndarray:
+    """A host numpy array of ``x``: a torch tensor on any device (copied
+    to the host), or anything ``np.asarray`` takes.  Duck-typed, so the
+    store's modules need no torch."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def canonicalize_host(edges: np.ndarray, num_vertices: int | None = None,
                       ) -> tuple[np.ndarray, int]:
     """Drop self loops + duplicate edges, canonicalize u < v. numpy, host-side."""

@@ -202,6 +202,15 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.models.lm.serve\n"
         "import repro_torch.configs.deepfm, repro_torch.configs.smollm_135m\n"
         "import repro_torch.launch.steps\n"
+        "import repro_torch.io, repro_torch.io.atomicdir\n"
+        "import repro_torch.io.compress, repro_torch.io.edgefile\n"
+        "import repro_torch.io.stream, repro_torch.io.ingest\n"
+        "import repro_torch.io.spill\n"
+        "import repro_torch.obs, repro_torch.obs.rss, repro_torch.obs.trace\n"
+        "import repro_torch.obs.live, repro_torch.train.checkpoint\n"
+        "import repro_torch.runtime, repro_torch.runtime.cluster\n"
+        "import repro_torch.runtime.artifact, repro_torch.runtime.snapshot\n"
+        "import repro_torch.runtime.driver\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -225,7 +234,13 @@ def test_port_sources_name_no_jax_and_no_repro():
                 "models/recsys/embedding.py", "models/recsys/deepfm.py",
                 "models/lm/transformer.py", "models/lm/serve.py",
                 "configs/deepfm.py", "configs/smollm_135m.py",
-                "launch/steps.py"):
+                "launch/steps.py", "io/__init__.py", "io/atomicdir.py",
+                "io/compress.py", "io/edgefile.py", "io/stream.py",
+                "io/ingest.py", "io/spill.py", "obs/__init__.py",
+                "obs/rss.py", "obs/trace.py", "obs/live.py",
+                "train/checkpoint.py", "runtime/__init__.py",
+                "runtime/cluster.py", "runtime/artifact.py",
+                "runtime/snapshot.py", "runtime/driver.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_spmd_ranks.py"]
     assert len(files) > 25

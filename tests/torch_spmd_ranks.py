@@ -1,4 +1,5 @@
-"""Rank bodies for tests/test_torch_spmd.py and tests/test_torch_gnn_engine.py.
+"""Rank bodies for tests/test_torch_spmd.py, tests/test_torch_gnn_engine.py
+and tests/test_torch_runtime.py.
 
 ``repro_torch.dist.compat.spawn`` runs them in gloo processes, one per
 rank.  This module imports nothing of jax or ``repro``, so a rank starts
@@ -12,8 +13,10 @@ from repro_torch.core.epilogue import alpha_limit
 from repro_torch.core.graph import from_edges, shard_edges
 from repro_torch.dist import compat
 from repro_torch.dist import partitioner_sm as sm
+from repro_torch.io.edgefile import EdgeFile
 from repro_torch.launch import gnn_engine as ge
 from repro_torch.models.gnn import gin
+from repro_torch.runtime import PartitionDriver
 from repro_torch.tree import tree_map
 
 
@@ -39,6 +42,24 @@ def spmd_checks(edges, n, cfg, carried, steps, or_rows):
     ored = compat.or_all_reduce(torch.from_numpy(or_rows[rank]))
     return {"result": res, "state": sm.spmd_state_to_numpy(state),
             "or": ored.numpy().copy()}
+
+
+def driver_checks(ef_path, cfg, snap_dir, art_dir, resume_round):
+    """On this rank: ``PartitionDriver`` in spmd mode from the EdgeFile at
+    ``ef_path``, snapshotting every round into ``snap_dir``, run to the
+    fixed point and saved as an artifact in ``art_dir``; then a fresh
+    driver resumed from the round-``resume_round`` snapshot (the run
+    killed after that round) and run to the end.  Returns both results
+    and the resumed driver's first round."""
+    ef = EdgeFile(ef_path)
+    drv = PartitionDriver(ef, cfg, snapshot_dir=snap_dir, snapshot_every=1,
+                          keep=1 << 20, device="cpu")
+    res = drv.run()
+    drv.save_artifact(art_dir)
+    again = PartitionDriver.resume(ef, cfg, snap_dir, round_k=resume_round,
+                                   device="cpu")
+    start = again.rounds
+    return {"result": res, "resumed": again.run(), "resumed_from": start}
 
 
 def fail_on_last_rank():
