@@ -103,7 +103,30 @@ Phases, each printing its lines; any failed check exits non-zero:
    1.7922852039337158, EB 1.10000089317367) with launches matching the
    resumed rounds; its time a round beside phase 3b's, the ingest,
    snapshot save and restore times (the driver's obs spans) and peak
-   memory; then the result saved as an artifact, loaded back and equal.
+   memory; then the result saved as an artifact, loaded back and equal;
+10. baselines and hybrid: (a) what the quality matrix does not reach:
+   the stream kernels ``hdrf_scan`` and ``oblivious_scan`` against their
+   plain versions bit for bit and call to call on rmat(10, 8, seed 3)
+   at P = 1 and a ragged P = 37, HDRF at lambda 0.5 and 2, Oblivious at
+   a limit every partition fills (the overflow rule); (b) the 32 rows of
+   ``BENCH_QUALITY.json``'s fast matrix (``repro_torch.tools.quality``:
+   RMAT scale 14 and the ingested power-law ``real`` graph, P = 4 and
+   16, NE, the hybrid at tau 0.5 and 0.25, the five baselines) each
+   equal to its expected (rf, eb, vb), with the launch counts set to 0
+   just before and read just after; then each stream kernel at every
+   cell of that matrix on the baselines' own inputs: the wrapper's
+   time, the launch's alone and its fills' apart (CUDA events), the
+   bound, and on ``real`` (P = 4 and 16) the kernel against its plain
+   version bit for bit and the plain version's time; (c)
+   ``partition_hybrid`` from phase 9's EdgeFile at P = 64, tau = 0.25
+   (the split streamed on the host, the rounds on the card), counts set
+   to 0 just before and read just after (one ``select`` and one
+   ``restart_draw`` a round, ``two_hop_best`` once a two-hop chunk), its
+   obs spans (split, rounds, finalize), theta, M_low, peak memory and
+   invariants; (d) ``PartitionDriver`` in hybrid mode on the scale-14
+   RMAT graph at P = 16, snapshots every 8 rounds, stopped at round 24
+   and resumed in this process: (b)'s run bit for bit, and the artifact
+   round trip.
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU
 fallback: without a CUDA device the script exits non-zero.
@@ -174,8 +197,21 @@ REPLACES = {
     "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:34",
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:63",
+    # lax.scan loops, not Pallas kernels: XLA runs them one edge a step
+    "hdrf_scan": "src/repro/core/baselines.py:56",
+    "oblivious_scan": "src/repro/core/baselines.py:100",
 }
 BIT_KERNELS = ("pack_bits", "unpack_bits", "or_words")
+# phase 10: the baselines' stream kernels, the quality matrix, the hybrid
+STREAM_SOURCE = "src/repro_torch/kernels/stream/csrc/stream.cu"
+STREAM_KERNELS = ("hdrf_scan", "oblivious_scan")
+STREAM_CHECK_PARTS = (1, 37)       # (a): one partition; a ragged 2nd warp
+STREAM_LAMBDAS = (0.5, 2.0)        # (a)'s HDRF; the matrix runs lambda 1
+STREAM_PLAIN_GRAPH = "real"        # the matrix's cells held against plain
+STREAM_ROW_P = 16                  # the JSON rows' cell (real, P = 16)
+CLOCK_HZ = 1.98e9                  # H100 SXM boost clock (INT32_OPS's)
+HYBRID_TAU = 0.25                  # (c) and (d): the tightest budget
+HYBRID_DRIVER = ("rmat_s14_ef16", 16, 8, 24)   # graph, P, every, stop
 
 
 def fail(msg: str) -> None:
@@ -1291,8 +1327,10 @@ def all_counts():
     from repro_torch.kernels.embedding_bag import ops as eb
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ne_round import ops as ne
+    from repro_torch.kernels.stream import ops as stream
 
-    return {**ne.launches, **spmm.launches, **eb.launches, **fa.launches}
+    return {**ne.launches, **spmm.launches, **eb.launches, **fa.launches,
+            **stream.launches}
 
 
 def reset_counts() -> None:
@@ -1300,8 +1338,9 @@ def reset_counts() -> None:
     from repro_torch.kernels.embedding_bag import ops as eb
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ne_round import ops as ne
+    from repro_torch.kernels.stream import ops as stream
 
-    for mod in (ne, spmm, eb, fa):
+    for mod in (ne, spmm, eb, fa, stream):
         mod.reset_launches()
 
 
@@ -2076,17 +2115,17 @@ def span_seconds(events, name: str) -> list:
 
 
 def phase_driver(torch, np, edges, res, per_round_3b: float, chunks: int,
-                 dev, scale: int) -> dict:
+                 dev, scale: int, tmp: str):
     """Phase 9: the driver from the store.  Phase 3's edge list goes into
-    a canonical EdgeFile; a child process runs ``PartitionDriver`` in
-    spmd mode from it with snapshots and is killed by SIGKILL; this
-    process resumes from the newest snapshot (launch counts set to 0
-    just before), runs to the fixed point and must equal phase 3's result
-    bit for bit; then the result goes through an artifact and back.
-    Returns the resumed run's launch counts."""
+    a canonical EdgeFile in ``tmp``; a child process runs
+    ``PartitionDriver`` in spmd mode from it with snapshots and is killed
+    by SIGKILL; this process resumes from the newest snapshot (launch
+    counts set to 0 just before), runs to the fixed point and must equal
+    phase 3's result bit for bit; then the result goes through an
+    artifact and back.  Returns the resumed run's launch counts and the
+    EdgeFile (phase 10 reads it)."""
     import shutil
     import signal
-    import tempfile
 
     from repro_torch.core import partitioner as tp
     from repro_torch.dist import compat
@@ -2099,9 +2138,10 @@ def phase_driver(torch, np, edges, res, per_round_3b: float, chunks: int,
     every = max(res.rounds // (2 * DRIVER_SNAPSHOTS_BEFORE_KILL), 1)
     kill_at = DRIVER_SNAPSHOTS_BEFORE_KILL * every
     cfg = tp.NEConfig(num_partitions=PARTITIONS)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    ef_path = os.path.join(tmp, "main.edges")
+    snap = os.path.join(tmp, "snap")
+    art_dir = os.path.join(tmp, "artifact")
     try:
-        ef_path = os.path.join(tmp, "main.edges")
         t0 = time.perf_counter()
         ef = write_edgefile(ef_path, edges, num_vertices=1 << scale,
                             flags=FLAG_CANONICAL)
@@ -2111,7 +2151,6 @@ def phase_driver(torch, np, edges, res, per_round_3b: float, chunks: int,
               f"{time.perf_counter() - t0!r} s", flush=True)
 
         # --- the killed run, in a child process ----------------------------
-        snap = os.path.join(tmp, "snap")
         if dev.type == "cuda":
             torch.cuda.empty_cache()       # room for the child's context
         t0 = time.perf_counter()
@@ -2158,7 +2197,6 @@ def phase_driver(torch, np, edges, res, per_round_3b: float, chunks: int,
                 wall = time.perf_counter() - t0
                 launches = dict(ops.launches)
                 peak = torch.cuda.max_memory_allocated()
-                art_dir = os.path.join(tmp, "artifact")
                 t0 = time.perf_counter()
                 drv.save_artifact(art_dir)
                 save_s = time.perf_counter() - t0
@@ -2208,9 +2246,343 @@ def phase_driver(torch, np, edges, res, per_round_3b: float, chunks: int,
               f"{art_bytes} B in {len(os.listdir(art_dir))} files, saved in "
               f"{save_s!r} s, loaded back in {load_s!r} s and equal; phase "
               f"9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
-        return launches
+        return launches, ef
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        for d in (snap, art_dir):
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def stream_chain_ops(name: str, p: int) -> int:
+    """Dependent operations an edge on the scan's serial chain: step i + 1
+    reads |E_p| after step i's choice.  HDRF: the count's update, its
+    conversion, max - |E_p|, the division, the product and the sum, then
+    a compare and a select at each of ceil(log2 P) levels of the argmax;
+    Oblivious: the update, the conversion and the room test, then the
+    argmin's levels."""
+    levels = max(1, (p - 1).bit_length())
+    return (6 if name == "hdrf_scan" else 3) + 2 * levels
+
+
+def stream_bound(name: str, m: int, p: int):
+    """(ms, by, floor): the larger of the bytes (8 B of edge read and 4 B
+    of partition written an edge) at the card's rate, P partitions'
+    scores (10 float operations each) at its FP32 rate, and the serial
+    chain at one dependent operation a clock."""
+    times = {"bytes": bound_ms(12 * m),
+             "operations": max(10 * m * p / FP32_FLOPS * 1e3,
+                               m * stream_chain_ops(name, p) / CLOCK_HZ
+                               * 1e3)}
+    by = max(times, key=times.get)
+    return times[by], by, (f"serial chain: {stream_chain_ops(name, p)} "
+                           f"dependent operations an edge at one a clock "
+                           f"({CLOCK_HZ / 1e9} GHz)")
+
+
+def phase_stream_kernels(torch, dev) -> int:
+    """Phase 10 (a): the cases the quality matrix does not reach, each
+    stream kernel against its plain version on the card, bit for bit, and
+    the same bits call to call, on rmat(10, 8, seed 3): P = 1 and a ragged
+    P = 37 (two warps, the second partly idle), HDRF at lambda 0.5 and 2,
+    Oblivious at a limit every partition fills (the overflow rule).
+    Returns the largest difference (0)."""
+    from repro_torch.graphs.rmat import rmat
+    from repro_torch.kernels.stream import ops as sops
+    from repro_torch.kernels.stream import ref as sref
+
+    t0 = time.perf_counter()
+    g = rmat(10, 8, seed=3, device=dev)
+    e, n, m = g.edges, g.num_vertices, g.num_edges
+    worst = 0
+    for p in STREAM_CHECK_PARTS:
+        calls = []
+        for lam in STREAM_LAMBDAS:
+            calls.append((f"hdrf lam={lam}", lambda lam=lam: sops.hdrf_scan(
+                e, p, n, lam), lambda lam=lam: sref.hdrf_scan_ref(
+                    e, p, n, lam)))
+        limit = max(1, m // (2 * p))
+        calls.append((f"oblivious limit={limit}",
+                      lambda: sops.oblivious_scan(e, p, n, limit),
+                      lambda: sref.oblivious_scan_ref(e, p, n, limit)))
+        for name, kern, plain in calls:
+            a, b, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            err = max(max_abs_err(a, want), max_abs_err(a, b))
+            worst = max(worst, err)
+            check(err == 0, f"phase 10: {name} at P={p} differs from its "
+                            f"plain version or from call to call ({err})")
+        # the small limit fills every partition: the overflow rule ran
+        full = torch.bincount(a.long(), minlength=p).min().item()
+        check(full >= limit,
+              f"phase 10: oblivious at P={p} left a partition unfilled")
+        print(f"phase 10: hdrf_scan and oblivious_scan == plain bit for bit "
+              f"and call to call at M={m}, N={n}, P={p} ({len(calls)} "
+              f"cases)", flush=True)
+    print(f"phase 10 (a): took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return worst
+
+
+def phase_quality(torch, np, dev, workdir: str):
+    """Phase 10 (b): the 32 rows of BENCH_QUALITY.json's fast matrix on the
+    card (``repro_torch.tools.quality``), each against its expected (rf,
+    eb, vb), with the launch counts set to 0 just before and read just
+    after.  Returns the graphs, the rows and the counts."""
+    from repro_torch.tools import quality
+
+    t0 = time.perf_counter()
+    graphs = {"rmat_s14_ef16": quality.rmat_graph(dev),
+              "real": quality.real_graph(workdir, dev)[0]}
+    for name, g in graphs.items():
+        print(f"phase 10: {name}: N={g.num_vertices} M={g.num_edges}",
+              flush=True)
+        # one two-hop chunk a round on every row below
+        check(g.num_edges <= 1 << 18, f"phase 10: {name} has > 2^18 edges")
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    rows = quality.run_matrix(graphs,
+                              log=lambda line: print(f"phase 10: {line}",
+                                                     flush=True))
+    wall = time.perf_counter() - t1
+    counts = all_counts()
+    rounds = sum(r["rounds"] for r in rows if r["rounds"] is not None)
+    streams = len(graphs) * len(quality.PARTS)
+    check_counts("phase 10 (b)", {
+        "select": rounds, "restart_draw": rounds, "one_hop": rounds,
+        "claim_scatter": rounds, "two_hop_best": rounds,
+        "hdrf_scan": streams, "oblivious_scan": streams})
+    bad = [r["name"] for r in rows if not r["ok"]]
+    check(not bad, f"phase 10: rows differ from the expected table: {bad}")
+    print(f"phase 10 (b): all {len(rows)} rows == the expected table "
+          f"({len(quality.STALE)} of them the reference's present value, "
+          f"stale in BENCH_QUALITY.json) in {wall:.1f} s; {rounds} NE "
+          f"rounds; launches {counts}; took {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    return graphs, rows, counts
+
+
+def launch_ms(torch, sops, scan, reps: int):
+    """(kernel ms, fill ms) a call of ``scan``, by CUDA events: around its
+    launch alone, and around the zeroing of its state before it.  Each
+    call is queued behind a 1 ms ``torch.cuda._sleep`` so that the host's
+    dispatch lies inside the sleep, not between the events.  A warm-up
+    call first."""
+    kern = fill = 0.0
+    for i in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda._sleep(int(CLOCK_HZ / 1e3))
+        ev[0].record()
+        scan.vparts.zero_()
+        if scan.degree is not None:
+            scan.degree.zero_()
+        ev[1].record()
+        sops.launch(scan)
+        ev[2].record()
+        ev[2].synchronize()
+        if i:
+            fill += ev[0].elapsed_time(ev[1])
+            kern += ev[1].elapsed_time(ev[2])
+    return kern / reps, fill / reps
+
+
+def stream_cells(torch, graphs, counts, err: int) -> list:
+    """Each stream kernel at every cell of (b)'s matrix, on the inputs the
+    baselines give it there (stream order of seed 0, HDRF at lambda 1,
+    Oblivious at the alpha limit): the wrapper's time (``ms``), the
+    launch's alone and the fills' (:func:`launch_ms`), the bound; on
+    ``STREAM_PLAIN_GRAPH`` also the plain version's time (one call: it
+    takes ~0.3-0.5 ms an edge on the card) and the kernel's bits against
+    it and from call to call.  Returns the two JSON rows: the numbers of
+    the (real, P = 16) cell, with (b)'s launch counts and every cell
+    under ``cells``."""
+    from repro_torch.core.baselines import stream_order
+    from repro_torch.kernels.stream import ops as sops
+    from repro_torch.kernels.stream import ref as sref
+    from repro_torch.tools import quality
+
+    t0 = time.perf_counter()
+    cells = {name: [] for name in STREAM_KERNELS}
+    for gname, g in graphs.items():
+        n, m = g.num_vertices, g.num_edges
+        es = g.edges[stream_order(g, 0)]
+        for p in quality.PARTS:
+            limit = int(1.1 * m / p) + 1
+            for name, arg, kern, plain in (
+                    ("hdrf_scan", 1.0,
+                     lambda: sops.hdrf_scan(es, p, n, 1.0),
+                     lambda: sref.hdrf_scan_ref(es, p, n, 1.0)),
+                    ("oblivious_scan", limit,
+                     lambda: sops.oblivious_scan(es, p, n, limit),
+                     lambda: sref.oblivious_scan_ref(es, p, n, limit))):
+                bound, by, floor = stream_bound(name, m, p)
+                dev_ms, fill_ms = launch_ms(
+                    torch, sops, sops.prepare(name, es, p, n, arg), 3)
+                cell = {"graph": gname, "p": p, "m": m, "n": n,
+                        "ms": time_ms(kern, 3, warmup=1), "device_ms": dev_ms,
+                        "fill_ms": fill_ms, "bound_ms": bound, "bound_by": by,
+                        "bound_floor": floor, "plain_ms": None,
+                        "max_abs_err": None}
+                if gname == STREAM_PLAIN_GRAPH:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    want = plain()
+                    end.record()
+                    end.synchronize()
+                    a, b = kern(), kern()
+                    diff = max(max_abs_err(a, want), max_abs_err(a, b))
+                    check(diff == 0, f"phase 10: {name} at {gname} P={p} "
+                                     f"differs from its plain version or "
+                                     f"from call to call ({diff})")
+                    cell.update(plain_ms=start.elapsed_time(end),
+                                max_abs_err=diff)
+                cells[name].append(cell)
+                held = ("" if cell["plain_ms"] is None else
+                        f", == plain bit for bit and call to call, plain "
+                        f"{cell['plain_ms']!r} ms")
+                print(f"phase 10: {name} at {gname} P={p} (M={m}): ms "
+                      f"{cell['ms']!r}, launch {dev_ms!r} ms "
+                      f"({dev_ms * 1e6 / m!r} ns an edge), fills {fill_ms!r} "
+                      f"ms, bound {bound!r} ({by}: {floor}){held}",
+                      flush=True)
+    rows = []
+    for name, cs in cells.items():
+        top = next(c for c in cs if c["graph"] == STREAM_PLAIN_GRAPH
+                   and c["p"] == STREAM_ROW_P)
+        rows.append({
+            "name": name, "route": "cuda", "source": STREAM_SOURCE,
+            "replaces": REPLACES[name], "launches": counts[name],
+            "max_abs_err": max([err] + [c["max_abs_err"] for c in cs
+                                        if c["max_abs_err"] is not None]),
+            "ms": top["ms"], "device_ms": top["device_ms"],
+            "device_ms_by": ("CUDA events around the launch alone, queued "
+                             "behind a 1 ms sleep; its two fills apart in "
+                             "fill_ms"),
+            "fill_ms": top["fill_ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "bound_floor": top["bound_floor"], "library_ms": None,
+            "library_device_ms": None,
+            "shape": (f"{STREAM_PLAIN_GRAPH} in stream order, P="
+                      f"{STREAM_ROW_P}, M={top['m']}; launches over (b)'s "
+                      f"four cells"),
+            "cells": cs})
+    print(f"phase 10: stream cells took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return rows
+
+
+def phase_hybrid_scale(torch, np, ef, dev):
+    """Phase 10 (c): ``partition_hybrid`` from phase 9's canonical
+    EdgeFile at P = 64, tau = 0.25 (the streamed split on the host, the
+    expansion on the card), launch counts set to 0 just before and read
+    just after, its phases' obs spans, peak memory and invariants."""
+    from repro_torch.core.hybrid import HybridConfig, partition_hybrid
+    from repro_torch.core.metrics import stats_from_counts
+    from repro_torch.obs import trace as obs
+
+    cfg = HybridConfig(num_partitions=PARTITIONS, budget_frac=HYBRID_TAU)
+    tracer = obs.configure(path=None)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = partition_hybrid(ef, cfg, device=dev)
+        wall = time.perf_counter() - t0
+        counts = all_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        obs.disable()
+    spans = {e["name"]: e for e in tracer.events if e["ev"] == "span"}
+    split = spans["hybrid_split"]
+    theta, m_low = split["args"]["threshold"], split["args"]["low_edges"]
+    rounds = res.rounds
+    chunks = -(-m_low // min(cfg.edge_chunk, m_low))
+    check_counts("phase 10 (c)", {
+        "select": rounds, "restart_draw": rounds, "one_hop": rounds,
+        "claim_scatter": rounds, "two_hop_best": rounds * chunks})
+    st = res.stats
+    rounds_s = spans["hybrid_rounds"]["dur"] / 1e6
+    print(f"phase 10 (c): partition_hybrid of the EdgeFile (N="
+          f"{ef.num_vertices}, M={ef.num_edges}) P={PARTITIONS} tau="
+          f"{HYBRID_TAU}: theta={theta} M_low={m_low} "
+          f"({m_low / ef.num_edges:.4f} of M) rounds={rounds} leftover="
+          f"{res.leftover} RF={st.replication_factor!r} "
+          f"EB={st.edge_balance!r} VB={st.vertex_balance!r}; wall {wall!r} "
+          f"s: split {split['dur'] / 1e6!r} s (host), rounds {rounds_s!r} s "
+          f"({rounds_s / max(rounds, 1) * 1e3!r} ms a round), finalize "
+          f"{spans['hybrid_finalize']['dur'] / 1e6!r} s; peak_mem={peak} B; "
+          f"launches {counts}", flush=True)
+    # invariants: every edge assigned; counts and replicas from edge_part
+    t0 = time.perf_counter()
+    ep = res.edge_part
+    check(bool((ep >= 0).all()) and bool((ep < PARTITIONS).all()),
+          "phase 10 (c): unassigned edges")
+    check(np.array_equal(res.edges_per_part,
+                         np.bincount(ep, minlength=PARTITIONS)),
+          "phase 10 (c): edges_per_part disagrees with edge_part")
+    edges = ef.read_all()
+    vp = np.zeros((ef.num_vertices, PARTITIONS), bool)
+    vp[edges[:, 0], ep] = True
+    vp[edges[:, 1], ep] = True
+    check(np.array_equal(vp, res.vparts),
+          "phase 10 (c): vparts disagrees with edge_part")
+    check(st == stats_from_counts(vp.sum(axis=0), res.edges_per_part,
+                                  ef.num_vertices),
+          "phase 10 (c): stats disagree with edge_part")
+    print(f"phase 10 (c): invariants hold (every edge assigned; counts, "
+          f"replicas and stats from edge_part; checked in "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    return res
+
+
+def phase_hybrid_driver(torch, np, graphs, rows, dev, tmp: str) -> None:
+    """Phase 10 (d): ``PartitionDriver`` in hybrid mode on the matrix's
+    RMAT graph, a snapshot every 8 rounds, stopped at round 24, resumed in
+    this process from that snapshot (counts set to 0 just before) and run
+    to the end: (b)'s ``partition_hybrid`` result bit for bit; then the
+    artifact and back."""
+    from repro_torch.core.hybrid import HybridConfig
+    from repro_torch.runtime import PartitionDriver, load_artifact
+    from repro_torch.tools import quality
+
+    gname, p, every, stop = HYBRID_DRIVER
+    want = next(r["result"] for r in rows if r["name"] == quality.row_name(
+        gname, p, f"hybrid_t{int(HYBRID_TAU * 100)}"))
+    g = graphs[gname]
+    cfg = HybridConfig(num_partitions=p, budget_frac=HYBRID_TAU, seed=0)
+    snap = os.path.join(tmp, "hybrid_snap")
+    t0 = time.perf_counter()
+    drv = PartitionDriver(g, cfg, mode="hybrid", snapshot_dir=snap,
+                          snapshot_every=every, keep=8, device=dev)
+    while drv.rounds < stop and not drv.done:
+        drv.step()
+    check(drv.rounds == stop, f"phase 10 (d): stopped at {drv.rounds}")
+    del drv
+    reset_counts()
+    drv = PartitionDriver.resume(g, cfg, snap, mode="hybrid", device=dev)
+    start = drv.rounds
+    got = drv.run()
+    counts = all_counts()
+    resumed = got.rounds - start
+    check(start == stop, f"phase 10 (d): resumed from round {start}")
+    check(same_result(np, got, want),
+          "phase 10 (d): the resumed driver differs from (b)'s run")
+    check_counts("phase 10 (d)", {
+        "select": resumed, "restart_draw": resumed, "one_hop": resumed,
+        "claim_scatter": resumed, "two_hop_best": resumed})
+    art = os.path.join(tmp, "hybrid_artifact")
+    drv.save_artifact(art)
+    back = load_artifact(art).result()
+    check(all(np.array_equal(getattr(back, f), getattr(got, f))
+              for f in ("edge_part", "vparts", "edges_per_part"))
+          and (back.rounds, back.leftover) == (got.rounds, got.leftover),
+          "phase 10 (d): the artifact's result differs from the run's")
+    print(f"phase 10 (d): hybrid driver on {gname} P={p} tau={HYBRID_TAU}: "
+          f"snapshots every {every} rounds, stopped at round {stop}, "
+          f"resumed and run to round {got.rounds} == (b)'s partition_hybrid "
+          f"bit for bit; launches {counts}; artifact round trip equal; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> None:
@@ -2429,15 +2801,35 @@ def main() -> None:
     flash_row = phase_lm(torch, args)
     print(f"phases 7-8: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # --- phase 9: the driver from the store, killed and resumed -------------
-    launches_drv = phase_driver(torch, np, main_edges, res,
-                                wall_sm / max(rounds, 1), chunks, dev,
-                                args.scale)
-    for r in rows + bit_rows:
-        r["launches_driver"] = launches_drv[r["name"]]
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # --- phase 9: the driver from the store, killed and resumed ---------
+        launches_drv, ef = phase_driver(torch, np, main_edges, res,
+                                        wall_sm / max(rounds, 1), chunks,
+                                        dev, args.scale, work)
+        for r in rows + bit_rows:
+            r["launches_driver"] = launches_drv[r["name"]]
+        del main_edges, res
+
+        # --- phase 10: baselines and hybrid ----------------------------------
+        t0 = time.perf_counter()
+        ptxas_report(build, "stream", ("hdrf_kernel", "oblivious_kernel"),
+                     "phase 10")
+        err = phase_stream_kernels(torch, dev)
+        graphs, q_rows, q_counts = phase_quality(torch, np, dev, work)
+        stream = stream_cells(torch, graphs, q_counts, err)
+        phase_hybrid_scale(torch, np, ef, dev)
+        phase_hybrid_driver(torch, np, graphs, q_rows, dev, work)
+        print(f"phase 10: took {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     print(f"the script: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": rows + bit_rows + [spmm_row, bag_row,
-                                                   flash_row]}), flush=True)
+                                                   flash_row] + stream}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -24,7 +24,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v"]
 
 # every family of the port, each built from kernels/<family>/csrc/<family>.cu
-FAMILIES = ("ne_round", "block_spmm", "embedding_bag", "flash_attention")
+FAMILIES = ("ne_round", "block_spmm", "embedding_bag", "flash_attention",
+            "stream")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}

@@ -10,7 +10,7 @@ bit-identical to the uninterrupted loop, and therefore so is
 kill-at-round-k + resume-from-snapshot (tests/test_torch_runtime.py, and
 ``chip_smoke.py``'s phase 9 with a killed process on the card).
 
-A port of the reference package's ``runtime/driver.py`` in two modes:
+A port of the reference package's ``runtime/driver.py`` in three modes:
 
 * ``mode="single"`` steps the single-controller round on a Graph built
   from the source on ``device`` (``core.graph.as_graph``: a Graph, an edge
@@ -19,7 +19,14 @@ A port of the reference package's ``runtime/driver.py`` in two modes:
   ``torch.distributed`` group, as ``partition_spmd`` does, one shard per
   rank: each rank ingests the whole source the way ``partition_spmd``
   does (``dist.partitioner_sm.shard_input``: a Graph shards in memory, a
-  canonical EdgeFile streams to the padded shards) and keeps its own row.
+  canonical EdgeFile streams to the padded shards) and keeps its own row;
+* ``mode="hybrid"`` drives the HEP-style hybrid (``cfg`` must then be a
+  :class:`repro_torch.core.hybrid.HybridConfig`; the source a Graph or a
+  canonical EdgeFile): the tail is grid-hashed at ingest, rounds step the
+  same ``_round`` over the low subgraph from the seeded state on
+  ``device``, and finalize stitches through ``hybrid_finalize``.  It is
+  single-controller, and its snapshots are ``"single"``'s (the seeded
+  state is just an NEState over the low edges).
 
 Snapshots go every ``snapshot_every`` rounds through
 :class:`repro_torch.runtime.snapshot.RunSnapshot` (sharded files, fsync +
@@ -30,8 +37,7 @@ wrong source, config or mode fails loudly; a snapshot taken at another
 rank count reshards in memory (elastic resume).  ``save_artifact``
 persists the finalized result (rank 0 writes).
 
-Not in this slice, each raising ``NotImplementedError``: ``mode="hybrid"``
-(``core/hybrid.py``, ROADMAP §1 item 3) and the reference's
+Not in this slice, raising ``NotImplementedError``: the reference's
 multi-controller runs, where each rank ingests only its own block range
 through an ``exchange_dir`` and finalize and artifact writing are sharded
 (``runtime/{multihost,finalize}.py``, ROADMAP §1 item 2).
@@ -46,6 +52,8 @@ import torch.distributed as dist
 
 from repro_torch.core.epilogue import alpha_limit
 from repro_torch.core.graph import as_graph
+from repro_torch.core.hybrid import (HybridConfig, hybrid_finalize,
+                                     hybrid_init_state, hybrid_split)
 from repro_torch.core.partitioner import (NEConfig, NEState, PartitionResult,
                                           finalize_result, ne_done,
                                           ne_init_state, ne_round_step,
@@ -69,7 +77,10 @@ class PartitionDriver:
     ``group`` (default the world; ``num_devices`` must be ``None`` or the
     world size), its shard on ``device`` (``None``: the card
     ``cuda:(rank % count)``); ``mode="single"`` drives the
-    single-controller round on ``device`` (``None``: the card).  One
+    single-controller round on ``device`` (``None``: the card);
+    ``mode="hybrid"`` the hybrid's expansion rounds (``cfg`` a
+    ``HybridConfig``; ``device=None``: a Graph's own device, the card
+    for an EdgeFile).  One
     :meth:`step` == one paper round; :meth:`run` loops to completion
     with periodic snapshots; :meth:`resume` rebuilds a driver from the
     latest (or a chosen) snapshot.
@@ -81,11 +92,7 @@ class PartitionDriver:
                  snapshot_every: int = 0, keep: int = 3,
                  exchange_dir: str | os.PathLike | None = None,
                  device=None, group=None):
-        if mode == "hybrid":
-            raise NotImplementedError(
-                "mode='hybrid' needs core/hybrid.py, which ROADMAP §1 item 3 "
-                "(baselines and the hybrid partitioner) ports")
-        if mode not in ("spmd", "single"):
+        if mode not in ("spmd", "single", "hybrid"):
             raise ValueError(f"unknown mode {mode!r}")
         if exchange_dir is not None:
             raise NotImplementedError(
@@ -103,12 +110,14 @@ class PartitionDriver:
         with obs.span("ingest", cat="runtime", mode=mode):
             if mode == "single":
                 self._init_single(source, cfg, device)
+            elif mode == "hybrid":
+                self._init_hybrid(source, cfg, device)
             else:
                 self._init_spmd(source, cfg, num_devices, device)
 
         # per-round SyncVertexAllocations traffic (per rank) — a pure
         # function of the config, recorded as a cumulative trace counter
-        self._sync_bytes = (0 if mode == "single" else
+        self._sync_bytes = (0 if mode in ("single", "hybrid") else
                             sm.round_sync_payload_bytes(self.cfg, self.n,
                                                         self.num_devices))
         self._sync_total = 0
@@ -137,6 +146,30 @@ class PartitionDriver:
         self.limit = alpha_limit(self.cfg.alpha, self.m,
                                  self.cfg.num_partitions)
         self.state: NEState | sm.SpmdState = ne_init_state(g, self.cfg)
+
+    def _init_hybrid(self, source, cfg, device):
+        if compat.process_env()[1] > 1:
+            raise ValueError("mode='hybrid' is single-controller by "
+                             "definition — multi-process runs drive the "
+                             "SPMD partitioner (mode='spmd')")
+        if not isinstance(cfg, HybridConfig):
+            raise TypeError("mode='hybrid' takes a HybridConfig, "
+                            f"got {type(cfg).__name__}")
+        self._graph_fp = graph_fingerprint(source)
+        split = hybrid_split(source, cfg, device=device)
+        self.cfg = cfg.clamped(split.num_vertices)
+        self._necfg = self.cfg.ne_config()
+        self._split = split
+        self._graph = split.low
+        self._device = split.low.device
+        self.num_devices = 1
+        # n and m are the whole graph's; the round state holds the low
+        # edges only (edge_part is (M_low,)), as in the reference
+        self.n, self.m = split.num_vertices, split.num_edges
+        self._edges = None          # read back by save_artifact only
+        self.limit = alpha_limit(self.cfg.alpha, self.m,
+                                 self.cfg.num_partitions)
+        self.state = hybrid_init_state(split, self._necfg)
 
     def _init_spmd(self, source, cfg: NEConfig, num_devices, device):
         sm.require_group()
@@ -172,7 +205,8 @@ class PartitionDriver:
         if self._done is None:
             if self.m == 0:
                 self._done = True
-            elif self.mode == "single":
+            elif self.mode in ("single", "hybrid"):
+                # HybridConfig carries max_rounds, so ne_done reads either
                 self._done = ne_done(self.state, self.cfg)
             else:
                 self._done = sm.spmd_done(self.state, self.cfg)
@@ -192,8 +226,9 @@ class PartitionDriver:
         # the round span covers the snapshot save too (nested "snapshot"
         # span): per-round cost as a long run pays it
         with sp:
-            if self.mode == "single":
-                self.state = ne_round_step(self._graph, self.cfg, self.limit,
+            if self.mode in ("single", "hybrid"):
+                cfg = self.cfg if self.mode == "single" else self._necfg
+                self.state = ne_round_step(self._graph, cfg, self.limit,
                                            self.state)
             else:
                 self.state = sm.spmd_round_step(
@@ -246,7 +281,10 @@ class PartitionDriver:
             self._publish_live_done()
             return self._result
         with obs.span("finalize", cat="runtime", mode=self.mode):
-            if self.mode == "single":
+            if self.mode == "hybrid":
+                self._result = hybrid_finalize(self.state, self._split,
+                                               self.cfg)
+            elif self.mode == "single":
                 self._result = finalize_result(
                     self.state.edge_part, self.state.vparts,
                     self.state.edges_per_part, self._edges, self.cfg,
@@ -287,7 +325,7 @@ class PartitionDriver:
         if self.snapshot is None:
             raise RuntimeError("driver was built without a snapshot_dir")
         with obs.span("snapshot", cat="runtime", round=self.rounds):
-            if self.mode == "single":
+            if self.mode in ("single", "hybrid"):
                 return self.snapshot.save_state(
                     self.rounds, state_to_numpy(self.state), self.mode)
             fields = sm.spmd_state_to_numpy(self.state)
@@ -320,7 +358,7 @@ class PartitionDriver:
             if missing:
                 raise SnapshotMismatch(f"snapshot is missing fields "
                                        f"{missing}")
-            if self.mode == "single":
+            if self.mode in ("single", "hybrid"):
                 self.state = state_from_numpy(fields, device=self._device)
             else:
                 if fields["edge_part"].shape != (self.num_devices,
@@ -367,7 +405,13 @@ class PartitionDriver:
         (in spmd mode every rank calls it; rank 0 writes, then all meet a
         barrier)."""
         res = self.finalize()
-        if self.mode == "single" or self._rank == 0:
+        if self._edges is None:
+            # hybrid mode never holds the source edge list for the round
+            # loop; the artifact save is the one consumer that needs it
+            self._edges = (self.source.read_all()
+                           if isinstance(self.source, EdgeFile)
+                           else self.source.edges.cpu().numpy())
+        if self.mode != "spmd" or self._rank == 0:
             save_artifact(dirpath, res, self._edges, self.n,
                           config_fingerprint=config_fingerprint(self.cfg),
                           graph_fingerprint=self._graph_fp)

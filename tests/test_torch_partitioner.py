@@ -211,6 +211,11 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.runtime, repro_torch.runtime.cluster\n"
         "import repro_torch.runtime.artifact, repro_torch.runtime.snapshot\n"
         "import repro_torch.runtime.driver\n"
+        "import repro_torch.core.baselines, repro_torch.core.hybrid\n"
+        "import repro_torch.core.theory, repro_torch.core.sequential_ne\n"
+        "import repro_torch.kernels.stream.ops\n"
+        "import repro_torch.kernels.stream.ref\n"
+        "import repro_torch.tools.quality\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -240,7 +245,11 @@ def test_port_sources_name_no_jax_and_no_repro():
                 "obs/rss.py", "obs/trace.py", "obs/live.py",
                 "train/checkpoint.py", "runtime/__init__.py",
                 "runtime/cluster.py", "runtime/artifact.py",
-                "runtime/snapshot.py", "runtime/driver.py"):
+                "runtime/snapshot.py", "runtime/driver.py",
+                "core/baselines.py", "core/hybrid.py", "core/theory.py",
+                "core/sequential_ne.py", "kernels/stream/__init__.py",
+                "kernels/stream/ops.py", "kernels/stream/ref.py",
+                "tools/quality.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_spmd_ranks.py"]
     assert len(files) > 25

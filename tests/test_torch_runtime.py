@@ -39,6 +39,7 @@ from repro.train import checkpoint as jckpt
 from repro_torch import io as tio
 from repro_torch.apps.engine import build_sharded_graph
 from repro_torch.core import partitioner as tp
+from repro_torch.core.hybrid import HybridConfig
 from repro_torch.core.metrics import evaluate
 from repro_torch.dist import compat
 from repro_torch.dist import partitioner_sm as sm
@@ -769,8 +770,6 @@ def test_driver_traces_spans_and_publishes_live(graph, tmp_path):
 
 
 def test_driver_modes_not_in_this_slice_raise(graph, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 3"):
-        PartitionDriver(graph, CFG, mode="hybrid", device="cpu")
     with pytest.raises(NotImplementedError, match="item 2"):
         PartitionDriver(graph, CFG, exchange_dir=tmp_path, device="cpu")
     with pytest.raises(ValueError, match="unknown mode"):
@@ -780,6 +779,21 @@ def test_driver_modes_not_in_this_slice_raise(graph, tmp_path):
     with compat.world1("gloo"):
         with pytest.raises(ValueError, match="num_devices=2"):
             PartitionDriver(graph, CFG, num_devices=2, device="cpu")
+
+
+def test_driver_hybrid_mode_takes_a_hybrid_config(graph):
+    with pytest.raises(TypeError, match="HybridConfig"):
+        PartitionDriver(graph, CFG, mode="hybrid", device="cpu")
+
+
+def test_driver_hybrid_mode_is_single_controller():
+    """In a group of 2 gloo ranks every rank's hybrid driver raises."""
+    outs = compat.spawn(torch_spmd_ranks.hybrid_driver_error, 2, "gloo",
+                        rmat(*GRAPH, device="cpu").edges.numpy(),
+                        HybridConfig(num_partitions=8))
+    assert len(outs) == 2
+    for name, msg in outs:
+        assert name == "ValueError" and "single-controller" in msg
 
 
 def test_driver_defaults_to_the_card(graph, monkeypatch):

@@ -62,6 +62,17 @@ def driver_checks(ef_path, cfg, snap_dir, art_dir, resume_round):
     return {"result": res, "resumed": again.run(), "resumed_from": start}
 
 
+def hybrid_driver_error(edges, cfg):
+    """On this rank: build ``PartitionDriver`` in hybrid mode; returns the
+    (type name, message) of what it raised, or None."""
+    try:
+        PartitionDriver(from_edges(edges, device="cpu"), cfg, mode="hybrid",
+                        device="cpu")
+    except Exception as exc:            # the caller checks which
+        return type(exc).__name__, str(exc)
+    return None
+
+
 def fail_on_last_rank():
     """Rank ``world - 1`` raises; the others wait in a collective."""
     rank, world = compat.process_env()
