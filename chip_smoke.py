@@ -117,7 +117,9 @@ Phases, each printing its lines; any failed check exits non-zero:
    cell of that matrix on the baselines' own inputs: the wrapper's
    time, the launch's alone and its fills' apart (CUDA events), the
    bound, and on ``real`` (P = 4 and 16) the kernel against its plain
-   version bit for bit and the plain version's time; (c)
+   version bit for bit, the plain version run on the CPU (at (real,
+   P = 16) HDRF's also on the card, bits equal to the CPU's) with its
+   time; (c)
    ``partition_hybrid`` from phase 9's EdgeFile at P = 64, tau = 0.25
    (the split streamed on the host, the rounds on the card), counts set
    to 0 just before and read just after (one ``select`` and one
@@ -126,7 +128,27 @@ Phases, each printing its lines; any failed check exits non-zero:
    invariants; (d) ``PartitionDriver`` in hybrid mode on the scale-14
    RMAT graph at P = 16, snapshots every 8 rounds, stopped at round 24
    and resumed in this process: (b)'s run bit for bit, and the artifact
-   round trip.
+   round trip;
+11. the engine's other consumers: (a) PageRank (30 supersteps), SSSP
+   (from the hub) and WCC over a one-part ShardedGraph of phase 3's graph
+   in a world-1 NCCL group, against scipy oracles of the reference's
+   formulas in float64 (PageRank within 1e-4 of the largest rank, SSSP
+   and WCC exact), with the host build time, ms a superstep, supersteps,
+   a profiled PageRank run and peak memory; (b) paper Table 5
+   (``benchmarks/bench_apps.py``): BA(8000, 5, seed 11) at P = 8
+   partitioned by NE on the card (launch counts set to 0 just before and
+   read just after; equal to the CPU's), ``random_1d`` and ``grid_2d``,
+   each one's RF and 30-superstep PageRank wire bytes
+   (``comm_volume_model``), equal to 2 · comm_slots · 4 · 30 of the
+   8-part ShardedGraph; (c) ``redistribute_edges`` at world 1 on the card
+   over phase 3b's shards with a one-part and phase 3's 64-part
+   assignment, equal to the host path; (d) PNA (4 x 75), EGNN (4 x 64)
+   and EquiformerV2 (12 layers, d 128, l_max 6, m_max 2, 8 heads) at full
+   width over the engine on phase 6's graph with seeded positions: the
+   engine loss against the plain model's on the card, the loss and
+   gradients on the card against the CPU's (gloo; EquiformerV2 with 2 of
+   its layers), 20 ``train_step``s each with finite losses, ms a step, a
+   profiled step and peak memory (no kernel of the port launched).
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU
 fallback: without a CUDA device the script exits non-zero.
@@ -209,9 +231,39 @@ STREAM_CHECK_PARTS = (1, 37)       # (a): one partition; a ragged 2nd warp
 STREAM_LAMBDAS = (0.5, 2.0)        # (a)'s HDRF; the matrix runs lambda 1
 STREAM_PLAIN_GRAPH = "real"        # the matrix's cells held against plain
 STREAM_ROW_P = 16                  # the JSON rows' cell (real, P = 16)
+# the plain loops run on the CPU (float32 steps, the card's bits); at this
+# cell also on the card, whose bits the CPU's must equal
+STREAM_PLAIN_CARD = ("hdrf_scan", 16)
 CLOCK_HZ = 1.98e9                  # H100 SXM boost clock (INT32_OPS's)
 HYBRID_TAU = 0.25                  # (c) and (d): the tightest budget
 HYBRID_DRIVER = ("rmat_s14_ef16", 16, 8, 24)   # graph, P, every, stop
+# phase 11: the GAS apps and paper Table 5 (benchmarks/bench_apps.py:32-45)
+APP_PR_ITERS = 30                  # PageRank supersteps (bench_apps.py:45)
+APP_DAMPING = 0.85
+# PageRank against float64 scipy: float32 sums by atomics, in no fixed
+# order; a vertex's rank sums its degree's terms, whose rounding spreads
+# ~sqrt(d) 2^-24 of it (2.4e-5 at the hub's 162,781, scale 22): each
+# vertex within 1e-4 of its own rank
+APP_PR_TOL = 1e-4
+APP_REPS = 3                       # timed calls of each app, the least kept
+TABLE5_GRAPH = (8000, 5, 11)       # barabasi_albert(n, m, seed)
+TABLE5_P = 8
+# (d): PNA, EGNN, EquiformerV2 at full width over the engine
+FAMILY_STEPS = 20
+EQV2_CPU_LAYERS = 2                # of 12, for the card-against-CPU check
+# card against CPU: float32 sums in another order, a loss to 1e-5
+# relative, a gradient leaf to 1e-5 of its largest entry.  PNA is
+# compared in float64 at PNA_SEEDS parameter seeds: in float32 its max
+# and min pick another message where two lie within a rounding of each
+# other, and its std's clamp of sq/cnt - mean² decides by a rounding, so
+# a sound card's float32 gradients differ from the CPU's by 8.2e-3 of a
+# leaf's largest at one seed (PERF.md).  In float64 no such near tie is
+# met; its sums in another order magnified as float32's are (~600x from
+# 2^-24 to 3.5e-5) stay near 1e-13, held to 1e-10
+FAMILY_LOSS_RTOL = 1e-5
+FAMILY_GRAD_TOL = 1e-5
+PNA_GRAD_TOL = 1e-10
+PNA_SEEDS = 4
 
 
 def fail(msg: str) -> None:
@@ -2390,11 +2442,13 @@ def stream_cells(torch, graphs, counts, err: int) -> list:
     baselines give it there (stream order of seed 0, HDRF at lambda 1,
     Oblivious at the alpha limit): the wrapper's time (``ms``), the
     launch's alone and the fills' (:func:`launch_ms`), the bound; on
-    ``STREAM_PLAIN_GRAPH`` also the plain version's time (one call: it
-    takes ~0.3-0.5 ms an edge on the card) and the kernel's bits against
-    it and from call to call.  Returns the two JSON rows: the numbers of
-    the (real, P = 16) cell, with (b)'s launch counts and every cell
-    under ``cells``."""
+    ``STREAM_PLAIN_GRAPH`` also the kernel's bits against the plain
+    version and from call to call.  The plain version runs on the CPU
+    (~0.1 ms an edge there, ~0.3-0.5 on the card, where each of its small
+    ops waits for the host); at ``STREAM_PLAIN_CARD`` also on the card,
+    whose bits the CPU's must equal, and its time there is ``plain_ms``.
+    Returns the two JSON rows: the numbers of the (real, P = 16) cell,
+    with (b)'s launch counts and every cell under ``cells``."""
     from repro_torch.core.baselines import stream_order
     from repro_torch.kernels.stream import ops as sops
     from repro_torch.kernels.stream import ref as sref
@@ -2410,10 +2464,10 @@ def stream_cells(torch, graphs, counts, err: int) -> list:
             for name, arg, kern, plain in (
                     ("hdrf_scan", 1.0,
                      lambda: sops.hdrf_scan(es, p, n, 1.0),
-                     lambda: sref.hdrf_scan_ref(es, p, n, 1.0)),
+                     lambda x: sref.hdrf_scan_ref(x, p, n, 1.0)),
                     ("oblivious_scan", limit,
                      lambda: sops.oblivious_scan(es, p, n, limit),
-                     lambda: sref.oblivious_scan_ref(es, p, n, limit))):
+                     lambda x: sref.oblivious_scan_ref(x, p, n, limit))):
                 bound, by, floor = stream_bound(name, m, p)
                 dev_ms, fill_ms = launch_ms(
                     torch, sops, sops.prepare(name, es, p, n, arg), 3)
@@ -2421,25 +2475,35 @@ def stream_cells(torch, graphs, counts, err: int) -> list:
                         "ms": time_ms(kern, 3, warmup=1), "device_ms": dev_ms,
                         "fill_ms": fill_ms, "bound_ms": bound, "bound_by": by,
                         "bound_floor": floor, "plain_ms": None,
-                        "max_abs_err": None}
+                        "plain_cpu_ms": None, "max_abs_err": None}
+                held = ""
                 if gname == STREAM_PLAIN_GRAPH:
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    want = plain()
-                    end.record()
-                    end.synchronize()
+                    t1 = time.perf_counter()
+                    want = plain(es.cpu())
+                    cpu_ms = (time.perf_counter() - t1) * 1e3
                     a, b = kern(), kern()
-                    diff = max(max_abs_err(a, want), max_abs_err(a, b))
+                    diff = max(max_abs_err(a.cpu(), want), max_abs_err(a, b))
                     check(diff == 0, f"phase 10: {name} at {gname} P={p} "
                                      f"differs from its plain version or "
                                      f"from call to call ({diff})")
-                    cell.update(plain_ms=start.elapsed_time(end),
-                                max_abs_err=diff)
+                    cell.update(plain_cpu_ms=cpu_ms, max_abs_err=diff)
+                    held = (f", == plain (CPU, {cpu_ms!r} ms) bit for bit "
+                            f"and call to call")
+                if gname == STREAM_PLAIN_GRAPH and \
+                        (name, p) == STREAM_PLAIN_CARD:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    on_card = plain(es)
+                    end.record()
+                    end.synchronize()
+                    check(max_abs_err(on_card.cpu(), want) == 0,
+                          f"phase 10: {name} at {gname} P={p}: the plain "
+                          f"version's bits on the card and the CPU differ")
+                    cell.update(plain_ms=start.elapsed_time(end))
+                    held += (f"; plain on the card {cell['plain_ms']!r} ms, "
+                             f"== the CPU's bits")
                 cells[name].append(cell)
-                held = ("" if cell["plain_ms"] is None else
-                        f", == plain bit for bit and call to call, plain "
-                        f"{cell['plain_ms']!r} ms")
                 print(f"phase 10: {name} at {gname} P={p} (M={m}): ms "
                       f"{cell['ms']!r}, launch {dev_ms!r} ms "
                       f"({dev_ms * 1e6 / m!r} ns an edge), fills {fill_ms!r} "
@@ -2458,7 +2522,10 @@ def stream_cells(torch, graphs, counts, err: int) -> list:
             "device_ms_by": ("CUDA events around the launch alone, queued "
                              "behind a 1 ms sleep; its two fills apart in "
                              "fill_ms"),
-            "fill_ms": top["fill_ms"], "plain_ms": top["plain_ms"],
+            "fill_ms": top["fill_ms"],
+            "plain_ms": (top["plain_ms"] if top["plain_ms"] is not None
+                         else top["plain_cpu_ms"]),
+            "plain_on": "cuda" if top["plain_ms"] is not None else "cpu",
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "bound_floor": top["bound_floor"], "library_ms": None,
             "library_device_ms": None,
@@ -2583,6 +2650,403 @@ def phase_hybrid_driver(torch, np, graphs, rows, dev, tmp: str) -> None:
           f"resumed and run to round {got.rounds} == (b)'s partition_hybrid "
           f"bit for bit; launches {counts}; artifact round trip equal; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def adjacency(path: str, n: int):
+    """The symmetric (n, n) float64 CSR adjacency of the canonical edge
+    list saved at ``path``, and each vertex's degree."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    e = np.load(path)
+    u, v = e[:, 0], e[:, 1]
+    a = sp.csr_matrix((np.ones(2 * len(e)), (np.concatenate([u, v]),
+                                              np.concatenate([v, u]))),
+                      shape=(n, n))
+    return a, np.diff(a.indptr).astype(np.float64)
+
+
+def pagerank_oracle(path: str, n: int, iters: int, damping: float):
+    """Phase 11 (a)'s PageRank in float64 with the reference's formula:
+    from 1/n over the vertices with an edge, a vertex of degree 0
+    contributing 0, a vertex with no edge at (1 - d)/n.  Returns (ranks,
+    seconds); runs in a process of its own."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    a, deg = adjacency(path, n)
+    has_edge = deg > 0
+    pr = np.where(has_edge, 1.0 / n, 0.0)
+    for _ in range(iters):
+        contrib = np.where(deg > 0, pr / np.maximum(deg, 1.0), 0.0)
+        pr = np.where(has_edge, (1.0 - damping) / n + damping * (a @ contrib),
+                      0.0)
+    pr[~has_edge] = (1.0 - damping) / n
+    return pr, time.perf_counter() - t0
+
+
+def sssp_wcc_oracle(path: str, n: int, source: int):
+    """Phase 11 (a)'s SSSP and WCC with scipy: unweighted
+    ``shortest_path`` from ``source``; ``connected_components`` labelled
+    by the smallest id of each; inf and -1 where a vertex has no edge.
+    Returns (distances, labels, seconds); runs in a process of its own."""
+    import numpy as np
+    from scipy.sparse import csgraph
+
+    t0 = time.perf_counter()
+    a, deg = adjacency(path, n)
+    has_edge = deg > 0
+    dist = csgraph.shortest_path(a, unweighted=True, indices=source)
+    dist[~has_edge] = np.inf
+    ncomp, comp = csgraph.connected_components(a, directed=False)
+    low = np.full(ncomp, n, np.int64)
+    np.minimum.at(low, comp, np.arange(n))
+    labels = np.where(has_edge, low[comp], -1).astype(np.float64)
+    return dist, labels, time.perf_counter() - t0
+
+
+def timed(torch, fn):
+    """(fn(), host seconds) around a call that ends in a device sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def backend_of(dev) -> str:
+    return "nccl" if dev.type == "cuda" else "gloo"
+
+
+def start_app_oracles(np, pool, edges, n: int, tmp: str):
+    """Phase 11 (a)'s scipy oracles, submitted to ``pool`` (two spawned
+    processes) long before the phase, so that they run beside phases 9
+    and 10: the edge list goes to ``tmp`` as .npy.  Returns the two
+    futures and the SSSP source, the hub (the vertex of largest degree,
+    as vertex 0 is in BA; RMAT permutes its ids)."""
+    deg = np.bincount(edges.ravel(), minlength=n)
+    source = int(deg.argmax())
+    path = os.path.join(tmp, "apps_edges.npy")
+    np.save(path, edges)
+    return (pool.submit(pagerank_oracle, path, n, APP_PR_ITERS, APP_DAMPING),
+            pool.submit(sssp_wcc_oracle, path, n, source), source)
+
+
+def phase_apps(torch, np, edges, n: int, dev, oracles) -> None:
+    """Phase 11 (a): PageRank, SSSP and WCC over the vertex-cut engine at
+    world 1 (a one-part ShardedGraph of phase 3's graph, built on the
+    host) in a world-1 NCCL group on the card, against the scipy oracles
+    of :func:`start_app_oracles` (float64, in two other processes)."""
+    from repro_torch.apps import algorithms as alg
+    from repro_torch.apps import engine as eng
+    from repro_torch.dist import compat
+
+    t_phase = time.perf_counter()
+    pr_oracle, label_oracle, source = oracles
+    deg = np.bincount(edges.ravel(), minlength=n)
+    sg, build_s = timed(torch, lambda: eng.build_sharded_graph(
+        edges, np.zeros(len(edges), np.int32), n, 1))
+    print(f"phase 11 (a): one-part ShardedGraph of phase 3's graph "
+          f"(N={n}, M={len(edges)}, {int((deg > 0).sum())} vertices "
+          f"with an edge): built on the host in {build_s!r} s; caps "
+          f"{sg.caps}; SSSP source {source} (degree {int(deg[source])})",
+          flush=True)
+    with compat.world1(backend_of(dev)):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        a = alg.unpack(sg, dev)          # on the card once, for every call
+        runs = {
+            "pagerank": (lambda k: alg.pagerank(
+                sg, k, APP_DAMPING, device=dev, arrays=a), APP_PR_ITERS),
+            "sssp": (lambda k: alg.sssp(sg, source, max_iters=k, device=dev,
+                                        arrays=a), 200),
+            "wcc": (lambda k: alg.wcc(sg, max_iters=k, device=dev,
+                                      arrays=a), 200)}
+        got, per_step = {}, {}
+        for name, (fn, k) in runs.items():
+            got[name] = fn(k)
+            steps = k if name == "pagerank" else got[name][1]
+            # k supersteps less 0: the set-up and the stitch cancel
+            wall = min(timed(torch, lambda: fn(k))[1]
+                       for _ in range(APP_REPS))
+            wall0 = min(timed(torch, lambda: fn(0))[1]
+                        for _ in range(APP_REPS))
+            per_step[name] = (wall - wall0) / steps
+            print(f"phase 11 (a): {name}: {steps} supersteps in {wall!r} s, "
+                  f"0 in {wall0!r} s (the least of {APP_REPS} calls each, "
+                  f"the arrays on the card): {per_step[name] * 1e3!r} ms a "
+                  f"superstep", flush=True)
+        peak = torch.cuda.max_memory_allocated() - base
+        prof = profile_round(torch, f"phase 11 (a): profiled PageRank "
+                             f"run of {APP_PR_ITERS} supersteps",
+                             lambda: runs["pagerank"][0](APP_PR_ITERS))
+        del a
+    t0 = time.perf_counter()
+    pr_ref, pr_s = pr_oracle.result()
+    dist_ref, lab_ref, label_s = label_oracle.result()
+    wait_s = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof)
+    pr = got["pagerank"]
+    err = np.abs(pr - pr_ref)
+    rel = float((err / pr_ref).max())
+    check(bool((err <= APP_PR_TOL * pr_ref).all()),
+          f"phase 11 (a): PageRank max rel err {rel!r} > {APP_PR_TOL}")
+    dist, it_s = got["sssp"]
+    labels, it_w = got["wcc"]
+    check(np.array_equal(dist, dist_ref), "phase 11 (a): SSSP differs "
+          "from scipy's shortest_path")
+    check(np.array_equal(labels, lab_ref), "phase 11 (a): WCC differs "
+          "from scipy's connected_components")
+    reach = int(np.isfinite(dist).sum())
+    print(f"phase 11 (a): == scipy (float64; PageRank {pr_s:.1f} s, SSSP "
+          f"and WCC {label_s:.1f} s, in two other processes since phase 9; "
+          f"waited {wait_s:.1f} s for them): PageRank max "
+          f"abs err {float(err.max())!r} (max "
+          f"{float(pr_ref.max())!r}), max rel err {rel!r} (tolerance "
+          f"{APP_PR_TOL} of each vertex's rank); SSSP exact ({reach} "
+          f"reached, max distance {int(dist[np.isfinite(dist)].max())}, "
+          f"{it_s} supersteps); WCC "
+          f"exact ({len(np.unique(labels[labels >= 0]))} components with "
+          f"an edge, {it_w} supersteps); peak device memory {peak} B above "
+          f"the {base} B held; the PageRank run {busy:.0f} us busy; phase "
+          f"took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def phase_table5(torch, np, dev) -> dict:
+    """Phase 11 (b): paper Table 5's partitions (``bench_apps.py``): NE on
+    the card with the launch counts set to 0 just before and read just
+    after, ``random_1d`` and ``grid_2d``; each one's RF and its PageRank
+    wire bytes over 30 supersteps (``comm_volume_model``, F = 1, 4 bytes),
+    equal to 2 · comm_slots · 4 · 30 of the 8-part ShardedGraph; NE's
+    edge_part equal to the CPU's.  Returns NE's launch counts."""
+    from repro_torch.apps import engine as eng
+    from repro_torch.core import baselines
+    from repro_torch.core import partitioner as tp
+    from repro_torch.core.metrics import comm_volume_model, evaluate
+    from repro_torch.graphs.generators import barabasi_albert
+
+    t0 = time.perf_counter()
+    n_ba, m_attach, seed = TABLE5_GRAPH
+    g = barabasi_albert(n_ba, m_attach, seed, device=dev)
+    e = g.edges.cpu().numpy()
+    n, m, p = g.num_vertices, g.num_edges, TABLE5_P
+    cfg = tp.NEConfig(num_partitions=p, seed=0, edge_chunk=1 << 14)
+    torch.cuda.synchronize()
+    reset_counts()
+    res = tp.partition(g, cfg)
+    counts = all_counts()
+    chunks = -(-m // min(cfg.edge_chunk, m))
+    check_counts("phase 11 (b)", {
+        "select": res.rounds, "restart_draw": res.rounds,
+        "one_hop": res.rounds, "claim_scatter": res.rounds,
+        "two_hop_best": res.rounds * chunks})
+    cpu = tp.partition(barabasi_albert(n_ba, m_attach, seed, device="cpu"),
+                       cfg)
+    check(same_result(np, res, cpu), "phase 11 (b): NE on the card differs "
+          "from the CPU's")
+    methods = {"dne": res.edge_part, "random": baselines.random_1d(g, p),
+               "grid": baselines.grid_2d(g, p)}
+    check_counts("phase 11 (b)", {k: v for k, v in counts.items() if v})
+    for name, ep in methods.items():
+        st = evaluate(e, ep, n, p)
+        com = comm_volume_model(st, n, 1) * APP_PR_ITERS
+        sg = eng.build_sharded_graph(e, ep, n, p)
+        want = 2 * sg.comm_slots * 4 * APP_PR_ITERS
+        check(com == want, f"phase 11 (b): {name}: comm_volume_model "
+              f"{com} B, 2 comm_slots 4 30 = {want} B")
+        print(f"phase 11 (b): Table 5 {name} on BA({n_ba}, {m_attach}, seed "
+              f"{seed}) (M={m}) P={p}: RF={st.replication_factor!r} "
+              f"EB={st.edge_balance!r}; PageRank wire bytes over "
+              f"{APP_PR_ITERS} supersteps {com} B (= 2 x comm_slots "
+              f"{sg.comm_slots} x 4 B x {APP_PR_ITERS})", flush=True)
+    print(f"phase 11 (b): NE {res.rounds} rounds == the CPU's bit for bit; "
+          f"launches {counts}; took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return counts
+
+
+def phase_redistribute(torch, np, edges, edge_part, dev) -> None:
+    """Phase 11 (c): ``redistribute_edges`` at world 1 on the card over
+    phase 3b's shards (at world 1 the whole edge list in one shard), with
+    the one-part assignment and with phase 3's 64-part assignment (63
+    parts outside the world: dropped), each equal to the host path."""
+    from repro_torch.core.graph import shard_edges
+    from repro_torch.dist import compat
+    from repro_torch.dist.redistribute import redistribute_edges
+
+    t0 = time.perf_counter()
+    shards, masks, _, dev_of = shard_edges(edges, 1)
+    check(bool((dev_of == 0).all()), "phase 11 (c): world-1 shards split")
+    for label, parts in (("one part", np.zeros(masks.shape, np.int32)),
+                         ("phase 3's 64 parts",
+                          edge_part[None, :].astype(np.int32))):
+        want, host_s = timed(torch, lambda: redistribute_edges(
+            shards, masks, parts))
+        with compat.world1(backend_of(dev)):
+            got, card_s = timed(torch, lambda: redistribute_edges(
+                shards[0], masks[0], parts[0],
+                torch.distributed.group.WORLD, dev))
+        same = (np.array_equal(got[0], want[0][0])
+                and np.array_equal(got[1], want[1][0]) and got[2] == want[2])
+        check(same, f"phase 11 (c): {label}: the card's rows differ from "
+              f"the host path's")
+        print(f"phase 11 (c): redistribute_edges ({label}) over {masks.size} "
+              f"rows: card == host path bit for bit ({int(got[1].sum())} "
+              f"rows landed, {got[2]} dropped); card {card_s!r} s (host "
+              f"copies included), host path {host_s!r} s", flush=True)
+    print(f"phase 11 (c): took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def grads_rel_err(np, got, want) -> float:
+    """max over leaves of max |got - want| / max |want|."""
+    from repro_torch.tree import tree_leaves
+
+    return max(float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+               for g, w in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def family_loss_grads(torch, np, compat, ge, model, sg, data, pos, device,
+                      backend, dtype):
+    """(loss, gradients as numpy) of the engine loss at world 1, the model
+    and the float arrays in ``dtype``."""
+    from repro_torch.tree import tree_map
+
+    edges, feats, labels, label_mask = data
+    with compat.world1(backend):
+        a = ge.engine_arrays(sg, feats, labels, label_mask, 0, device, pos)
+        a = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
+             else v for k, v in a.items()}
+        model.to(device, dtype)
+        loss = ge.loss_and_grads(model, a, ge.caps_from_sharded_graph(
+            sg, feats.shape[1], model.cfg.n_classes))
+        grads = tree_map(lambda p: p.grad.cpu().numpy(), model.param_tree())
+    return float(loss), grads
+
+
+def phase_families(torch, np, dev) -> None:
+    """Phase 11 (d): PNA (4 x 75), EGNN (4 x 64) and EquiformerV2 (12
+    layers, d 128, l_max 6, m_max 2, 8 heads) at full width over the
+    vertex-cut engine at world 1, on phase 6's graph with seeded
+    positions: the engine loss against the plain model's on the card; the
+    engine's loss and gradients on the card against the CPU's (gloo,
+    plain versions; EquiformerV2 with 2 of its 12 layers); 20
+    ``train_step``s with finite losses, ms a step, the busy share of a
+    profiled step and peak memory, the launch counts set to 0 just before
+    and read just after (no kernel of the port runs on these paths)."""
+    from repro_torch.apps import engine as eng
+    from repro_torch.configs import egnn as c_egnn
+    from repro_torch.configs import equiformer_v2 as c_eq
+    from repro_torch.configs import pna as c_pna
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.dist import compat
+    from repro_torch.launch import gnn_engine as ge
+    from repro_torch.models.common import (cross_entropy, params_from_numpy,
+                                           params_to_numpy)
+    from repro_torch.models.gnn import egnn, equiformer_v2, pna
+    from repro_torch.models.gnn.common import GraphData, to_directed_padded
+    from repro_torch.train import optimizer as opt
+
+    t_phase = time.perf_counter()
+    shape = GNN_SHAPES[GNN_SHAPE]
+    data = gnn_data(np, shape, seed=0)
+    edges, feats, labels, label_mask = data
+    n, m = feats.shape[0], len(edges)
+    pos = np.random.default_rng(1).normal(size=(n, 3)).astype(np.float32)
+    sg = eng.build_sharded_graph(edges, np.zeros(m, np.int32), n, 1)
+    ei, em = to_directed_padded(edges, n)
+    gd = GraphData(*(torch.from_numpy(x).to(dev) for x in (feats, ei, em)),
+                   positions=torch.from_numpy(pos).to(dev))
+    ocfg = opt.OptConfig(total_steps=FAMILY_STEPS, **GNN_OPT)
+    kw = dict(d_feat=shape["d_feat"], n_classes=shape["n_classes"])
+    for cls, conf in ((pna.PNA, c_pna), (egnn.EGNN, c_egnn),
+                      (equiformer_v2.EquiformerV2, c_eq)):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(conf.CONFIG, **kw)
+        p0 = params_to_numpy(cls(cfg, torch.Generator().manual_seed(0)))
+        model = params_from_numpy(cls(cfg), p0).to(dev)
+        caps = ge.caps_from_sharded_graph(sg, shape["d_feat"],
+                                          cfg.n_classes)
+        y = torch.from_numpy(labels).to(dev)
+        lm = torch.from_numpy(label_mask).to(dev)
+        with torch.no_grad():
+            plain = float(cross_entropy(model(gd), y, lm))
+            with compat.world1(backend_of(dev)):
+                a = ge.engine_arrays(sg, feats, labels, label_mask, 0, dev,
+                                     pos)
+                eng_loss = float(ge.engine_loss(model, a, caps))
+        check(abs(eng_loss - plain) <= FAMILY_LOSS_RTOL * abs(plain),
+              f"phase 11 (d): {cfg.name}: engine loss {eng_loss!r}, plain "
+              f"{plain!r}")
+        # card against CPU, EquiformerV2 with 2 of its layers
+        ccfg = (dataclasses.replace(cfg, n_layers=EQV2_CPU_LAYERS)
+                if cls is equiformer_v2.EquiformerV2 else cfg)
+        pc = p0 if ccfg is cfg else dict(p0, layers=p0["layers"][
+            :EQV2_CPU_LAYERS])
+        f64 = cls is pna.PNA
+        seeds = PNA_SEEDS if f64 else 1
+        g_tol = PNA_GRAD_TOL if f64 else FAMILY_GRAD_TOL
+        dtype = torch.float64 if f64 else torch.float32
+        g_errs, cpu_s = [], 0.0
+        for seed in range(seeds):
+            ps = pc if seed == 0 else params_to_numpy(
+                cls(ccfg, torch.Generator().manual_seed(seed)))
+            card = family_loss_grads(torch, np, compat, ge,
+                                     params_from_numpy(cls(ccfg), ps), sg,
+                                     data, pos, dev, backend_of(dev), dtype)
+            t1 = time.perf_counter()
+            host = family_loss_grads(torch, np, compat, ge,
+                                     params_from_numpy(cls(ccfg), ps), sg,
+                                     data, pos, "cpu", "gloo", dtype)
+            cpu_s += time.perf_counter() - t1
+            g_errs.append(grads_rel_err(np, card[1], host[1]))
+            check(abs(card[0] - host[0]) <= FAMILY_LOSS_RTOL * abs(host[0])
+                  and g_errs[-1] <= g_tol,
+                  f"phase 11 (d): {cfg.name} seed {seed}: card loss "
+                  f"{card[0]!r} against the CPU's {host[0]!r}, gradients "
+                  f"{g_errs[-1]!r} of a leaf's largest (tolerance {g_tol})")
+            if seed == 0:
+                loss0 = (card[0], host[0])
+        # the training steps: counts 0 just before, read just after
+        with compat.world1(backend_of(dev)):
+            model = params_from_numpy(cls(cfg), p0).to(dev)
+            state = opt.init(model.param_tree(), ocfg)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t1 = time.perf_counter()
+            losses = []
+            for _ in range(FAMILY_STEPS):
+                loss, state = ge.train_step(model, a, caps, state, ocfg)
+                losses.append(loss)
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t1) / FAMILY_STEPS
+            check_counts(f"phase 11 (d) {cfg.name}", {})
+            peak = torch.cuda.max_memory_allocated() - base
+            prof = profile_round(torch, f"phase 11 (d): profiled {cfg.name} "
+                                 f"train_step",
+                                 lambda: ge.train_step(model, a, caps, state,
+                                                       ocfg), host_top=8)
+        losses = [float(x) for x in losses]
+        check(all(np.isfinite(losses)), f"phase 11 (d): {cfg.name} losses "
+              f"{losses}")
+        busy = sum(e.self_device_time_total for e in prof)
+        print(f"phase 11 (d): {cfg.name} L={cfg.n_layers} on {GNN_SHAPE} "
+              f"(N={n}, E={m}): engine loss {eng_loss!r} == plain "
+              f"{plain!r} (rel {abs(eng_loss - plain) / abs(plain)!r}); "
+              f"card vs CPU ({ccfg.n_layers} layers, {dtype}; the CPU's loss "
+              f"and gradients {cpu_s:.1f} s): loss {loss0[0]!r} / "
+              f"{loss0[1]!r}, gradients within {g_errs!r} of a leaf's "
+              f"largest at parameter seeds 0..{seeds - 1} (tolerance "
+              f"{g_tol}); {FAMILY_STEPS} train_steps: losses {losses[0]!r} "
+              f"-> {losses[-1]!r}, {step_s * 1e3!r} ms a step, peak "
+              f"{peak} B above the {base} B held, a profiled step "
+              f"{busy:.0f} us busy; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del model, state, a
+        torch.cuda.empty_cache()
+    print(f"phase 11 (d): took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 def main() -> None:
@@ -2801,18 +3265,23 @@ def main() -> None:
     flash_row = phase_lm(torch, args)
     print(f"phases 7-8: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    import multiprocessing
     import shutil
     import tempfile
+    from concurrent.futures import ProcessPoolExecutor
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
+        "spawn"))
     try:
+        oracles = start_app_oracles(np, pool, main_edges, 1 << args.scale,
+                                    work)
         # --- phase 9: the driver from the store, killed and resumed ---------
         launches_drv, ef = phase_driver(torch, np, main_edges, res,
                                         wall_sm / max(rounds, 1), chunks,
                                         dev, args.scale, work)
         for r in rows + bit_rows:
             r["launches_driver"] = launches_drv[r["name"]]
-        del main_edges, res
 
         # --- phase 10: baselines and hybrid ----------------------------------
         t0 = time.perf_counter()
@@ -2824,7 +3293,21 @@ def main() -> None:
         phase_hybrid_scale(torch, np, ef, dev)
         phase_hybrid_driver(torch, np, graphs, q_rows, dev, work)
         print(f"phase 10: took {time.perf_counter() - t0:.1f} s", flush=True)
+        del graphs, ef
+
+        # --- phase 11: the GAS apps, Table 5, redistribution, GNNs ----------
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        phase_apps(torch, np, main_edges, 1 << args.scale, dev, oracles)
+        launches_t5 = phase_table5(torch, np, dev)
+        for r in rows:
+            r["launches_table5"] = launches_t5[r["name"]]
+        phase_redistribute(torch, np, main_edges, res.edge_part, dev)
+        del main_edges, res
+        phase_families(torch, np, dev)
+        print(f"phase 11: took {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
+        pool.shutdown(cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
     print(f"the script: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": rows + bit_rows + [spmm_row, bag_row,

@@ -60,9 +60,14 @@ def build_sharded_graph(edges: np.ndarray, edge_part: np.ndarray,
     globs, sends, per_dev_edges, comm_slots = [], [], [], 0
     for d in range(d_num):
         e = edges[edge_part == d]
-        glob = np.unique(e) if e.size else np.zeros((0,), np.int64)
+        # the sorted distinct endpoints and each endpoint's index among
+        # them (the reference's np.unique and searchsorted) from a
+        # presence table over the N ids: no sort of the 2|E_p| endpoints
+        present = np.zeros(num_vertices, bool)
+        present[e.ravel()] = True
+        glob = np.flatnonzero(present)
         comm_slots += glob.size
-        ml = np.searchsorted(glob, e) if e.size else np.zeros((0, 2), np.int64)
+        ml = (np.cumsum(present) - 1)[e]
         per_dev_edges.append(ml)
         globs.append(glob)
         sends.append([np.nonzero(master[glob] == t)[0] for t in range(d_num)])
@@ -131,9 +136,7 @@ def mirror_to_master(vals, send_idx, send_mask, recv_owned, num_owned,
     buf = vals[send_idx.long()]                            # (D, L, F)
     # padded send slots carry the reduction identity: they land on
     # recv_owned = 0 and contribute nothing
-    buf = torch.where(send_mask[..., None], buf,
-                      torch.as_tensor(identity, dtype=vals.dtype,
-                                      device=vals.device))
+    buf = torch.where(send_mask[..., None], buf, identity)
     got = compat.all_to_all_rows(buf.reshape(-1, f), group)  # (D·L, F)
     out = torch.full((num_owned, f), identity, dtype=vals.dtype,
                      device=vals.device)

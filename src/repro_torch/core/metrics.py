@@ -54,6 +54,14 @@ def evaluate(edges: np.ndarray, edge_part: np.ndarray, num_vertices: int,
     return stats_from_counts(vrep, ecnt, num_vertices)
 
 
+def comm_volume_model(stats: PartitionStats, num_vertices: int,
+                      feat_dim: int, bytes_per_el: int = 4) -> int:
+    """Vertex-cut engine traffic per superstep = 2·Σ|V(E_p)|·d bytes:
+    the mirror→master accumulate and the master→mirror broadcast, which is
+    how replication factor turns into wire bytes (paper Table 5)."""
+    return 2 * stats.replicas_total * feat_dim * bytes_per_el
+
+
 def theorem1_upper_bound(num_vertices: int, num_edges: int,
                          num_partitions: int) -> float:
     """RF ≤ (|E| + |V| + |P|) / |V|   (paper Theorem 1)."""

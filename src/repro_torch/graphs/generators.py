@@ -2,9 +2,12 @@
 
 Each builds its edge list on the host with numpy, edge for edge the
 reference's, then ``from_edges`` on ``device`` (``None`` means the card).
-``barabasi_albert`` is not here: it needs networkx.
+``barabasi_albert`` copies networkx's generator with the standard
+library's ``random``, so it needs no networkx.
 """
 from __future__ import annotations
+
+import random
 
 import numpy as np
 
@@ -25,6 +28,39 @@ def grid2d(rows: int, cols: int, device=None) -> Graph:
     v = np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], 1)
     return from_edges(np.concatenate([h, v]), num_vertices=rows * cols,
                       device=device)
+
+
+def barabasi_albert(n: int, m_attach: int, seed: int = 0,
+                    device=None) -> Graph:
+    """Barabási–Albert preferential attachment, edge for edge
+    ``networkx.barabasi_albert_graph(n, m_attach, seed=seed)`` (networkx
+    3.x): a star on m + 1 nodes, then each new node joins m distinct
+    targets drawn by ``random.Random(seed).choice`` from the list of
+    nodes repeated once per edge end.  The targets are collected in a
+    ``set`` whose iteration order, as networkx's, decides the list's
+    order and so every later draw."""
+    if m_attach < 1 or m_attach >= n:
+        raise ValueError(f"Barabási–Albert needs 1 <= m < n, m = {m_attach}, "
+                         f"n = {n}")
+    rng = random.Random(seed)
+    adj = [[] for _ in range(n)]          # neighbours in insertion order
+    for v in range(1, m_attach + 1):
+        adj[0].append(v)
+        adj[v].append(0)
+    repeated = [0] * m_attach + list(range(1, m_attach + 1))
+    for source in range(m_attach + 1, n):
+        targets = set()
+        while len(targets) < m_attach:
+            targets.add(rng.choice(repeated))
+        for t in targets:
+            adj[source].append(t)
+            adj[t].append(source)
+        repeated.extend(targets)
+        repeated.extend([source] * m_attach)
+    # networkx's Graph.edges order: nodes in order, each edge once
+    edges = np.array([(u, v) for u in range(n) for v in adj[u] if v > u],
+                     dtype=np.int64)
+    return from_edges(edges, num_vertices=n, device=device)
 
 
 def erdos_renyi(n: int, avg_deg: float, seed: int = 0,

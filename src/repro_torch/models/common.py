@@ -51,7 +51,8 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 class MLP(nn.Module):
-    """``x @ w[i] + b[i]`` layer by layer, ``act`` between layers."""
+    """``x @ w[i] + b[i]`` layer by layer, ``act`` between layers and
+    ``final_act`` (if any) after the last."""
 
     def __init__(self, dims: list[int], gen: torch.Generator, device=None):
         super().__init__()
@@ -61,12 +62,14 @@ class MLP(nn.Module):
         self.b = nn.ParameterList(
             nn.Parameter(torch.zeros(b, device=device)) for b in dims[1:])
 
-    def forward(self, x, act=torch.relu):
+    def forward(self, x, act=torch.relu, final_act=None):
         n = len(self.w)
         for i, (w, b) in enumerate(zip(self.w, self.b)):
             x = x @ w + b
             if i < n - 1:
                 x = act(x)
+            elif final_act is not None:
+                x = final_act(x)
         return x
 
     def param_tree(self) -> dict:

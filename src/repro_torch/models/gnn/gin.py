@@ -38,6 +38,8 @@ class GINLayer(nn.Module):
 
 
 class GIN(nn.Module):
+    MODEL = "gin"
+
     def __init__(self, cfg: GINConfig, gen: torch.Generator | None = None,
                  device=None):
         super().__init__()
@@ -58,7 +60,7 @@ class GIN(nn.Module):
         n = h.shape[0]
         src, dst = g.edge_index[0].long(), g.edge_index[1]
         for lp in self.layers:
-            agg = segment_agg(h[src], dst, n, g.edge_mask)
+            agg = segment_agg(h[src], dst, n, "sum", g.edge_mask)
             h = torch.relu(lp.mlp((1.0 + lp.eps) * h + agg, act=torch.relu))
         if self.cfg.graph_level:
             pooled = graph_readout(h, g.graph_ids, g.n_graphs)

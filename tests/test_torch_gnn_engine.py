@@ -209,7 +209,7 @@ def test_plain_gin_forward_matches_reference(graph, graph_level):
     # the masked segment sum on its own: the padding edges add nothing
     np.testing.assert_allclose(
         segment_agg(torch.from_numpy(feats[ei[0]]), torch.from_numpy(ei[1]),
-                    N, torch.from_numpy(m)).numpy(),
+                    N, "sum", torch.from_numpy(m)).numpy(),
         np.asarray(j_segment_agg(jnp.asarray(feats[ei[0]]),
                                  jnp.asarray(ei[1]), N, "sum",
                                  jnp.asarray(m))), rtol=1e-6, atol=1e-6)

@@ -216,6 +216,13 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.kernels.stream.ops\n"
         "import repro_torch.kernels.stream.ref\n"
         "import repro_torch.tools.quality\n"
+        "import repro_torch.apps.algorithms, repro_torch.dist.redistribute\n"
+        "import repro_torch.models.gnn.pna, repro_torch.models.gnn.egnn\n"
+        "import repro_torch.models.gnn.wigner\n"
+        "import repro_torch.models.gnn.equiformer_v2\n"
+        "import repro_torch.configs.pna, repro_torch.configs.egnn\n"
+        "import repro_torch.configs.equiformer_v2\n"
+        "import repro_torch.tools.step_time\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -249,7 +256,13 @@ def test_port_sources_name_no_jax_and_no_repro():
                 "core/baselines.py", "core/hybrid.py", "core/theory.py",
                 "core/sequential_ne.py", "kernels/stream/__init__.py",
                 "kernels/stream/ops.py", "kernels/stream/ref.py",
-                "tools/quality.py"):
+                "tools/quality.py", "apps/algorithms.py",
+                "dist/redistribute.py", "core/metrics.py",
+                "graphs/generators.py", "models/gnn/pna.py",
+                "models/gnn/egnn.py", "models/gnn/wigner.py",
+                "models/gnn/equiformer_v2.py", "configs/pna.py",
+                "configs/egnn.py", "configs/equiformer_v2.py",
+                "tools/step_time.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_spmd_ranks.py"]
     assert len(files) > 25

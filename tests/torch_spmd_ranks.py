@@ -1,5 +1,6 @@
-"""Rank bodies for tests/test_torch_spmd.py, tests/test_torch_gnn_engine.py
-and tests/test_torch_runtime.py.
+"""Rank bodies for tests/test_torch_spmd.py, tests/test_torch_gnn_engine.py,
+tests/test_torch_runtime.py, tests/test_torch_apps.py and
+tests/test_torch_gnn_families.py.
 
 ``repro_torch.dist.compat.spawn`` runs them in gloo processes, one per
 rank.  This module imports nothing of jax or ``repro``, so a rank starts
@@ -8,14 +9,17 @@ quickly; it is not a test module itself.
 import numpy as np
 import torch
 
+from repro_torch.apps import algorithms as alg
 from repro_torch.apps import engine as eng
 from repro_torch.core.epilogue import alpha_limit
 from repro_torch.core.graph import from_edges, shard_edges
 from repro_torch.dist import compat
 from repro_torch.dist import partitioner_sm as sm
+from repro_torch.dist.redistribute import redistribute_edges
 from repro_torch.io.edgefile import EdgeFile
 from repro_torch.launch import gnn_engine as ge
-from repro_torch.models.gnn import gin
+from repro_torch.models.common import params_from_numpy
+from repro_torch.models.gnn import egnn, equiformer_v2, gin, pna
 from repro_torch.runtime import PartitionDriver
 from repro_torch.tree import tree_map
 
@@ -116,4 +120,45 @@ def engine_checks(edges, n, edge_part, feats, labels, label_mask, prim_vals,
                                         label_mask, model, ocfg, steps,
                                         device="cpu")
     out["params"] = gin.params_to_numpy(model)
+    return out
+
+
+def apps_checks(edges, n, edge_part, source, pr_iters, shards, masks, parts):
+    """On this rank, over the vertex-cut engine of ``edge_part`` (one part
+    per rank): PageRank (``pr_iters`` supersteps), SSSP from ``source``
+    and WCC, each the whole (N,) result; and ``redistribute_edges`` of row
+    ``rank`` of (``shards``, ``masks``, ``parts``).  Returns host arrays
+    only."""
+    rank, world = compat.process_env()
+    sg = eng.build_sharded_graph(edges, edge_part, n, world)
+    group = torch.distributed.group.WORLD
+    return {"pagerank": alg.pagerank(sg, pr_iters, device="cpu"),
+            "sssp": alg.sssp(sg, source, device="cpu"),
+            "wcc": alg.wcc(sg, device="cpu"),
+            "redistribute": redistribute_edges(shards[rank], masks[rank],
+                                               parts[rank], group,
+                                               device="cpu")}
+
+
+FAMILIES = {"gin": gin.GIN, "pna": pna.PNA, "egnn": egnn.EGNN,
+            "equiformer_v2": equiformer_v2.EquiformerV2}
+
+
+def gnn_family_checks(edges, n, edge_part, feats, labels, label_mask,
+                      positions, models):
+    """On this rank, over the vertex-cut engine of ``edge_part``: for
+    each ``(family, cfg, params)`` of ``models`` the engine loss and the
+    rank-summed gradients.  Returns host arrays only."""
+    rank, world = compat.process_env()
+    sg = eng.build_sharded_graph(edges, edge_part, n, world)
+    a = ge.engine_arrays(sg, feats, labels, label_mask, rank, "cpu",
+                         positions)
+    out = []
+    for family, cfg, params in models:
+        model = params_from_numpy(FAMILIES[family](cfg), params)
+        caps = ge.caps_from_sharded_graph(sg, feats.shape[1], cfg.n_classes)
+        loss = ge.loss_and_grads(model, a, caps)
+        out.append({"loss": float(loss),
+                    "grads": tree_map(lambda p: p.grad.numpy().copy(),
+                                      model.param_tree())})
     return out
