@@ -117,8 +117,9 @@ Phases, each printing its lines; any failed check exits non-zero:
    cell of that matrix on the baselines' own inputs: the wrapper's
    time, the launch's alone and its fills' apart (CUDA events), the
    bound, and on ``real`` (P = 4 and 16) the kernel against its plain
-   version bit for bit, the plain version run on the CPU (at (real,
-   P = 16) HDRF's also on the card, bits equal to the CPU's) with its
+   version bit for bit, the plain version run on the CPU in a pool
+   process beside phase 9 (at (real, P = 16) HDRF's also on the card over
+   the stream's first 8,192 edges, bits equal to the CPU's) with its
    time; (c)
    ``partition_hybrid`` from phase 9's EdgeFile at P = 64, tau = 0.25
    (the split streamed on the host, the rounds on the card), counts set
@@ -146,9 +147,40 @@ Phases, each printing its lines; any failed check exits non-zero:
    and EquiformerV2 (12 layers, d 128, l_max 6, m_max 2, 8 heads) at full
    width over the engine on phase 6's graph with seeded positions: the
    engine loss against the plain model's on the card, the loss and
-   gradients on the card against the CPU's (gloo; EquiformerV2 with 2 of
-   its layers), 20 ``train_step``s each with finite losses, ms a step, a
-   profiled step and peak memory (no kernel of the port launched).
+   gradients on the card against the CPU's (gloo; EquiformerV2 with 1 of
+   its layers), 20 ``train_step``s each (EquiformerV2: 5) with finite
+   losses, ms a step, a profiled step and peak memory (no kernel of the
+   port launched);
+12. training, with the backward kernels: (a) ``embedding_bag_backward``
+   against its plain version on the card at DeepFM's train calls (B
+   65,536 bags of 39 ids; the table, D 10, and w1, D 1; also bit for bit
+   the CPU's in-order float32 sum) and ``flash_attention_backward`` at
+   smollm-135m's train shape (B 8, S 4,096, 9 heads over 3, D 64, bf16,
+   causal), at a float32 shape and at every head dim, each the same bits
+   call to call, with their times beside their bounds, the plain
+   versions' and the library's backward (``F.embedding_bag``,
+   ``F.scaled_dot_product_attention`` over repeated kv heads); (b) DeepFM
+   at full width (phase 7's seeded parameters) through
+   ``make_recsys_step`` at train_batch, 20 steps with the counts set to 0
+   just before and read just after (2 bag and 2 bag-backward launches a
+   step), ms a step, rows/s, a profiled step, peak memory, and 3 card
+   steps against 3 CPU steps at 1,024 rows a field; (c) smollm-135m at
+   full width and depth in bf16 (remat "dots") at train_4k's S 4,096
+   with the batch cut to 8, 10 steps through ``launch.train``'s function
+   (``--full``; a step 60 flash launches, the forward's and remat's
+   recompute, and 30 backward), ms a step, tokens/s, a profiled step,
+   peak memory, and 3 card steps against 3 CPU steps in float32 at its
+   width with 2 layers, S 256, B 2; then one bf16 step at that size under
+   remat none, dots and full from the same state, equal bit for bit
+   (L, 2L and 2L forward flash launches); (d) the trainer killed and resumed:
+   a child process (``--train-child``) trains DeepFM (65,536 rows a
+   field) and smollm's width with 2 layers (bf16) to their checkpoints at
+   step 3 and is SIGKILLed; this process resumes each to step 6 and must
+   equal an uninterrupted 6-step run bit for bit, all under
+   ``torch.use_deterministic_algorithms(True)``; (e) one smoke
+   ``make_step`` train step of every ported arch on the card against the
+   CPU; (f) ``psum_compressed`` at world 1 on the card (NCCL) == the CPU
+   (gloo) bit for bit.  The two backward rows join the kernels line.
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU
 fallback: without a CUDA device the script exits non-zero.
@@ -162,6 +194,11 @@ import os
 import subprocess
 import sys
 import time
+
+# cuBLAS's workspace as the card's default (32 MiB on Hopper), named so
+# that torch's deterministic mode (phase 12 (d)) accepts cuBLAS calls; set
+# before torch starts, for this process and its children
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -219,6 +256,10 @@ REPLACES = {
     "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:34",
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:63",
+    # backward kernels with no TPU kernel: XLA's gradients of the
+    # reference's DeepFM gathers and of train_4k's full_attention branch
+    "embedding_bag_backward": "src/repro/models/recsys/deepfm.py:58",
+    "flash_attention_backward": "src/repro/models/lm/transformer.py:175",
     # lax.scan loops, not Pallas kernels: XLA runs them one edge a step
     "hdrf_scan": "src/repro/core/baselines.py:56",
     "oblivious_scan": "src/repro/core/baselines.py:100",
@@ -234,6 +275,9 @@ STREAM_ROW_P = 16                  # the JSON rows' cell (real, P = 16)
 # the plain loops run on the CPU (float32 steps, the card's bits); at this
 # cell also on the card, whose bits the CPU's must equal
 STREAM_PLAIN_CARD = ("hdrf_scan", 16)
+# ... over the stream's first edges only (a stream scan's first k results
+# are its run on the first k edges): ~0.5 ms an edge there
+STREAM_PLAIN_CARD_EDGES = 8192
 CLOCK_HZ = 1.98e9                  # H100 SXM boost clock (INT32_OPS's)
 HYBRID_TAU = 0.25                  # (c) and (d): the tightest budget
 HYBRID_DRIVER = ("rmat_s14_ef16", 16, 8, 24)   # graph, P, every, stop
@@ -250,7 +294,8 @@ TABLE5_GRAPH = (8000, 5, 11)       # barabasi_albert(n, m, seed)
 TABLE5_P = 8
 # (d): PNA, EGNN, EquiformerV2 at full width over the engine
 FAMILY_STEPS = 20
-EQV2_CPU_LAYERS = 2                # of 12, for the card-against-CPU check
+EQV2_STEPS = 5                     # EquiformerV2's (~1.1 s a step)
+EQV2_CPU_LAYERS = 1                # of 12, for the card-against-CPU check
 # card against CPU: float32 sums in another order, a loss to 1e-5
 # relative, a gradient leaf to 1e-5 of its largest entry.  PNA is
 # compared in float64 at PNA_SEEDS parameter seeds: in float32 its max
@@ -264,6 +309,21 @@ FAMILY_LOSS_RTOL = 1e-5
 FAMILY_GRAD_TOL = 1e-5
 PNA_GRAD_TOL = 1e-10
 PNA_SEEDS = 4
+# phase 12: training
+TRAIN_DEEPFM_STEPS = 20            # (b) at train_batch, B 65,536
+TRAIN_LM_STEPS = 10                # (c) smollm-135m at S 4,096, B 8
+TRAIN_CHECK_STEPS = 3              # card against CPU
+DEEPFM_CHECK_ROWS = 1024           # (b)'s check: rows a field
+DEEPFM_CHECK_BATCH = 8192
+LM_CHECK = (2, 256, 2)             # (c)'s check: layers, S, B (float32)
+REMAT_CHECK = (2, 256, 2)          # (c)'s remat check: layers, S, B (bf16)
+REMAT_MODES = ("none", "dots", "full")
+FLASH_TRAIN = (8, 4096, 9, 3, 64)  # B, S, H, HK, D of (c)'s attention
+RESUME_K = 3                       # (d): checkpoint at k, kill, resume to 2k
+RESUME_MODELS = ("deepfm", "lm")
+RESUME_ROWS = 65536                # (d)'s DeepFM: rows a field
+RESUME_BATCH = 4096
+RESUME_LM = (2, 512, 2)            # (d)'s LM: layers, S, B (bf16)
 
 
 def fail(msg: str) -> None:
@@ -2437,7 +2497,41 @@ def launch_ms(torch, sops, scan, reps: int):
     return kern / reps, fill / reps
 
 
-def stream_cells(torch, graphs, counts, err: int) -> list:
+def stream_plain_oracle(name: str, p: int, tmp: str):
+    """Phase 10's plain stream scan ``name`` at (``STREAM_PLAIN_GRAPH``,
+    P = ``p``) on the CPU, run in a pool process long before the phase:
+    (its result, the edge stream it read, its ms), as numpy."""
+    sys.path.insert(0, SRC)
+    from repro_torch.core.baselines import stream_order
+    from repro_torch.kernels.stream import ref as sref
+    from repro_torch.tools import quality
+
+    g = quality.real_graph(tmp, "cpu")[0]
+    n, m = g.num_vertices, g.num_edges
+    es = g.edges[stream_order(g, 0)]
+    t0 = time.perf_counter()
+    if name == "hdrf_scan":
+        out = sref.hdrf_scan_ref(es, p, n, 1.0)
+    else:
+        out = sref.oblivious_scan_ref(es, p, n, int(1.1 * m / p) + 1)
+    return out.numpy(), es.numpy(), (time.perf_counter() - t0) * 1e3
+
+
+def start_stream_oracles(pool, tmp: str) -> dict:
+    """Phase 10's plain scans on the CPU, submitted to ``pool`` with the
+    app oracles (they run beside phase 9): {(name, P): future}."""
+    from repro_torch.tools import quality
+
+    out = {}
+    for name in STREAM_KERNELS:
+        for p in quality.PARTS:
+            d = os.path.join(tmp, f"stream_{name}_{p}")
+            os.makedirs(d, exist_ok=True)
+            out[(name, p)] = pool.submit(stream_plain_oracle, name, p, d)
+    return out
+
+
+def stream_cells(torch, graphs, counts, err: int, plains: dict) -> list:
     """Each stream kernel at every cell of (b)'s matrix, on the inputs the
     baselines give it there (stream order of seed 0, HDRF at lambda 1,
     Oblivious at the alpha limit): the wrapper's time (``ms``), the
@@ -2445,8 +2539,10 @@ def stream_cells(torch, graphs, counts, err: int) -> list:
     ``STREAM_PLAIN_GRAPH`` also the kernel's bits against the plain
     version and from call to call.  The plain version runs on the CPU
     (~0.1 ms an edge there, ~0.3-0.5 on the card, where each of its small
-    ops waits for the host); at ``STREAM_PLAIN_CARD`` also on the card,
-    whose bits the CPU's must equal, and its time there is ``plain_ms``.
+    ops waits for the host), in a pool process beside phase 9
+    (``plains``: :func:`start_stream_oracles`; the stream it read must be
+    this one); at ``STREAM_PLAIN_CARD`` also on the card over the first
+    ``STREAM_PLAIN_CARD_EDGES`` edges, whose bits the CPU's must equal.
     Returns the two JSON rows: the numbers of the (real, P = 16) cell,
     with (b)'s launch counts and every cell under ``cells``."""
     from repro_torch.core.baselines import stream_order
@@ -2474,13 +2570,15 @@ def stream_cells(torch, graphs, counts, err: int) -> list:
                 cell = {"graph": gname, "p": p, "m": m, "n": n,
                         "ms": time_ms(kern, 3, warmup=1), "device_ms": dev_ms,
                         "fill_ms": fill_ms, "bound_ms": bound, "bound_by": by,
-                        "bound_floor": floor, "plain_ms": None,
-                        "plain_cpu_ms": None, "max_abs_err": None}
+                        "bound_floor": floor, "plain_cpu_ms": None,
+                        "max_abs_err": None}
                 held = ""
                 if gname == STREAM_PLAIN_GRAPH:
-                    t1 = time.perf_counter()
-                    want = plain(es.cpu())
-                    cpu_ms = (time.perf_counter() - t1) * 1e3
+                    want, read, cpu_ms = plains[(name, p)].result()
+                    check(torch.equal(torch.from_numpy(read), es.cpu()),
+                          f"phase 10: {name} at {gname} P={p}: the plain "
+                          f"run read another edge stream")
+                    want = torch.from_numpy(want)
                     a, b = kern(), kern()
                     diff = max(max_abs_err(a.cpu(), want), max_abs_err(a, b))
                     check(diff == 0, f"phase 10: {name} at {gname} P={p} "
@@ -2491,18 +2589,21 @@ def stream_cells(torch, graphs, counts, err: int) -> list:
                             f"and call to call")
                 if gname == STREAM_PLAIN_GRAPH and \
                         (name, p) == STREAM_PLAIN_CARD:
+                    k = STREAM_PLAIN_CARD_EDGES
                     start = torch.cuda.Event(enable_timing=True)
                     end = torch.cuda.Event(enable_timing=True)
                     start.record()
-                    on_card = plain(es)
+                    on_card = plain(es[:k])
                     end.record()
                     end.synchronize()
-                    check(max_abs_err(on_card.cpu(), want) == 0,
+                    check(max_abs_err(on_card.cpu(), want[:k]) == 0,
                           f"phase 10: {name} at {gname} P={p}: the plain "
                           f"version's bits on the card and the CPU differ")
-                    cell.update(plain_ms=start.elapsed_time(end))
-                    held += (f"; plain on the card {cell['plain_ms']!r} ms, "
-                             f"== the CPU's bits")
+                    cell.update(plain_card_first_ms=start.elapsed_time(end),
+                                plain_card_first_edges=k)
+                    held += (f"; plain on the card over the first {k} "
+                             f"edges {cell['plain_card_first_ms']!r} ms, == "
+                             f"the CPU's bits")
                 cells[name].append(cell)
                 print(f"phase 10: {name} at {gname} P={p} (M={m}): ms "
                       f"{cell['ms']!r}, launch {dev_ms!r} ms "
@@ -2523,9 +2624,7 @@ def stream_cells(torch, graphs, counts, err: int) -> list:
                              "behind a 1 ms sleep; its two fills apart in "
                              "fill_ms"),
             "fill_ms": top["fill_ms"],
-            "plain_ms": (top["plain_ms"] if top["plain_ms"] is not None
-                         else top["plain_cpu_ms"]),
-            "plain_on": "cuda" if top["plain_ms"] is not None else "cpu",
+            "plain_ms": top["plain_cpu_ms"], "plain_on": "cpu",
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "bound_floor": top["bound_floor"], "library_ms": None,
             "library_device_ms": None,
@@ -2923,45 +3022,113 @@ def family_loss_grads(torch, np, compat, ge, model, sg, data, pos, device,
     return float(loss), grads
 
 
-def phase_families(torch, np, dev) -> None:
+FAMILY_MODULES = {"pna": "PNA", "egnn": "EGNN",
+                  "equiformer_v2": "EquiformerV2"}
+
+
+def family_inputs(np):
+    """Phase 11 (d)'s graph: (shape, (edges, feats, labels, label_mask),
+    positions, one-part ShardedGraph), all from seeds."""
+    from repro_torch.apps import engine as eng
+    from repro_torch.configs.shapes import GNN_SHAPES
+
+    shape = GNN_SHAPES[GNN_SHAPE]
+    data = gnn_data(np, shape, seed=0)
+    edges, feats = data[0], data[1]
+    n, m = feats.shape[0], len(edges)
+    pos = np.random.default_rng(1).normal(size=(n, 3)).astype(np.float32)
+    sg = eng.build_sharded_graph(edges, np.zeros(m, np.int32), n, 1)
+    return shape, data, pos, sg
+
+
+def family_check_params(torch, name: str, shape: dict, seed: int):
+    """(model class, full config, the check's config, its dtype, its
+    parameters as numpy) of phase 11 (d)'s card-against-CPU check of
+    family ``name`` at parameter seed ``seed``: at seed 0 the full model's
+    parameters (EquiformerV2's first EQV2_CPU_LAYERS layers of them),
+    else the check's model's drawn from the seed; PNA in float64."""
+    import importlib
+
+    from repro_torch.models.common import params_to_numpy
+
+    cls = getattr(importlib.import_module(f"repro_torch.models.gnn.{name}"),
+                  FAMILY_MODULES[name])
+    conf = importlib.import_module(f"repro_torch.configs.{name}")
+    cfg = dataclasses.replace(conf.CONFIG, d_feat=shape["d_feat"],
+                              n_classes=shape["n_classes"])
+    eq = name == "equiformer_v2"
+    ccfg = dataclasses.replace(cfg, n_layers=EQV2_CPU_LAYERS) if eq else cfg
+    if seed == 0:
+        ps = params_to_numpy(cls(cfg, torch.Generator().manual_seed(0)))
+        if eq:
+            ps = dict(ps, layers=ps["layers"][:EQV2_CPU_LAYERS])
+    else:
+        ps = params_to_numpy(cls(ccfg, torch.Generator().manual_seed(seed)))
+    dtype = torch.float64 if name == "pna" else torch.float32
+    return cls, cfg, ccfg, dtype, ps
+
+
+def family_cpu_oracle(name: str, seed: int):
+    """Phase 11 (d)'s CPU side of one card-against-CPU check, in a pool
+    process long before the phase: (loss, gradients as numpy, seconds) of
+    family ``name``'s engine loss at world 1 on the CPU (gloo, plain
+    versions) at parameter seed ``seed``."""
+    sys.path.insert(0, SRC)
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import compat
+    from repro_torch.launch import gnn_engine as ge
+    from repro_torch.models.common import params_from_numpy
+
+    torch.set_num_threads(2)        # two workers beside the main process
+    shape, data, pos, sg = family_inputs(np)
+    cls, _, ccfg, dtype, ps = family_check_params(torch, name, shape, seed)
+    t0 = time.perf_counter()
+    loss, grads = family_loss_grads(torch, np, compat, ge,
+                                    params_from_numpy(cls(ccfg), ps), sg,
+                                    data, pos, "cpu", "gloo", dtype)
+    return loss, grads, time.perf_counter() - t0
+
+
+def start_family_oracles(pool) -> dict:
+    """Phase 11 (d)'s CPU checks, submitted to ``pool`` with the other
+    oracles: {(family, seed): future}."""
+    return {(name, seed): pool.submit(family_cpu_oracle, name, seed)
+            for name in FAMILY_MODULES
+            for seed in range(PNA_SEEDS if name == "pna" else 1)}
+
+
+def phase_families(torch, np, dev, cpu_checks: dict) -> None:
     """Phase 11 (d): PNA (4 x 75), EGNN (4 x 64) and EquiformerV2 (12
     layers, d 128, l_max 6, m_max 2, 8 heads) at full width over the
     vertex-cut engine at world 1, on phase 6's graph with seeded
     positions: the engine loss against the plain model's on the card; the
     engine's loss and gradients on the card against the CPU's (gloo,
-    plain versions; EquiformerV2 with 2 of its 12 layers); 20
-    ``train_step``s with finite losses, ms a step, the busy share of a
+    plain versions; EquiformerV2 with 1 of its 12 layers; the CPU's side
+    computed in the pool beside phase 9, ``cpu_checks``); 20
+    ``train_step``s (EquiformerV2: 5) with finite losses, ms a step, the
+    busy share of a
     profiled step and peak memory, the launch counts set to 0 just before
     and read just after (no kernel of the port runs on these paths)."""
-    from repro_torch.apps import engine as eng
-    from repro_torch.configs import egnn as c_egnn
-    from repro_torch.configs import equiformer_v2 as c_eq
-    from repro_torch.configs import pna as c_pna
-    from repro_torch.configs.shapes import GNN_SHAPES
     from repro_torch.dist import compat
     from repro_torch.launch import gnn_engine as ge
     from repro_torch.models.common import (cross_entropy, params_from_numpy,
                                            params_to_numpy)
-    from repro_torch.models.gnn import egnn, equiformer_v2, pna
     from repro_torch.models.gnn.common import GraphData, to_directed_padded
     from repro_torch.train import optimizer as opt
 
     t_phase = time.perf_counter()
-    shape = GNN_SHAPES[GNN_SHAPE]
-    data = gnn_data(np, shape, seed=0)
+    shape, data, pos, sg = family_inputs(np)
     edges, feats, labels, label_mask = data
     n, m = feats.shape[0], len(edges)
-    pos = np.random.default_rng(1).normal(size=(n, 3)).astype(np.float32)
-    sg = eng.build_sharded_graph(edges, np.zeros(m, np.int32), n, 1)
     ei, em = to_directed_padded(edges, n)
     gd = GraphData(*(torch.from_numpy(x).to(dev) for x in (feats, ei, em)),
                    positions=torch.from_numpy(pos).to(dev))
     ocfg = opt.OptConfig(total_steps=FAMILY_STEPS, **GNN_OPT)
-    kw = dict(d_feat=shape["d_feat"], n_classes=shape["n_classes"])
-    for cls, conf in ((pna.PNA, c_pna), (egnn.EGNN, c_egnn),
-                      (equiformer_v2.EquiformerV2, c_eq)):
+    for name in FAMILY_MODULES:
         t0 = time.perf_counter()
-        cfg = dataclasses.replace(conf.CONFIG, **kw)
+        cls, cfg, ccfg, dtype, _ = family_check_params(torch, name, shape, 0)
         p0 = params_to_numpy(cls(cfg, torch.Generator().manual_seed(0)))
         model = params_from_numpy(cls(cfg), p0).to(dev)
         caps = ge.caps_from_sharded_graph(sg, shape["d_feat"],
@@ -2977,27 +3144,19 @@ def phase_families(torch, np, dev) -> None:
         check(abs(eng_loss - plain) <= FAMILY_LOSS_RTOL * abs(plain),
               f"phase 11 (d): {cfg.name}: engine loss {eng_loss!r}, plain "
               f"{plain!r}")
-        # card against CPU, EquiformerV2 with 2 of its layers
-        ccfg = (dataclasses.replace(cfg, n_layers=EQV2_CPU_LAYERS)
-                if cls is equiformer_v2.EquiformerV2 else cfg)
-        pc = p0 if ccfg is cfg else dict(p0, layers=p0["layers"][
-            :EQV2_CPU_LAYERS])
-        f64 = cls is pna.PNA
+        # card against CPU, EquiformerV2 with EQV2_CPU_LAYERS of its
+        # layers; the CPU's side from the pool
+        f64 = name == "pna"
         seeds = PNA_SEEDS if f64 else 1
         g_tol = PNA_GRAD_TOL if f64 else FAMILY_GRAD_TOL
-        dtype = torch.float64 if f64 else torch.float32
         g_errs, cpu_s = [], 0.0
         for seed in range(seeds):
-            ps = pc if seed == 0 else params_to_numpy(
-                cls(ccfg, torch.Generator().manual_seed(seed)))
+            ps = family_check_params(torch, name, shape, seed)[4]
             card = family_loss_grads(torch, np, compat, ge,
                                      params_from_numpy(cls(ccfg), ps), sg,
                                      data, pos, dev, backend_of(dev), dtype)
-            t1 = time.perf_counter()
-            host = family_loss_grads(torch, np, compat, ge,
-                                     params_from_numpy(cls(ccfg), ps), sg,
-                                     data, pos, "cpu", "gloo", dtype)
-            cpu_s += time.perf_counter() - t1
+            *host, secs = cpu_checks[(name, seed)].result()
+            cpu_s += secs
             g_errs.append(grads_rel_err(np, card[1], host[1]))
             check(abs(card[0] - host[0]) <= FAMILY_LOSS_RTOL * abs(host[0])
                   and g_errs[-1] <= g_tol,
@@ -3007,6 +3166,7 @@ def phase_families(torch, np, dev) -> None:
             if seed == 0:
                 loss0 = (card[0], host[0])
         # the training steps: counts 0 just before, read just after
+        n_steps = EQV2_STEPS if name == "equiformer_v2" else FAMILY_STEPS
         with compat.world1(backend_of(dev)):
             model = params_from_numpy(cls(cfg), p0).to(dev)
             state = opt.init(model.param_tree(), ocfg)
@@ -3016,11 +3176,11 @@ def phase_families(torch, np, dev) -> None:
             reset_counts()
             t1 = time.perf_counter()
             losses = []
-            for _ in range(FAMILY_STEPS):
+            for _ in range(n_steps):
                 loss, state = ge.train_step(model, a, caps, state, ocfg)
                 losses.append(loss)
             torch.cuda.synchronize()
-            step_s = (time.perf_counter() - t1) / FAMILY_STEPS
+            step_s = (time.perf_counter() - t1) / n_steps
             check_counts(f"phase 11 (d) {cfg.name}", {})
             peak = torch.cuda.max_memory_allocated() - base
             prof = profile_round(torch, f"phase 11 (d): profiled {cfg.name} "
@@ -3035,10 +3195,10 @@ def phase_families(torch, np, dev) -> None:
               f"(N={n}, E={m}): engine loss {eng_loss!r} == plain "
               f"{plain!r} (rel {abs(eng_loss - plain) / abs(plain)!r}); "
               f"card vs CPU ({ccfg.n_layers} layers, {dtype}; the CPU's loss "
-              f"and gradients {cpu_s:.1f} s): loss {loss0[0]!r} / "
+              f"and gradients {cpu_s:.1f} s in the pool): loss {loss0[0]!r} / "
               f"{loss0[1]!r}, gradients within {g_errs!r} of a leaf's "
               f"largest at parameter seeds 0..{seeds - 1} (tolerance "
-              f"{g_tol}); {FAMILY_STEPS} train_steps: losses {losses[0]!r} "
+              f"{g_tol}); {n_steps} train_steps: losses {losses[0]!r} "
               f"-> {losses[-1]!r}, {step_s * 1e3!r} ms a step, peak "
               f"{peak} B above the {base} B held, a profiled step "
               f"{busy:.0f} us busy; {time.perf_counter() - t0:.1f} s",
@@ -3047,6 +3207,817 @@ def phase_families(torch, np, dev) -> None:
         torch.cuda.empty_cache()
     print(f"phase 11 (d): took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 12: training (DeepFM, the dense LMs) and the backward kernels
+# --------------------------------------------------------------------------
+
+class _Stopped(Exception):
+    """Raised by a batch stream where a run is to stop (phase 12 (d))."""
+
+
+def bag_bwd_bound(v: int, d: int, b: int, k: int):
+    """(ms, 'bytes') of one table gradient: the dense (V, D) float32 write,
+    the ids and grad_out read once."""
+    return bound_ms(4 * (v * d + b * k + b * d)), "bytes"
+
+
+def flash_bwd_bound(b: int, s: int, h: int, hk: int, d: int, size: int):
+    """(ms, by) of a causal S = T backward: the five products' operations
+    (S = Q·Kᵀ, dP = dO·Vᵀ, dV, dK, dQ: 2·D each a kept pair) on the
+    tensor cores' bf16 rate (the FMA kernel's float32 rate for float32), or the
+    bytes of q, k, v, out, dout read and dq, dk, dv written once, with the
+    float32 lse."""
+    pairs = s * (s + 1) // 2
+    ops = 5 * 2 * pairs * d * b * h
+    rate = BF16_FLOPS if size == 2 else FP32_FLOPS
+    nbytes = size * (4 * b * s * h * d + 4 * b * s * hk * d) + 4 * b * h * s
+    by_ops, by_bytes = ops / rate * 1e3, bound_ms(nbytes)
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                               "bytes")
+
+
+def train_bag_kernel(torch, eb, ebref, table, ids, name, reps) -> dict:
+    """Phase 12 (a), the bag: ``embedding_bag_backward`` at a DeepFM train
+    call (B 65,536 bags of the 39 fields' ids; the table, D 10, or w1,
+    D 1; float32, weight 1) against its plain version on the card (1e-6 +
+    1e-5 |plain|: its ``index_add_`` adds by atomics, in no fixed order),
+    bit for bit the plain version's in-order float32 sum on the CPU, the
+    same bits call to call; its times beside the bound, the plain
+    version's and the backward of ``F.embedding_bag(mode="sum")``."""
+    dev = table.device
+    (b, k), (v, d) = ids.shape, table.shape
+    g = torch.randn((b, d), generator=torch.Generator(device=dev)
+                    .manual_seed(121 + d), device=dev)
+    got, _ = eb.embedding_bag_backward(table, ids, None, g)
+    again, _ = eb.embedding_bag_backward(table, ids, None, g)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"phase 12 (a): embedding_bag_backward "
+          f"({name}) differs from call to call")
+    want, _ = ebref.embedding_bag_backward_ref(table, ids, None, g)
+    err, ok = within(got, want, 1e-5, 1e-6)
+    check(ok, f"phase 12 (a): embedding_bag_backward ({name}) differs from "
+          f"plain: {err!r}")
+    del again, want
+    cpu, _ = ebref.embedding_bag_backward_ref(
+        torch.empty((v, d)), ids.cpu(), None, g.cpu())
+    check(torch.equal(got.cpu(), cpu), f"phase 12 (a): embedding_bag_"
+          f"backward ({name}) is not the in-order float32 sum")
+    del got, cpu
+    fe = torch.nn.functional.embedding_bag
+    tg = table.detach().requires_grad_()
+    out = fe(ids, tg, mode="sum")
+    (lib,) = torch.autograd.grad(out, tg, g, retain_graph=True)
+    lerr, lok = within(lib, ebref.embedding_bag_backward_ref(
+        table, ids, None, g)[0], 1e-5, 1e-6)
+    check(lok, f"phase 12 (a): F.embedding_bag's backward differs from "
+          f"plain: {lerr!r}")
+    del lib
+    kern = lambda: eb.embedding_bag_backward(table, ids, None, g)
+    plain = lambda: ebref.embedding_bag_backward_ref(table, ids, None, g)
+    libf = lambda: torch.autograd.grad(out, tg, g, retain_graph=True)
+    bound = bag_bwd_bound(v, d, b, k)
+    row = {"ms": time_ms(kern, reps), "device_ms": device_ms(torch, kern,
+                                                             reps)[0],
+           "plain_ms": time_ms(plain, max(1, reps // 4)),
+           "bound_ms": bound[0], "bound_by": bound[1],
+           "library_ms": time_ms(libf, reps),
+           "library_device_ms": device_ms(torch, libf, reps)[0],
+           "max_abs_err": err}
+    print(f"phase 12 (a): embedding_bag_backward ({name}: V={v}, D={d}, "
+          f"B={b}, K={k}) == plain (max abs err {err!r}, tol 1e-6 + "
+          f"1e-5|plain|), == the CPU's in-order sum bit for bit, the same "
+          f"bits call to call; ms {row['ms']!r}, device_ms "
+          f"{row['device_ms']!r}, bound {row['bound_ms']!r} (bytes), plain "
+          f"{row['plain_ms']!r}, F.embedding_bag backward "
+          f"{row['library_ms']!r} (device_ms {row['library_device_ms']!r})",
+          flush=True)
+    return row
+
+
+def flash_bwd_case(torch, fa, faref, shape, dtype, causal, gen, label):
+    """Phase 12 (a), one flash case: the training forward's LSE against the
+    plain one (1e-5 + 1e-5 |plain|), then dq, dk, dv against the plain
+    gradient from the same q, k, v, out and LSE (bf16: 2^-7 |plain| +
+    1e-4 max|plain|, one bf16 rounding of each and float32 sums in another
+    order; float32: 1e-4 |plain| + 1e-5 max|plain|), the same bits call to
+    call.  Returns (the largest absolute error, the largest over
+    max|plain|, the inputs)."""
+    b, s, h, hk, d = shape
+    dev = torch.device("cuda")
+    q, do = (torch.randn((b, s, h, d), generator=gen, device=dev,
+                         dtype=dtype) for _ in range(2))
+    k, v = (torch.randn((b, s, hk, d), generator=gen, device=dev,
+                        dtype=dtype) for _ in range(2))
+    o, lse = fa.flash_attention_forward(q, k, v, causal)
+    want_lse = torch.cat([faref.attention_lse_ref(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], causal)[1] for i in range(b)])
+    err, ok = within(lse, want_lse, 1e-5, 1e-5)
+    check(ok, f"phase 12 (a): flash LSE differs from plain at {label}: "
+          f"{err!r}")
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal)
+    again = fa.flash_attention_backward(q, k, v, o, lse, do, causal)
+    want = faref.attention_backward_ref(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    rtol, arel = (2.0 ** -7, 1e-4) if dtype == torch.bfloat16 else (1e-4,
+                                                                    1e-5)
+    worst = worst_abs = 0.0
+    for name, x, y, w in zip(("dq", "dk", "dv"), got, again, want):
+        check(torch.equal(x, y), f"phase 12 (a): flash_attention_backward "
+              f"{name} differs from call to call at {label}")
+        scale = float(w.float().abs().max())
+        e, ok = within(x, w, rtol, arel * scale)
+        check(ok, f"phase 12 (a): flash_attention_backward {name} differs "
+              f"from plain at {label}: {e!r} of max {scale!r}")
+        worst, worst_abs = max(worst, e / scale), max(worst_abs, e)
+    return worst_abs, worst, (q, k, v, o, lse, do)
+
+
+def train_flash_kernel(torch, fa, faref, reps) -> dict:
+    """Phase 12 (a), flash: the backward against its plain version at the
+    training path's shape (B 8, S = T = 4,096, 9 heads over 3, D 64,
+    bf16, causal), at a float32 one (B 2, S 1,024) and at every head dim
+    (bf16, 2 heads a kv head, causal and not); its times at the path's
+    shape beside the bound, the plain version's and the backward of
+    ``F.scaled_dot_product_attention`` with the kv heads repeated."""
+    gen = torch.Generator(device="cuda").manual_seed(122)
+    bf = torch.bfloat16
+    err, worst, inputs = flash_bwd_case(torch, fa, faref, FLASH_TRAIN, bf,
+                                        True, gen, "the train_4k shape")
+    print(f"phase 12 (a): flash_attention_backward == plain at B, S, H, HK, "
+          f"D = {FLASH_TRAIN} bf16 causal: max abs err {err!r}, "
+          f"{worst!r} of max|plain| "
+          f"(tol 2^-7|plain| + 1e-4 max), LSE within 1e-5, the same bits "
+          f"call to call", flush=True)
+    errs = {}
+    cases = [((2, 1024, 9, 3, 64), torch.float32, True, "float32")]
+    cases += [((2, 300, 4, 2, d), bf, c, f"D={d} {'causal' if c else 'all'}")
+              for d in fa.HEAD_DIMS for c in (True, False)]
+    for shape, dtype, causal, label in cases:
+        errs[label] = flash_bwd_case(torch, fa, faref, shape, dtype, causal,
+                                     gen, label)[1]
+    print(f"phase 12 (a): flash_attention_backward == plain (max err over "
+          f"max|plain|): {errs}", flush=True)
+    q, k, v, o, lse, do = inputs
+    b, s, h, hk, d = FLASH_TRAIN
+    kern = lambda: fa.flash_attention_backward(q, k, v, o, lse, do, True)
+    plain = lambda: faref.attention_backward_ref(q, k, v, o, lse, do, True)
+    rep = lambda x: x.repeat_interleave(h // hk, dim=2).transpose(1, 2)
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (rep(x).detach().requires_grad_() for x in (k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True)
+    dot = do.transpose(1, 2)
+    libf = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+    lq = libf()[0].transpose(1, 2)
+    want_q = plain()[0]
+    scale = float(want_q.float().abs().max())
+    # the library rounds P and dS to bf16 for its products (which misses
+    # 2^-7, tests/test_torch_train_gpu.py): this only checks that it
+    # computes the same function, so that its time is comparable
+    lerr, lok = within(lq, want_q, 2.0 ** -5, 1e-2 * scale)
+    check(lok, f"phase 12 (a): SDPA's dq differs from plain: {lerr!r} of "
+          f"max {scale!r}")
+    bound = flash_bwd_bound(b, s, h, hk, d, 2)
+    row = {"name": "flash_attention_backward", "route": "cuda",
+           "source": FA_SOURCE, "replaces": REPLACES[
+               "flash_attention_backward"], "max_abs_err": err,
+           "max_err_over_max": worst, "max_err_over_max_other": errs,
+           "ms": time_ms(kern, reps), "device_ms": device_ms(torch, kern,
+                                                             reps)[0],
+           "plain_ms": time_ms(plain, max(1, reps // 4)),
+           "bound_ms": bound[0], "bound_by": bound[1],
+           "library_ms": time_ms(libf, reps),
+           "library_device_ms": device_ms(torch, libf, reps)[0]}
+    print(f"phase 12 (a): flash_attention_backward at {FLASH_TRAIN} bf16: "
+          f"ms {row['ms']!r}, device_ms {row['device_ms']!r}, bound "
+          f"{row['bound_ms']!r} ({row['bound_by']}), plain "
+          f"{row['plain_ms']!r}, SDPA backward {row['library_ms']!r} "
+          f"(device_ms {row['library_device_ms']!r})", flush=True)
+    return row
+
+
+def forced_steps(torch, np, label, fn, p0, batches, n: int, dev):
+    """``n`` train steps of ``fn`` on the CPU from parameters ``p0`` and a
+    fresh AdamW state, and the same steps on the card, each taken from the
+    CPU's parameters and state before it (teacher-forced: AdamW's early
+    steps move an entry by ~lr · sign(g), so two free runs part at every
+    entry whose gradient cancels to float32 noise, and then everywhere).
+    Each card step must give the CPU's loss and grad_norm within 1e-5
+    relative, its moments m within 1e-4 and v within 1e-3 of each leaf's
+    largest (the gradients, float32 sums in another order), and its
+    parameters within 1e-5 + 1e-6 |p| except where the step's gradient is
+    under 1e-4 of its leaf's largest (there the sign may flip: at most
+    ~2 lr).  The CPU replays the card's ReLU decisions (``relu_tape``, as
+    phase 6 does): a unit within a rounding of 0 takes either side, and
+    one such flip moves a whole row's gradient.  ``batches(i, device)``
+    gives step i's inputs.  Returns (the CPU's losses, the largest checked
+    parameter difference, the entries let off, the ReLU units that
+    flipped)."""
+    from repro_torch.launch.steps import OPT_CFG
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import tree_leaves, tree_map, tree_to_numpy
+
+    params, state = p0, opt.init(p0, OPT_CFG)
+    losses, worst, let_off, flips = [], 0.0, 0, 0
+    for i in range(n):
+        tape = relu_tape(torch)
+        with tape:
+            card = fn(tree_map(lambda t: t.to(dev), params),
+                      tree_map(lambda t: t.to(dev), state), *batches(i, dev))
+        replay = relu_tape(torch, tape.inputs)
+        with replay:
+            host = fn(params, state, *batches(i, "cpu"))
+        flips += sum(int(((a > 0) != (b > 0)).sum())
+                     for a, b in zip(tape.inputs, replay.inputs))
+        (gp, gs, gl, gn), (wp, ws, wl, wn) = (tree_to_numpy(card),
+                                              tree_to_numpy(host))
+        check(abs(gl - wl) <= 1e-5 * abs(wl) and abs(gn - wn) <= 1e-5 * abs(
+            wn), f"{label}: step {i} card loss {gl!r} gnorm {gn!r}, CPU "
+            f"{wl!r} {wn!r}")
+        for key, tol in (("m", 1e-4), ("v", 1e-3)):
+            for j, (a, b) in enumerate(zip(tree_leaves(gs[key]),
+                                           tree_leaves(ws[key]))):
+                e = float(np.abs(a - b).max()) if a.size else 0.0
+                top = float(np.abs(b).max(initial=0.0))
+                check(e <= tol * top, f"{label}: step {i} {key} leaf {j} "
+                      f"{a.shape} differs by {e!r}, its largest {top!r}")
+        old_m = tree_leaves(tree_to_numpy(state["m"]))
+        for a, b, m_new, m_old in zip(tree_leaves(gp), tree_leaves(wp),
+                                      tree_leaves(ws["m"]), old_m):
+            g = np.abs(m_new - OPT_CFG.b1 * m_old)
+            near = g <= 1e-4 * float(g.max(initial=0.0))
+            d = np.abs(a - b)
+            far = d > 1e-5 + 1e-6 * np.abs(b)
+            if (far & ~near).any():
+                fail(f"{label}: step {i} parameters differ by "
+                     f"{float(d[~near].max())!r} where the gradient is not "
+                     f"near 0")
+            if (~near).any():
+                worst = max(worst, float(d[~near].max()))
+            let_off += int((far & near).sum())
+        losses.append(float(wl))
+        params, state = host[0], host[1]
+    return losses, worst, let_off, flips
+
+
+def phase_train_deepfm(torch, np, args):
+    """Phase 12 (a) for the bag and (b): DeepFM training at full width
+    (39 fields x 2^20 rows, D 10, MLP 400-400-400; phase 7's parameters,
+    drawn again from its seed on the card) at train_batch (B 65,536)
+    through ``make_recsys_step``: the bag's backward checked and timed at
+    this path's calls, 20 steps with the counts set to 0 just before and
+    read just after (2 bag and 2 bag-backward launches a step), ms a step,
+    rows/s, a profiled step and peak memory; then 3 card steps against 3
+    CPU steps at full width with 1,024 rows a field.  Returns the bag
+    backward's row."""
+    from repro_torch.configs import deepfm as dcfg
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.embedding_bag import ref as ebref
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import deepfm as dfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import tree_map, tree_to_numpy
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    no_tf32(torch, "phase 12 (b)")
+    cfg = dcfg.CONFIG
+    shape = RECSYS_SHAPES["train_batch"]
+    b = shape["batch"]
+    bundle = steps.make_recsys_step(cfg, shape)
+    params = tree_map(lambda p: p.detach(), dfm.DeepFM(
+        cfg, torch.Generator(device=dev).manual_seed(0),
+        device=dev).param_tree())
+
+    def batch(step: int):
+        gen = torch.Generator(device=dev).manual_seed(1200 + step)
+        x = torch.randint(0, cfg.rows_per_field, (b, cfg.n_fields),
+                          generator=gen, device=dev, dtype=torch.int32)
+        return x, (torch.rand(b, generator=gen, device=dev) < 0.3).float()
+
+    ids = dfm._field_ids(batch(0)[0], cfg)
+    rows = {name: train_bag_kernel(torch, eb, ebref, params[name], ids, name,
+                                   args.reps) for name in ("table", "w1")}
+    del ids
+    row = {"name": "embedding_bag_backward", "route": "cuda",
+           "source": EB_SOURCE,
+           "replaces": REPLACES["embedding_bag_backward"], **rows["table"],
+           **{f"{k}_w1": v for k, v in rows["w1"].items()}}
+    torch.cuda.empty_cache()
+
+    state = opt.init(params, steps.OPT_CFG)
+    params, state, _, _ = bundle.fn(params, state, *batch(0))   # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n = TRAIN_DEEPFM_STEPS
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(n):
+        params, state, loss, _ = bundle.fn(params, state, *batch(i + 1))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n
+    counts = check_counts("phase 12 (b)", {"embedding_bag": 2 * n,
+                                           "embedding_bag_backward": 2 * n})
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"phase 12 (b): losses {losses}")
+    prof = profile_round(torch, "phase 12 (b): profiled DeepFM train step",
+                         lambda: bundle.fn(params, state, *batch(n + 1)),
+                         top=10, host_top=6)
+    busy = sum(e.self_device_time_total for e in prof)
+    row["launches"] = counts["embedding_bag_backward"]
+    print(f"phase 12 (b): DeepFM train_batch B={b}: {n} steps, losses "
+          f"{losses[0]!r} -> {losses[-1]!r}, {step_s * 1e3!r} ms a step, "
+          f"{b / step_s!r} rows/s, a profiled step {busy:.0f} us busy; peak "
+          f"{peak} B above the {base} B held; launches embedding_bag "
+          f"{counts['embedding_bag']} and embedding_bag_backward "
+          f"{counts['embedding_bag_backward']} = 2 x {n} steps", flush=True)
+    del params, state, prof
+    torch.cuda.empty_cache()
+
+    # card against CPU at 1,024 rows a field
+    ccfg = dataclasses.replace(cfg, rows_per_field=DEEPFM_CHECK_ROWS,
+                               n_candidates=4096)
+    cb = steps.make_recsys_step(ccfg, dict(shape, batch=DEEPFM_CHECK_BATCH))
+    p0 = tree_map(lambda p: p.detach(), dfm.DeepFM(
+        ccfg, torch.Generator().manual_seed(3), device="cpu").param_tree())
+    rng = np.random.default_rng(4)
+    data = [(rng.integers(0, 3 * ccfg.rows_per_field, (
+        DEEPFM_CHECK_BATCH, ccfg.n_fields)).astype(np.int32),
+        (rng.random(DEEPFM_CHECK_BATCH) < 0.3).astype(np.float32))
+        for _ in range(TRAIN_CHECK_STEPS)]
+    losses, worst, let_off, flips = forced_steps(
+        torch, np, "phase 12 (b) card vs CPU", cb.fn, p0,
+        lambda i, d: tuple(torch.from_numpy(a).to(d) for a in data[i]),
+        TRAIN_CHECK_STEPS, dev)
+    print(f"phase 12 (b): card vs CPU, {TRAIN_CHECK_STEPS} steps at "
+          f"{ccfg.rows_per_field} rows a field, B={DEEPFM_CHECK_BATCH}, each "
+          f"from the CPU's state: losses {losses}, loss, grad_norm, m and v "
+          f"equal within tolerance, parameters within {worst!r} (tol 1e-5 + "
+          f"1e-6|p|; {let_off} entries with a gradient near 0 let off); "
+          f"the CPU replays the card's ReLU decisions, {flips} units "
+          f"flipped; {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return row
+
+
+def phase_train_lm(torch, np, args, work: str):
+    """Phase 12 (a) for flash and (c): smollm-135m training at full width
+    and depth (bf16, remat "dots") at train_4k's S 4,096 with the batch
+    cut to 8, 10 steps through ``launch.train``'s function (``--full``)
+    with the counts set to 0 just before and read just after (a step: 30
+    forward and 30 recomputed flash launches, 30 backward), ms a step,
+    tokens/s, a profiled step and peak memory.  Returns
+    flash_attention_backward's row and the phase's card-against-CPU check
+    (:func:`train_lm_check`) to run."""
+    from repro_torch.configs import smollm_135m
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as faref
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.lm.transformer import Transformer
+    from repro_torch.tree import tree_map, tree_to_numpy
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    row = train_flash_kernel(torch, fa, faref, args.reps)
+    torch.cuda.empty_cache()
+    print(f"phase 12 (a): took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    cfg = smollm_135m.CONFIG
+    n = TRAIN_LM_STEPS
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    params, state, hist, bundle = tlaunch.train(
+        "smollm-135m", n, os.path.join(work, "smollm_ckpt"),
+        ckpt_every=n, resume=False, full=True, device=dev,
+        log=lambda *_: None, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    layers = cfg.n_layers
+    counts = check_counts("phase 12 (c)", {
+        "flash_attention": 2 * layers * n,
+        "flash_attention_backward": layers * n})
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == n and all(np.isfinite(losses)),
+          f"phase 12 (c): losses {losses}")
+    step_s = float(np.mean([h["step_time_s"] for h in hist[1:]]))
+    tokens = tlaunch.FULL_BATCH * 4096
+    shape = dict(kind="train", seq_len=4096,
+                 global_batch=tlaunch.FULL_BATCH)
+    tok = tlaunch.synthetic_batch(cfg, shape, n, tlaunch.SEED, dev)
+    prof = profile_round(torch, "phase 12 (c): profiled smollm-135m train "
+                         "step", lambda: bundle.fn(params, state, tok),
+                         top=12, host_top=6)
+    busy = sum(e.self_device_time_total for e in prof)
+    row["launches"] = counts["flash_attention_backward"]
+    row["launches_forward"] = counts["flash_attention"]
+    print(f"phase 12 (c): smollm-135m train_4k (L={layers}, S=4096, "
+          f"B={tlaunch.FULL_BATCH}, bf16, remat {cfg.remat}): {n} steps in "
+          f"{wall:.1f} s (the first {hist[0]['step_time_s']!r} s), losses "
+          f"{losses[0]!r} -> {losses[-1]!r}, {step_s * 1e3!r} ms a step, "
+          f"{tokens / step_s!r} tokens/s, a profiled step {busy:.0f} us "
+          f"busy; peak {peak} B above the {base} B held; launches "
+          f"flash_attention {counts['flash_attention']} = 2 x {layers} x "
+          f"{n} (forward and remat's recompute), flash_attention_backward "
+          f"{counts['flash_attention_backward']} = {layers} x {n}",
+          flush=True)
+    del params, state, bundle, prof, tok
+    torch.cuda.empty_cache()
+    return row, lambda: train_lm_check(torch, np, t_phase)
+
+
+def train_lm_check(torch, np, t_phase: float) -> None:
+    """Phase 12 (c)'s checks: 3 train steps on the card, each from the
+    CPU's state, against the CPU's, in float32 at smollm-135m's width with
+    2 layers, S 256, B 2; then :func:`remat_check`."""
+    from repro_torch.configs import smollm_135m
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.lm.transformer import Transformer
+    from repro_torch.tree import tree_map
+
+    dev = torch.device("cuda")
+    ccfg = dataclasses.replace(smollm_135m.CONFIG, n_layers=LM_CHECK[0],
+                               dtype=torch.float32)
+    cshape = dict(kind="train", seq_len=LM_CHECK[1],
+                  global_batch=LM_CHECK[2])
+    cb = steps.make_lm_step(ccfg, cshape)
+    p0 = tree_map(lambda p: p.detach(), Transformer(
+        ccfg, torch.Generator().manual_seed(2), device="cpu").param_tree())
+    losses, worst, let_off, _ = forced_steps(
+        torch, np, "phase 12 (c) card vs CPU", cb.fn, p0,
+        lambda i, d: (tlaunch.synthetic_batch(ccfg, cshape, i, 8, d),),
+        TRAIN_CHECK_STEPS, dev)
+    print(f"phase 12 (c): card vs CPU (float32, width 576, {LM_CHECK[0]} "
+          f"layers, S {LM_CHECK[1]}, B {LM_CHECK[2]}, {TRAIN_CHECK_STEPS} "
+          f"steps each from the CPU's state; the card's attention the flash "
+          f"kernel, the CPU's plain): losses {losses}, loss, grad_norm, m "
+          f"and v equal within tolerance, parameters within {worst!r} (tol "
+          f"1e-5 + 1e-6|p|; {let_off} entries with a gradient near 0 let "
+          f"off); {time.perf_counter() - t_phase:.1f} s", flush=True)
+    remat_check(torch)
+
+
+def remat_check(torch) -> None:
+    """Phase 12 (c)'s remat check: one bf16 train step at smollm-135m's
+    width with 2 layers, S 256, B 2 on the card under each of remat none,
+    dots and full, from the same parameters, optimizer state and batch.
+    Remat changes memory, not values: the three must give equal
+    parameters, optimizer state, loss and grad_norm bit for bit, though
+    under dots and full the flash forward (with its LSE) runs again in the
+    backward and under full the matmuls do too.  Each mode's launches are
+    counted: L forward flash launches under none, 2L under dots and full,
+    L backward under each."""
+    from repro_torch.configs import smollm_135m
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.lm.transformer import Transformer
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    layers, s, b = REMAT_CHECK
+    cfg = dataclasses.replace(smollm_135m.CONFIG, n_layers=layers)
+    shape = dict(kind="train", seq_len=s, global_batch=b)
+    params = tree_map(lambda p: p.detach(), Transformer(
+        cfg, torch.Generator(device=dev).manual_seed(6),
+        device=dev).param_tree())
+    state = opt.init(params, steps.OPT_CFG)
+    tok = tlaunch.synthetic_batch(cfg, shape, 0, 10, dev)
+    outs, forward = {}, {}
+    for mode in REMAT_MODES:
+        fn = steps.make_lm_step(cfg, shape, remat_override=mode).fn
+        reset_counts()
+        outs[mode] = tree_leaves(fn(params, state, tok))
+        torch.cuda.synchronize()
+        forward[mode] = check_counts(f"phase 12 (c) remat {mode}", {
+            "flash_attention": layers * (1 if mode == "none" else 2),
+            "flash_attention_backward": layers})["flash_attention"]
+    n = len(outs["none"])
+    for mode in REMAT_MODES[1:]:
+        diff = [i for i, (a, c) in enumerate(zip(outs["none"], outs[mode]))
+                if not torch.equal(a, c)]
+        check(not diff, f"phase 12 (c): remat {mode} on the card differs "
+              f"from none at leaves {diff} of {n} (parameters, optimizer "
+              f"state, then loss and grad_norm)")
+    loss, gn = (float(x) for x in outs["none"][-2:])
+    print(f"phase 12 (c): remat none, dots and full on the card (bf16, "
+          f"width 576, {layers} layers, S {s}, B {b}, one step from the "
+          f"same state): all {n} leaves equal bit for bit (loss {loss!r}, "
+          f"grad_norm {gn!r}); flash_attention launches {forward} "
+          f"(the recompute under dots and full), flash_attention_backward "
+          f"{layers} each; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def resume_run(torch, name: str, ckpt_dir: str, total: int,
+               stop: int | None = None):
+    """One of phase 12 (d)'s runs: ``name`` ("deepfm" at reduced rows, or
+    "lm", smollm's width with 2 layers in bf16) from seeded parameters on
+    the card, through ``run_training`` to ``total`` steps with a
+    checkpoint every RESUME_K steps, resuming from ``ckpt_dir``'s newest
+    checkpoint; the batch of step i is drawn from a seed and i, and the
+    stream raises ``_Stopped`` where step ``stop`` would begin.  Returns
+    (params, state, history)."""
+    from repro_torch.configs import deepfm as dcfg
+    from repro_torch.configs import smollm_135m
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.lm.transformer import Transformer
+    from repro_torch.models.recsys import deepfm as dfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import TrainLoopConfig, run_training
+    from repro_torch.tree import tree_map
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    if name == "deepfm":
+        cfg = dataclasses.replace(dcfg.CONFIG, rows_per_field=RESUME_ROWS,
+                                  n_candidates=4096)
+        b = RESUME_BATCH
+        bundle = steps.make_recsys_step(cfg, dict(
+            RECSYS_SHAPES["train_batch"], batch=b))
+        model = dfm.DeepFM(cfg, gen, device=dev)
+
+        def batch(step):
+            g = torch.Generator(device=dev).manual_seed(1300 + step)
+            x = torch.randint(0, cfg.rows_per_field, (b, cfg.n_fields),
+                              generator=g, device=dev, dtype=torch.int32)
+            return x, (torch.rand(b, generator=g, device=dev) < 0.3).float()
+
+        def step_fn(params, state, xy):
+            return bundle.fn(params, state, *xy)
+    else:
+        cfg = dataclasses.replace(smollm_135m.CONFIG, n_layers=RESUME_LM[0])
+        shape = dict(kind="train", seq_len=RESUME_LM[1],
+                     global_batch=RESUME_LM[2])
+        step_fn = steps.make_lm_step(cfg, shape).fn
+        model = Transformer(cfg, gen, device=dev)
+
+        def batch(step):
+            return tlaunch.synthetic_batch(cfg, shape, step, 9, dev)
+
+    params = tree_map(lambda p: p.detach(), model.param_tree())
+    del model
+
+    def batches(start):
+        step = start
+        while True:
+            if step == stop:
+                raise _Stopped
+            yield batch(step)
+            step += 1
+
+    return run_training(step_fn, params, opt.init(params, steps.OPT_CFG),
+                        batches, TrainLoopConfig(
+                            total_steps=total, ckpt_every=RESUME_K,
+                            ckpt_dir=ckpt_dir, log_every=1),
+                        log=lambda *_: None)
+
+
+def train_child(work: str) -> None:
+    """Phase 12 (d)'s killed runs, in a process of its own: under
+    deterministic algorithms, each model trains to its checkpoint at step
+    RESUME_K and stops where step RESUME_K would begin; then the process
+    says so and waits for its SIGKILL."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    for name in RESUME_MODELS:
+        try:
+            resume_run(torch, name, os.path.join(work, f"killed_{name}"),
+                       2 * RESUME_K, stop=RESUME_K)
+        except _Stopped:
+            pass
+        else:
+            fail(f"phase 12 (d): {name} ran past step {RESUME_K}")
+    print("phase 12 (d) child: checkpointed", flush=True)
+    time.sleep(CHILD_TIMEOUT_S)
+    fail("phase 12 (d): the child was not killed")
+
+
+def start_train_child(work: str):
+    """Phase 12 (d)'s child process, started early so that its start-up
+    runs beside (c)'s check: (the process, its start time)."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-child", work],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True), time.perf_counter()
+
+
+def phase_train_resume(torch, work: str, started) -> None:
+    """Phase 12 (d): the trainer killed and resumed.  A child process
+    (``chip_smoke.py --train-child``) trains DeepFM (39 fields x 65,536
+    rows, B 4,096) and smollm's width with 2 layers (bf16, S 512, B 2) to
+    their checkpoints at step k = RESUME_K and is SIGKILLed; this process
+    resumes each to 2k, its batch stream starting at batch k, and must
+    equal an uninterrupted 2k-step run here bit for bit (parameters,
+    optimizer state, losses).  All of it under
+    ``torch.use_deterministic_algorithms(True)`` (cuBLAS's workspace set
+    by CUBLAS_WORKSPACE_CONFIG at the script's start): an op without a
+    deterministic version raises instead of passing."""
+    import signal
+    import threading
+
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.tree import tree_leaves
+
+    child, t0 = started
+    timer = threading.Timer(CHILD_TIMEOUT_S, child.kill)
+    timer.start()
+    said = []
+    for line in child.stdout:
+        said.append(line)
+        if "checkpointed" in line:
+            os.kill(child.pid, signal.SIGKILL)
+            break
+    child.wait()
+    timer.cancel()
+    check(child.returncode == -signal.SIGKILL,
+          f"phase 12 (d): the child ended with {child.returncode}: "
+          f"{''.join(said)[-3000:]}")
+    child_s = time.perf_counter() - t0
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name in RESUME_MODELS:
+            killed = os.path.join(work, f"killed_{name}")
+            check(CheckpointManager(killed).steps() == [RESUME_K],
+                  f"phase 12 (d): {name}'s checkpoints "
+                  f"{CheckpointManager(killed).steps()}")
+            t1 = time.perf_counter()
+            p1, s1, h1 = resume_run(torch, name, killed, 2 * RESUME_K)
+            p2, s2, h2 = resume_run(torch, name, os.path.join(
+                work, f"whole_{name}"), 2 * RESUME_K)
+            check([h["step"] for h in h1] == list(range(RESUME_K,
+                                                        2 * RESUME_K)),
+                  f"phase 12 (d): {name} resumed at {h1[0]['step']}")
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves((p1, s1)), tree_leaves((p2, s2))))
+            same_loss = [h["loss"] for h in h1] == [
+                h["loss"] for h in h2[RESUME_K:]]
+            check(same and same_loss, f"phase 12 (d): {name} killed at step "
+                  f"{RESUME_K} and resumed differs from the whole run "
+                  f"(parameters and state equal: {same}; losses "
+                  f"{[h['loss'] for h in h1]} / "
+                  f"{[h['loss'] for h in h2[RESUME_K:]]})")
+            print(f"phase 12 (d): {name}: SIGKILLed after its checkpoint at "
+                  f"step {RESUME_K}, resumed to {2 * RESUME_K} == the whole "
+                  f"run bit for bit (parameters, optimizer state, losses "
+                  f"{[h['loss'] for h in h1]}); the two runs here "
+                  f"{time.perf_counter() - t1:.1f} s", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"phase 12 (d): the child (started before (c)'s check; both runs "
+          f"to step {RESUME_K}) {child_s:.1f} s; took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def smoke_batch(np, spec, cfg, args, seed):
+    """Numpy inputs of a smoke train step's meta ``args``, in valid
+    ranges (tokens below the vocabulary, edge ids below the node count,
+    labels below the class count, raw DeepFM ids up to 3x a field's
+    rows)."""
+    rng = np.random.default_rng(seed)
+    if spec.family == "lm":
+        return [rng.integers(0, cfg.vocab, tuple(args[0].shape)).astype(
+            np.int32)]
+    if spec.family == "recsys":
+        x, y = args
+        return [rng.integers(0, 3 * cfg.rows_per_field,
+                             tuple(x.shape)).astype(np.int32),
+                (rng.random(tuple(y.shape)) < 0.3).astype(np.float32)]
+    a = args[0]
+    n = a["feats"].shape[-2]
+    shp = lambda key: tuple(a[key].shape)
+    return [{"feats": rng.normal(size=shp("feats")).astype(np.float32),
+             "edge_index": rng.integers(0, n, shp("edge_index")).astype(
+                 np.int32),
+             "edge_mask": rng.random(shp("edge_mask")) < 0.8,
+             "labels": rng.integers(0, cfg.n_classes, shp("labels")).astype(
+                 np.int32),
+             "label_mask": rng.random(shp("label_mask")) < 0.8,
+             "positions": rng.normal(size=shp("positions")).astype(
+                 np.float32)}]
+
+
+def phase_train_archs(torch, np) -> None:
+    """Phase 12 (e): one smoke ``make_step`` train step of every ported
+    arch (the LMs at train_4k, the GNNs at full_graph_sm, DeepFM at
+    train_batch) on the card against the CPU from the same parameters and
+    batch, as :func:`forced_steps` holds them.  PNA runs in float64, as
+    in phase 11 (d): in float32 its max, min and std's clamp decide near
+    ties by a rounding."""
+    from repro_torch.configs.registry import PORTED_ARCH_IDS, get_arch
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_map, tree_to_numpy
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    shape_of = {"lm": "train_4k", "gnn": "full_graph_sm",
+                "recsys": "train_batch"}
+    done = []
+    for arch in PORTED_ARCH_IDS:
+        spec = get_arch(arch)
+        bundle = steps.make_step(spec, shape_of[spec.family], smoke=True)
+        cfg = bundle.model.cfg
+        p0 = tree_map(lambda p: p.detach(), bundle.model.__class__(
+            cfg, device="cpu").param_tree())
+        data = smoke_batch(np, spec, cfg, bundle.args[2:], 12)
+        f64 = arch == "pna"
+        if f64:
+            p0 = tree_map(lambda p: p.double(), p0)
+
+        def batches(i, d):
+            return [tree_map(lambda a: (lambda t: t.double() if f64 and
+                                        t.is_floating_point() else t)(
+                torch.from_numpy(np.asarray(a)).to(d)), x) for x in data]
+
+        reset_counts()
+        losses, worst, let_off, flips = forced_steps(
+            torch, np, f"phase 12 (e) {arch}", bundle.fn, p0, batches, 1,
+            dev)
+        counts = {k: v for k, v in all_counts().items() if v}
+        done.append(f"{arch} ({'float64; ' if f64 else ''}loss "
+                    f"{losses[0]!r}, parameters within {worst!r}, {let_off} "
+                    f"let off, {flips} ReLU flips"
+                    f"{', launches ' + str(counts) if counts else ''})")
+    print(f"phase 12 (e): one smoke train step on the card == the CPU's "
+          f"(as forced_steps holds them): "
+          f"{'; '.join(done)}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_train_compression(torch, np) -> None:
+    """Phase 12 (f): int8 error-feedback compression
+    (``train.compression.psum_compressed``) at world 1 on the card (NCCL)
+    against the CPU (gloo): two steps over a gradient tree (a 1,024 x
+    1,024 leaf, a small one, a zero one), the residual carried, equal bit
+    for bit; the first step's error within a quantization step."""
+    from repro_torch.dist import compat
+    from repro_torch.train import compression as comp
+    from repro_torch.tree import tree_leaves, tree_map, tree_to_numpy
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    grads = [{"w": rng.normal(size=(1024, 1024)).astype(np.float32),
+              "b": [rng.normal(size=(4096,)).astype(np.float32) * 1e-3,
+                    np.zeros((7,), np.float32)]} for _ in range(2)]
+    outs = {}
+    for key, dev, backend in (("card", torch.device("cuda"), "nccl"),
+                              ("cpu", torch.device("cpu"), "gloo")):
+        with compat.world1(backend):
+            res = comp.init_residuals(tree_map(
+                lambda a, _d=dev: torch.from_numpy(a).to(_d), grads[0]))
+            steps = []
+            for g in grads:
+                out, res = comp.psum_compressed(tree_map(
+                    lambda a, _d=dev: torch.from_numpy(a).to(_d), g), res)
+                steps.append(tree_to_numpy((out, res)))
+        outs[key] = steps
+    same = all(np.array_equal(a, b) for a, b in zip(
+        tree_leaves(outs["card"]), tree_leaves(outs["cpu"])))
+    check(same, "phase 12 (f): psum_compressed on the card differs from "
+          "the CPU's")
+    err = float(np.abs(outs["card"][0][0]["w"] - grads[0]["w"]).max())
+    scale = float(np.abs(grads[0]["w"]).max()) / 127
+    check(err <= scale, f"phase 12 (f): error {err!r} > a step {scale!r}")
+    print(f"phase 12 (f): psum_compressed at world 1, card (NCCL) == CPU "
+          f"(gloo) bit for bit over 2 steps (means and residuals); step 1's "
+          f"largest error {err!r} within its quantization step {scale!r}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_train(torch, np, args) -> list:
+    """Phase 12: training.  Returns the backward kernels' rows."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        bag_row = phase_train_deepfm(torch, np, args)
+        flash_row, lm_check = phase_train_lm(torch, np, args, work)
+        started = start_train_child(work)
+        lm_check()
+        phase_train_resume(torch, work, started)
+        phase_train_archs(torch, np)
+        phase_train_compression(torch, np)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 12: took {time.perf_counter() - t0:.1f} s", flush=True)
+    return [bag_row, flash_row]
 
 
 def main() -> None:
@@ -3059,6 +4030,7 @@ def main() -> None:
                     help="round whose inputs the kernel timings use")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--driver-child", nargs=5, help=argparse.SUPPRESS)
+    ap.add_argument("--train-child", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -3067,6 +4039,8 @@ def main() -> None:
     if args.driver_child:
         ef_path, snap, every, kill_at, device = args.driver_child
         driver_child(ef_path, snap, int(every), int(kill_at), device)
+    if args.train_child:
+        train_child(args.train_child)
     import numpy as np
     import torch
 
@@ -3084,6 +4058,11 @@ def main() -> None:
     from repro_torch.kernels.ne_round import ops, ref
 
     dev = torch.device("cuda")
+    marks = [("1-2", time.perf_counter())]
+
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -3136,6 +4115,7 @@ def main() -> None:
     phase_bit_kernels(torch, ops, ref, n, dev, p_num, ce)
 
     # --- phase 3: the single-controller path --------------------------------
+    mark("3")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -3170,6 +4150,7 @@ def main() -> None:
           f"launch counts {launches} do not match {res.rounds} rounds")
 
     # --- phase 3b: the SPMD path, world 1 on the card -----------------------
+    mark("3b")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with compat.world1("nccl"):
@@ -3197,6 +4178,7 @@ def main() -> None:
           "match the formulas", flush=True)
 
     # --- phase 4: card == CPU at a small scale ------------------------------
+    mark("4")
     small = rmat_edges(args.check_scale, EDGE_FACTOR, seed=1)
     n_small = 1 << args.check_scale
     g_gpu = from_edges(small, n_small, device=dev)
@@ -3219,6 +4201,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s)", flush=True)
 
     # --- phase 5: kernel times on real rounds' inputs -----------------------
+    mark("5")
     state = tp.ne_init_state(g, cfg)
     while int(state.rounds) < args.time_round and not tp.ne_done(state, cfg):
         state = tp.ne_round_step(g, cfg, limit, state)
@@ -3257,9 +4240,11 @@ def main() -> None:
     del st_sm, u, v, mask, g
 
     # --- phase 6: GIN training over the vertex-cut engine -------------------
+    mark("6")
     spmm_row = phase_gnn(torch, np, compat, ops, args)
 
     # --- phases 7 and 8: DeepFM and smollm-135m serving ---------------------
+    mark("7 and 8")
     t0 = time.perf_counter()
     bag_row = phase_deepfm(torch, args)
     flash_row = phase_lm(torch, args)
@@ -3276,7 +4261,10 @@ def main() -> None:
     try:
         oracles = start_app_oracles(np, pool, main_edges, 1 << args.scale,
                                     work)
+        stream_plains = start_stream_oracles(pool, work)
+        family_cpu = start_family_oracles(pool)
         # --- phase 9: the driver from the store, killed and resumed ---------
+        mark("9")
         launches_drv, ef = phase_driver(torch, np, main_edges, res,
                                         wall_sm / max(rounds, 1), chunks,
                                         dev, args.scale, work)
@@ -3284,18 +4272,20 @@ def main() -> None:
             r["launches_driver"] = launches_drv[r["name"]]
 
         # --- phase 10: baselines and hybrid ----------------------------------
+        mark("10")
         t0 = time.perf_counter()
         ptxas_report(build, "stream", ("hdrf_kernel", "oblivious_kernel"),
                      "phase 10")
         err = phase_stream_kernels(torch, dev)
         graphs, q_rows, q_counts = phase_quality(torch, np, dev, work)
-        stream = stream_cells(torch, graphs, q_counts, err)
+        stream = stream_cells(torch, graphs, q_counts, err, stream_plains)
         phase_hybrid_scale(torch, np, ef, dev)
         phase_hybrid_driver(torch, np, graphs, q_rows, dev, work)
         print(f"phase 10: took {time.perf_counter() - t0:.1f} s", flush=True)
         del graphs, ef
 
         # --- phase 11: the GAS apps, Table 5, redistribution, GNNs ----------
+        mark("11")
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         phase_apps(torch, np, main_edges, 1 << args.scale, dev, oracles)
@@ -3304,15 +4294,24 @@ def main() -> None:
             r["launches_table5"] = launches_t5[r["name"]]
         phase_redistribute(torch, np, main_edges, res.edge_part, dev)
         del main_edges, res
-        phase_families(torch, np, dev)
+        phase_families(torch, np, dev, family_cpu)
         print(f"phase 11: took {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         pool.shutdown(cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
+
+    # --- phase 12: training, the backward kernels ---------------------------
+    mark("12")
+    torch.cuda.empty_cache()
+    train_rows = phase_train(torch, np, args)
+    mark("end")
+    print("phase times (s): " + ", ".join(
+        f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])),
+        flush=True)
     print(f"the script: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": rows + bit_rows + [spmm_row, bag_row,
-                                                   flash_row] + stream}),
-          flush=True)
+                                                   flash_row] + stream
+                      + train_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -29,12 +29,23 @@ RECSYS_SHAPES = {
                            n_candidates=1_000_000),
 }
 
+FAMILY_SHAPES = {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES}
+
 # Reduced shapes for the CPU smoke tests.
 SMOKE_SHAPES = {
     "lm": {
         "train": dict(kind="train", seq_len=32, global_batch=2),
         "prefill": dict(kind="prefill", seq_len=16, global_batch=2),
         "decode": dict(kind="decode", seq_len=24, global_batch=2),
+    },
+    "gnn": {
+        "full": dict(kind="full", n_nodes=60, n_edges=200, d_feat=12,
+                     n_classes=4),
+        "minibatch": dict(kind="minibatch", n_nodes=300, n_edges=900,
+                          batch_nodes=8, fanout=(3, 2), d_feat=12,
+                          n_classes=4),
+        "batched": dict(kind="batched", n_nodes=12, n_edges=20, batch=4,
+                        d_feat=12, n_classes=4),
     },
     "recsys": {
         "train": dict(kind="train", batch=16),

@@ -9,4 +9,4 @@ CONFIG = LMConfig(name="smollm-135m", n_layers=30, d_model=576, n_heads=9,
                   tie_embeddings=True, dtype=torch.bfloat16)
 SMOKE = LMConfig(name="smollm-135m-smoke", n_layers=2, d_model=48, n_heads=3,
                  n_kv_heads=1, d_ff=128, vocab=512, head_dim=16,
-                 tie_embeddings=True, dtype=torch.float32)
+                 tie_embeddings=True, dtype=torch.float32, remat="none")

@@ -46,6 +46,27 @@
 //   VEC; the entry point refuses a plan the kernel cannot run.  Offsets
 //   into the table are 64-bit (id · D reaches 4.1e8 at full size).
 //
+// embedding_bag_backward — the gradient of the same function (no TPU
+//   kernel: the reference trains through XLA's gather).
+//
+//   grad_table (V, D) in the table's type, dense: every row written, 0
+//           where no slot reads it, else Σ w[b, k] · grad_out[b] over
+//           the slots (b, k) with ids[b, k] == row, in slot order b·K + k,
+//           in float32 (each product rounded, then added: __fmul_rn and
+//           __fadd_rn, no contraction), rounded once.
+//   grad_w  (B, K) float32, where asked for: ⟨table[ids[b, k]],
+//           grad_out[b]⟩, summed over the columns in order by fmaf.
+//   The caller sorts the flat ids stably (`sorted`, with `perm` the slot
+//   of each sorted entry: preparation, a torch.sort), so the slots of one
+//   row form a run in slot order.  zero_kernel writes the whole grad
+//   table; then run_kernel gives one thread each (run, column), and the
+//   thread at the run's first entry sums the run in order and stores
+//   once.  No atomics: the bits are the same from call to call.
+//
+//   Bound: bytes.  The dense grad write V·D·sizeof(T) (1.64 GB at
+//   DeepFM's full table) dominates; the sorted ids, the permutation and
+//   the grad_out rows read are small beside it.
+//
 // Plain C interface: device pointers and a cudaStream_t passed as void*;
 // launches on that stream, does not synchronise, allocates nothing, and
 // returns the cudaError_t of the launch (0 on success).
@@ -211,6 +232,93 @@ int launch(const void* table, const int* ids, const float* w, long long b,
   return (int)cudaGetLastError();
 }
 
+
+// ---- the backward -------------------------------------------------------
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// out[0 .. n) = 0 in 16-byte stores between a scalar head and tail
+__global__ void zero_kernel(unsigned char* __restrict__ out, long long n) {
+  const long long head = (long long)((16 - ((uintptr_t)out & 15)) & 15);
+  const long long h = head < n ? head : n;
+  const long long body = (n - h) / 16;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long i = t; i < h; i += stride) out[i] = 0;
+  uint4* o4 = reinterpret_cast<uint4*>(out + h);
+  for (long long i = t; i < body; i += stride) o4[i] = make_uint4(0, 0, 0, 0);
+  for (long long i = h + 16 * body + t; i < n; i += stride) out[i] = 0;
+}
+
+// thread (p, c): if sorted entry p starts a run of equal ids, the run's
+// column c, summed in order
+template <typename T>
+__global__ void run_kernel(const int* __restrict__ sorted,
+                           const int* __restrict__ perm,
+                           const T* __restrict__ gout,
+                           const float* __restrict__ w, long long n, int k,
+                           int d, T* __restrict__ gtab) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n * d) return;
+  const long long p = e / d;
+  const int c = (int)(e - p * d);
+  const int id = sorted[p];
+  if (p > 0 && sorted[p - 1] == id) return;
+  float acc = 0.f;
+  for (long long q = p; q < n && sorted[q] == id; ++q) {
+    const long long slot = perm[q];
+    const float g = widen(gout[(slot / k) * d + c]);
+    acc = __fadd_rn(acc, w ? __fmul_rn(w[slot], g) : g);
+  }
+  store(gtab + (long long)id * d + c, acc);
+}
+
+// thread s: grad_w[s] = Σ_c table[ids[s], c] · grad_out[s / K, c]
+template <typename T>
+__global__ void weight_grad_kernel(const T* __restrict__ table,
+                                   const int* __restrict__ ids,
+                                   const T* __restrict__ gout, long long n,
+                                   int k, int d, float* __restrict__ gw) {
+  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n) return;
+  const T* row = table + (long long)ids[s] * d;
+  const T* g = gout + (s / k) * d;
+  float acc = 0.f;
+  for (int c = 0; c < d; ++c) acc = fmaf(widen(row[c]), widen(g[c]), acc);
+  gw[s] = acc;
+}
+
+template <typename T>
+int launch_backward(const void* table, const int* ids, const int* sorted,
+                    const int* perm, const float* w, const void* gout,
+                    long long b, int k, int d, long long v, void* gtab,
+                    float* gw, cudaStream_t s) {
+  const long long n = b * k;
+  const T* go = static_cast<const T*>(gout);
+  if (gtab) {
+    const long long bytes = v * d * (long long)sizeof(T);
+    zero_kernel<<<2 * 132 * 8, 256, 0, s>>>(
+        static_cast<unsigned char*>(gtab), bytes);
+    const long long work = n * d;
+    if (work > 0) {
+      const long long blocks = (work + 255) / 256;
+      if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+      run_kernel<T><<<(unsigned)blocks, 256, 0, s>>>(
+          sorted, perm, go, w, n, k, d, static_cast<T*>(gtab));
+    }
+  }
+  if (gw && n > 0) {
+    const long long blocks = (n + 255) / 256;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    weight_grad_kernel<T><<<(unsigned)blocks, 256, 0, s>>>(
+        static_cast<const T*>(table), ids, go, n, k, d, gw);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (the table's and the output's type).
@@ -256,5 +364,33 @@ extern "C" int embedding_bag(const void* table, int dtype, const int* ids,
                                    threads, smem, out, s);
     }
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The gradient of embedding_bag (sum mode).  dtype as above (the table's,
+// grad_out's and grad_table's type).  ids (B, K) int32; sorted (B·K,) the
+// flat ids sorted stably and perm (B·K,) int32 each sorted entry's slot
+// b·K + k; weights (B, K) float32 or null (weight 1); grad_out (B, D).
+// grad_table (V, D), or null for no table gradient; grad_w (B, K)
+// float32, or null for no weight gradient.  Ids must lie in [0, V).
+extern "C" int embedding_bag_backward(const void* table, int dtype,
+                                      const int* ids, const int* sorted,
+                                      const int* perm, const float* weights,
+                                      const void* grad_out, long long b,
+                                      int k, int d, long long v,
+                                      void* grad_table, float* grad_w,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b < 0 || k < 0 || d < 1 || v < 0 || (grad_table && (!sorted || !perm))
+      || (grad_w && (!table || !ids)))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_backward<float>(table, ids, sorted, perm, weights,
+                                  grad_out, b, k, d, v, grad_table, grad_w,
+                                  s);
+  if (dtype == 1)
+    return launch_backward<__nv_bfloat16>(table, ids, sorted, perm, weights,
+                                          grad_out, b, k, d, v, grad_table,
+                                          grad_w, s);
   return (int)cudaErrorInvalidValue;
 }

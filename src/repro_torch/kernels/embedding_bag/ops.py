@@ -8,6 +8,13 @@ else raises.  There is no fallback from the kernel to the plain version.
 The wrapper checks its inputs, allocates the output, launches on the
 current stream and adds one to ``launches["embedding_bag"]`` per kernel
 call.  :func:`plan` decides how the kernel cuts the bags into blocks.
+
+The sum carries a gradient (:class:`EmbeddingBagFn`) to the table and,
+where they require one, to the weights: on the card through the
+``embedding_bag_backward`` kernel (one count in
+``launches["embedding_bag_backward"]`` a call; a stable ``torch.sort``
+of the flat ids prepares it), on the CPU through the plain
+``ref.embedding_bag_backward_ref``.
 """
 from __future__ import annotations
 
@@ -18,11 +25,13 @@ import torch
 
 from repro_torch.kernels.embedding_bag import ref
 
-launches = {"embedding_bag": 0}
+launches = {"embedding_bag": 0, "embedding_bag_backward": 0}
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, ctypes.c_int, _P, _P, ctypes.c_longlong,
              *[ctypes.c_int] * 8, _P, _P]
+_BWD_ARGTYPES = [_P, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P, _P, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 SMS = 132                  # the H100's SMs: at least 2 blocks an SM
@@ -84,6 +93,8 @@ def _lib():
     if lib.embedding_bag.argtypes is None:
         lib.embedding_bag.argtypes = _ARGTYPES
         lib.embedding_bag.restype = ctypes.c_int
+        lib.embedding_bag_backward.argtypes = _BWD_ARGTYPES
+        lib.embedding_bag_backward.restype = ctypes.c_int
     return lib
 
 
@@ -140,6 +151,64 @@ def _bag_sum(table, ids, weights):
     return out
 
 
+def embedding_bag_backward(table, ids, weights, grad_out,
+                           need_table: bool = True,
+                           need_weights: bool = False):
+    """The gradient of the bag sum for ``grad_out`` (B, D): (grad_table
+    (V, D) in the table's type, dense; grad_weights (B, K) float32), each
+    None where not asked for.  The plain version on the CPU, else one
+    ``embedding_bag_backward`` call (the same bits from call to call)."""
+    if _route(table, ids, weights, grad_out) == "cpu":
+        return ref.embedding_bag_backward_ref(table, ids, weights, grad_out,
+                                              need_table, need_weights)
+    grad_out = grad_out.to(table.dtype).contiguous()
+    (b, k), d = ids.shape, table.shape[1]
+    if grad_out.shape != (b, d):
+        raise ValueError(f"grad_out {tuple(grad_out.shape)}, expected "
+                         f"{(b, d)}")
+    gt = gw = None
+    sorted_ids = perm = None
+    if need_table:
+        gt = torch.empty_like(table)
+        sorted_ids, perm = torch.sort(ids.reshape(-1), stable=True)
+        perm = perm.to(torch.int32)
+    if need_weights:
+        gw = torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
+    if gt is None and gw is None:
+        return None, None
+    err = _lib().embedding_bag_backward(
+        table.data_ptr(), _DTYPES[table.dtype], ids.data_ptr(),
+        None if sorted_ids is None else sorted_ids.data_ptr(),
+        None if perm is None else perm.data_ptr(),
+        None if weights is None else weights.data_ptr(), grad_out.data_ptr(),
+        b, k, d, table.shape[0], None if gt is None else gt.data_ptr(),
+        None if gw is None else gw.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"embedding_bag_backward failed with "
+                           f"cudaError_t {err}")
+    launches["embedding_bag_backward"] += 1
+    return gt, gw
+
+
+class EmbeddingBagFn(torch.autograd.Function):
+    """The bag sum with its gradient: forward :func:`_bag_sum`, backward
+    :func:`embedding_bag_backward` (ids take no gradient)."""
+
+    @staticmethod
+    def forward(ctx, table, ids, weights):
+        ctx.save_for_backward(table, ids, weights)
+        return _bag_sum(table, ids, weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        table, ids, weights = ctx.saved_tensors
+        need_w = weights is not None and ctx.needs_input_grad[2]
+        gt, gw = embedding_bag_backward(table, ids, weights, grad_out,
+                                        ctx.needs_input_grad[0], need_w)
+        return gt, None, gw
+
+
 def embedding_bag(table, ids, weights=None, mode: str = "sum"):
     """table (V, D), ids (B, K), optional weights (B, K) (0 = padding).
     mode ``sum``: (B, D) in the table's type; ``mean``: that sum divided
@@ -151,7 +220,11 @@ def embedding_bag(table, ids, weights=None, mode: str = "sum"):
         ids = ids.to(torch.int32)
     if weights is not None and weights.dtype != torch.float32:
         weights = weights.to(torch.float32)
-    out = _bag_sum(table, ids, weights)
+    if torch.is_grad_enabled() and (table.requires_grad or (
+            weights is not None and weights.requires_grad)):
+        out = EmbeddingBagFn.apply(table, ids, weights)
+    else:
+        out = _bag_sum(table, ids, weights)
     if mode == "mean":
         den = (weights.sum(1, keepdim=True) if weights is not None else
                torch.full((ids.shape[0], 1), float(ids.shape[1]),

@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the embedding bag: a gather and a weighted
-sum (the system's own lookup path)."""
+"""Plain PyTorch versions of the embedding bag and its gradient: a gather
+and a weighted sum (the system's own lookup path), and its scatter."""
 from __future__ import annotations
 
 import torch
@@ -29,3 +29,30 @@ def embedding_bag_inorder_ref(table: torch.Tensor, ids: torch.Tensor,
         row = table[ids[:, k].long()].float()
         acc = acc + (row if weights is None else row * weights[:, k, None])
     return acc.to(table.dtype)
+
+
+def embedding_bag_backward_ref(table: torch.Tensor, ids: torch.Tensor,
+                               weights: torch.Tensor | None,
+                               grad_out: torch.Tensor,
+                               need_table: bool = True,
+                               need_weights: bool = False):
+    """The gradient of :func:`embedding_bag_ref` (sum) for an upstream
+    ``grad_out`` (B, D): (grad_table, grad_weights), each None where not
+    asked for.  grad_table (V, D) in the table's type, dense:
+    grad_table[ids[b, k]] += w[b, k] · grad_out[b] in float32 (an
+    ``index_add_`` over the slots), rounded once.  grad_weights (B, K)
+    float32: ⟨table[ids[b, k]], grad_out[b]⟩."""
+    (b, k), d = ids.shape, table.shape[1]
+    g = grad_out.float()
+    gt = gw = None
+    if need_table:
+        contrib = g[:, None, :].expand(b, k, d)
+        if weights is not None:
+            contrib = contrib * weights[..., None]
+        gt = torch.zeros(table.shape, dtype=torch.float32,
+                         device=table.device).index_add_(
+            0, ids.reshape(-1).long(), contrib.reshape(-1, d))
+        gt = gt.to(table.dtype)
+    if need_weights:
+        gw = (table[ids.long()].float() * g[:, None, :]).sum(-1)
+    return gt, gw

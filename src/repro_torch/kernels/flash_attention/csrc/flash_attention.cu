@@ -94,6 +94,8 @@ struct Params {
   float scale;
   long long q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   long long o_sb, o_ss, o_sh;
+  float* lse;       // (B, H, S) float32 log-sum-exp of the scaled scores,
+                    // natural log, or null (serving writes none)
 };
 
 // 16-byte global loads of VEC elements, widened to float32.
@@ -287,6 +289,8 @@ flash_kernel(Params p) {
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int c = 0; c < DC; ++c) Ld<T>::put(o + c, acc[r][c] / den);
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(b * p.h + head) * p.s + row / g] = m[r] + logf(den);
   }
 }
 
@@ -838,6 +842,9 @@ prefill_kernel(const __grid_constant__ CUtensorMap tk,
     if (r >= rows) continue;
     const float den = half ? den_b : den_a;
     const int head = hk * g + (int)(r % g);
+    if (p.lse != nullptr && col == 0)   // scores in log2 units here
+      p.lse[((long long)b * p.h + head) * p.s + r / g] =
+          ((half ? m_b : m_a) + log2f(den)) * 0.6931471805599453f;
     bf16* dst = out + (long long)b * p.o_sb + (r / g) * p.o_ss +
                 head * p.o_sh + col;
 #pragma unroll
@@ -1110,6 +1117,421 @@ combine_kernel(const float* part, int n_chunks, int hd, Params p) {
 
 }  // namespace dec
 
+
+// --------------------------------------------------------------------------
+// the backward: dot_kernel, kv_kernel and q_kernel (float32 or bfloat16)
+// --------------------------------------------------------------------------
+
+namespace bwd {
+
+constexpr int THREADS = 256;              // 16 row groups x 16 column groups
+constexpr int BK = 64;                    // keys a tile
+
+template <int HD>
+struct Cfg {
+  static constexpr int BQ = HD == 128 ? 32 : 64;   // rows a tile
+  static constexpr int RM = BQ / 16;      // rows a thread in S and dP
+  static constexpr int DC = HD / 16;      // columns a thread in dK, dV, dQ
+  static constexpr int QS = BQ + 4;       // padded strides: float4 rows
+  static constexpr int KS = BK + 4;
+  static constexpr int HS = HD + 4;
+  // kv_kernel: kT, vT [HD][KS]; qT, doT [HD][QS]; q, dO [BQ][HS];
+  // P, dS [BQ][KS]; lse, D [BQ]
+  static constexpr int KV_FLOATS =
+      2 * HD * KS + 2 * HD * QS + 2 * BQ * HS + 2 * BQ * KS + 2 * BQ;
+  // q_kernel: qT, doT [HD][QS]; kT, vT [HD][KS]; k [BK][HS]; dS^T [BK][QS];
+  // lse, D [BQ]
+  static constexpr int Q_FLOATS =
+      2 * HD * QS + 2 * HD * KS + BK * HS + BK * QS + 2 * BQ;
+};
+
+// every tensor contiguous: q, o, dout, dq (B, S, H, HD); k, v, dk, dv
+// (B, T, HK, HD); lse and dd (B, H, S) float32
+struct BParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;
+  float* dd;
+  void* dq;
+  void* dk;
+  void* dv;
+  long long s, t;
+  int h, hk, causal;
+  float scale;
+};
+
+__device__ __forceinline__ float wid(float x) { return x; }
+__device__ __forceinline__ float wid(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(bf16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// 16 bytes of T widened to float32
+template <typename T>
+struct V16;
+template <>
+struct V16<float> {
+  static constexpr int N = 4;
+  __device__ static void get(const float* p, float (&o)[4]) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
+  }
+};
+template <>
+struct V16<bf16> {
+  static constexpr int N = 8;
+  __device__ static void get(const bf16* p, float (&o)[8]) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float2 f = __bfloat1622float2(h[u]);
+      o[2 * u] = f.x;
+      o[2 * u + 1] = f.y;
+    }
+  }
+};
+
+// D = rowsum(dO ∘ O): one warp a (batch, position, head) row, its lanes'
+// products summed by a fixed shuffle tree
+template <typename T, int HD>
+__global__ void __launch_bounds__(256) dot_kernel(BParams p, long long b) {
+  const long long row = ((long long)blockIdx.x * 256 + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= b * p.s * p.h) return;       // the whole warp
+  const T* o = static_cast<const T*>(p.o) + row * HD;
+  const T* d = static_cast<const T*>(p.dout) + row * HD;
+  float acc = 0.f;
+  for (int c = lane; c < HD; c += 32) acc = fmaf(wid(o[c]), wid(d[c]), acc);
+#pragma unroll
+  for (int x = 16; x > 0; x >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, x);
+  const long long head = row % p.h;
+  const long long bp = row / p.h;         // batch · S + position
+  if (lane == 0)
+    p.dd[((bp / p.s) * p.h + head) * p.s + bp % p.s] = acc;
+}
+
+// S and dP of a (BQ rows, BK keys) tile from the transposed q, dO, k and
+// v tiles: thread (ty, tx) takes rows ty·RM .. + RM and keys tx·4 .. + 4
+template <int HD, int RM, int QS, int KS>
+__device__ __forceinline__ void scores(const float* qT, const float* doT,
+                                       const float* kT, const float* vT,
+                                       int tx, int ty, float (&sc)[RM][4],
+                                       float (&dp)[RM][4]) {
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sc[r][c] = dp[r][c] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    float a[RM], da[RM], kk[4], vv[4];
+    lds<RM>(qT + d * QS + ty * RM, a);
+    lds<RM>(doT + d * QS + ty * RM, da);
+    lds<4>(kT + d * KS + tx * 4, kk);
+    lds<4>(vT + d * KS + tx * 4, vv);
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sc[r][c] = fmaf(a[r], kk[c], sc[r][c]);
+        dp[r][c] = fmaf(da[r], vv[c], dp[r][c]);
+      }
+  }
+}
+
+// rows r0 .. r0 + BQ of (batch b, kv head hk) into transposed (and, with
+// q_r / do_r, row-major) float32 tiles, zeros past the last row, and
+// their lse and D
+template <typename T, int HD, int BQ, int QS, int HS>
+__device__ __forceinline__ void stage_rows(const BParams& p, long long b,
+                                           int hk, long long r0, float* qT,
+                                           float* doT, float* q_r,
+                                           float* do_r, float* lse_s,
+                                           float* dd_s) {
+  constexpr int VEC = V16<T>::N;
+  const int g = p.h / p.hk;
+  const long long rows = p.s * g;
+  for (int e = threadIdx.x; e < BQ * HD / VEC; e += THREADS) {
+    const int rr = e / (HD / VEC);
+    const int d0 = (e % (HD / VEC)) * VEC;
+    const long long r = r0 + rr;
+    float xq[VEC], xd[VEC];
+    if (r < rows) {
+      const long long off =
+          ((b * p.s + r / g) * p.h + hk * g + r % g) * HD + d0;
+      V16<T>::get(static_cast<const T*>(p.q) + off, xq);
+      V16<T>::get(static_cast<const T*>(p.dout) + off, xd);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) xq[i] = xd[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      qT[(d0 + i) * QS + rr] = xq[i];
+      doT[(d0 + i) * QS + rr] = xd[i];
+      if (q_r != nullptr) {
+        q_r[rr * HS + d0 + i] = xq[i];
+        do_r[rr * HS + d0 + i] = xd[i];
+      }
+    }
+  }
+  for (int rr = threadIdx.x; rr < BQ; rr += THREADS) {
+    const long long r = r0 + rr;
+    float ls = 0.f, dd = 0.f;
+    if (r < rows) {
+      const long long li = (b * p.h + hk * g + r % g) * p.s + r / g;
+      ls = p.lse[li];
+      dd = p.dd[li];
+    }
+    lse_s[rr] = ls;
+    dd_s[rr] = dd;
+  }
+}
+
+// keys j0 .. j0 + BK of (batch b, kv head hk) into transposed float32 k and
+// v tiles (and, with k_r, a row-major k tile), zeros past T
+template <typename T, int HD, int KS, int HS>
+__device__ __forceinline__ void stage_keys(const BParams& p, long long b,
+                                           int hk, long long j0, float* kT,
+                                           float* vT, float* k_r) {
+  constexpr int VEC = V16<T>::N;
+  for (int e = threadIdx.x; e < BK * HD / VEC; e += THREADS) {
+    const int jj = e / (HD / VEC);
+    const int d0 = (e % (HD / VEC)) * VEC;
+    const long long j = j0 + jj;
+    float xk[VEC], xv[VEC];
+    if (j < p.t) {
+      const long long off = ((b * p.t + j) * p.hk + hk) * HD + d0;
+      V16<T>::get(static_cast<const T*>(p.k) + off, xk);
+      V16<T>::get(static_cast<const T*>(p.v) + off, xv);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) xk[i] = xv[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      kT[(d0 + i) * KS + jj] = xk[i];
+      vT[(d0 + i) * KS + jj] = xv[i];
+      if (k_r != nullptr) k_r[jj * HS + d0 + i] = xk[i];
+    }
+  }
+}
+
+// dK and dV of BK keys of one (batch, kv head): the rows of all G query
+// heads of the group, tile by tile (causal: from the first row whose
+// position reaches the tile), P = exp(S·scale - lse) and dS = P ∘ (dP -
+// D) through shared memory, dV += P^T dO and dK += dS^T Q in registers
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS) kv_kernel(BParams p) {
+  using C = Cfg<HD>;
+  constexpr int BQ = C::BQ, RM = C::RM, DC = C::DC;
+  constexpr int QS = C::QS, KS = C::KS, HS = C::HS;
+  extern __shared__ float4 smem_raw[];
+  float* kT = reinterpret_cast<float*>(smem_raw);
+  float* vT = kT + HD * KS;
+  float* qT = vT + HD * KS;
+  float* doT = qT + HD * QS;
+  float* q_r = doT + HD * QS;
+  float* do_r = q_r + BQ * HS;
+  float* ps = do_r + BQ * HS;
+  float* dss = ps + BQ * KS;
+  float* lse_s = dss + BQ * KS;
+  float* dd_s = lse_s + BQ;
+
+  const int g = p.h / p.hk;
+  const long long rows = p.s * g;
+  const long long b = blockIdx.x / p.hk;
+  const int hk = (int)(blockIdx.x % p.hk);
+  const long long j0 = (long long)blockIdx.y * BK;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  stage_keys<T, HD, KS, HS>(p, b, hk, j0, kT, vT, nullptr);
+
+  float dk[4][DC], dv[4][DC];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dk[kk][c] = dv[kk][c] = 0.f;
+
+  const long long r_begin = p.causal ? j0 * g / BQ * BQ : 0;
+  for (long long r0 = r_begin; r0 < rows; r0 += BQ) {
+    __syncthreads();                // the previous tile is consumed
+    stage_rows<T, HD, BQ, QS, HS>(p, b, hk, r0, qT, doT, q_r, do_r, lse_s,
+                                  dd_s);
+    __syncthreads();
+    float sc[RM][4], dp[RM][4];
+    scores<HD, RM, QS, KS>(qT, doT, kT, vT, tx, ty, sc, dp);
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int rr = ty * RM + r;
+      const long long row = r0 + rr;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const long long j = j0 + tx * 4 + c;
+        const bool ok = row < rows && j < p.t && (!p.causal || j <= row / g);
+        const float pr = ok ? expf(fmaf(sc[r][c], p.scale, -lse_s[rr])) : 0.f;
+        ps[rr * KS + tx * 4 + c] = pr;
+        dss[rr * KS + tx * 4 + c] = pr * (dp[r][c] - dd_s[rr]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int i = 0; i < BQ; ++i) {
+      float pv[4], dsv[4], dov[DC], qv[DC];
+      lds<4>(ps + i * KS + ty * 4, pv);
+      lds<4>(dss + i * KS + ty * 4, dsv);
+      lds<DC>(do_r + i * HS + tx * DC, dov);
+      lds<DC>(q_r + i * HS + tx * DC, qv);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          dv[kk][c] = fmaf(pv[kk], dov[c], dv[kk][c]);
+          dk[kk][c] = fmaf(dsv[kk], qv[c], dk[kk][c]);
+        }
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const long long j = j0 + ty * 4 + kk;
+    if (j >= p.t) continue;
+    const long long off = ((b * p.t + j) * p.hk + hk) * HD + tx * DC;
+    T* dkp = static_cast<T*>(p.dk) + off;
+    T* dvp = static_cast<T*>(p.dv) + off;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      put(dkp + c, dk[kk][c] * p.scale);
+      put(dvp + c, dv[kk][c]);
+    }
+  }
+}
+
+// dQ of BQ rows of one (batch, kv head) (the forward's rows: position
+// r / G of head hk·G + r % G), over the key tiles up to the last row's
+// position when causal: dQ += dS K in registers, dS^T through shared
+// memory
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS) q_kernel(BParams p) {
+  using C = Cfg<HD>;
+  constexpr int BQ = C::BQ, RM = C::RM, DC = C::DC;
+  constexpr int QS = C::QS, KS = C::KS, HS = C::HS;
+  extern __shared__ float4 smem_raw[];
+  float* qT = reinterpret_cast<float*>(smem_raw);
+  float* doT = qT + HD * QS;
+  float* kT = doT + HD * QS;
+  float* vT = kT + HD * KS;
+  float* k_r = vT + HD * KS;
+  float* dsT = k_r + BK * HS;
+  float* lse_s = dsT + BK * QS;
+  float* dd_s = lse_s + BQ;
+
+  const int g = p.h / p.hk;
+  const long long rows = p.s * g;
+  const long long b = blockIdx.x / p.hk;
+  const int hk = (int)(blockIdx.x % p.hk);
+  const long long r0 = (long long)(gridDim.y - 1 - blockIdx.y) * BQ;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  stage_rows<T, HD, BQ, QS, HS>(p, b, hk, r0, qT, doT, nullptr, nullptr,
+                                lse_s, dd_s);
+  long long kv_end = p.t;
+  if (p.causal) {
+    const long long last = (r0 + BQ < rows ? r0 + BQ : rows) - 1;
+    if (last / g + 1 < kv_end) kv_end = last / g + 1;
+  }
+  float dq[RM][DC];
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dq[r][c] = 0.f;
+
+  for (long long j0 = 0; j0 < kv_end; j0 += BK) {
+    __syncthreads();                // the previous tile is consumed
+    stage_keys<T, HD, KS, HS>(p, b, hk, j0, kT, vT, k_r);
+    __syncthreads();
+    float sc[RM][4], dp[RM][4];
+    scores<HD, RM, QS, KS>(qT, doT, kT, vT, tx, ty, sc, dp);
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int rr = ty * RM + r;
+      const long long row = r0 + rr;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const long long j = j0 + tx * 4 + c;
+        const bool ok = row < rows && j < p.t && (!p.causal || j <= row / g);
+        const float pr = ok ? expf(fmaf(sc[r][c], p.scale, -lse_s[rr])) : 0.f;
+        dsT[(tx * 4 + c) * QS + rr] = pr * (dp[r][c] - dd_s[rr]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < BK; ++j) {
+      float dsv[RM], kv[DC];
+      lds<RM>(dsT + j * QS + ty * RM, dsv);
+      lds<DC>(k_r + j * HS + tx * DC, kv);
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) dq[r][c] = fmaf(dsv[r], kv[c], dq[r][c]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const long long row = r0 + ty * RM + r;
+    if (row >= rows) continue;
+    T* dqp = static_cast<T*>(p.dq) +
+             ((b * p.s + row / g) * p.h + hk * g + row % g) * HD + tx * DC;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) put(dqp + c, dq[r][c] * p.scale);
+  }
+}
+
+template <typename T, int HD>
+int launch(const BParams& p, long long b, cudaStream_t s) {
+  using C = Cfg<HD>;
+  const long long rows_all = b * p.s * p.h;
+  const long long key_tiles = (p.t + BK - 1) / BK;
+  const long long row_tiles = (p.s * (p.h / p.hk) + C::BQ - 1) / C::BQ;
+  if (key_tiles > 65535 || row_tiles > 65535 || b * p.hk > 0x7fffffffLL ||
+      (rows_all * 32 + 255) / 256 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int kv_bytes = (int)sizeof(float) * C::KV_FLOATS;
+  const int q_bytes = (int)sizeof(float) * C::Q_FLOATS;
+  cudaError_t err = cudaFuncSetAttribute(
+      kv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kv_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(q_kernel<T, HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               q_bytes);
+  if (err != cudaSuccess) return (int)err;
+  dot_kernel<T, HD><<<(unsigned)((rows_all * 32 + 255) / 256), 256, 0, s>>>(
+      p, b);
+  kv_kernel<T, HD><<<dim3((unsigned)(b * p.hk), (unsigned)key_tiles),
+                     THREADS, kv_bytes, s>>>(p);
+  q_kernel<T, HD><<<dim3((unsigned)(b * p.hk), (unsigned)row_tiles),
+                    THREADS, q_bytes, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_hd(const BParams& p, int hd, long long b, cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch<T, 16>(p, b, s);
+    case 32: return launch<T, 32>(p, b, s);
+    case 64: return launch<T, 64>(p, b, s);
+    case 128: return launch<T, 128>(p, b, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace bwd
+
 // --------------------------------------------------------------------------
 // launchers
 // --------------------------------------------------------------------------
@@ -1210,7 +1632,7 @@ int launch_decode(const Params& p, long long b, long long chunk, void* part,
   if (p.causal && p.s < kv_end) kv_end = p.s;
   const long long n_chunks = (kv_end + chunk - 1) / chunk;
   if (chunk <= 0 || n_chunks > 65535 || b * p.hk > 0x7fffffffLL ||
-      (n_chunks > 1) != (part != nullptr))
+      (n_chunks > 1) != (part != nullptr) || p.lse != nullptr)
     return (int)cudaErrorInvalidValue;
   const long long rows = p.s * (p.h / p.hk);     // 1 .. dec::ROWS
   if (rows <= 1) return launch_decode_rm<HD, 1>(p, b, n_chunks, chunk, part,
@@ -1260,7 +1682,10 @@ int launch_hd(const Params& p, int dtype, int hd, long long b,
 // route with `chunk` keys a block: with more than one chunk up to kv_len
 // (and up to S when causal), `part` is float32 scratch of B·HK·chunks·
 // S·(H/HK)·(hd + 2) values that flash_attention_combine then reads;
-// otherwise `part` is null and the output is written here.
+// otherwise `part` is null and the output is written here.  `lse`
+// is null, or (B, H, S) float32 for each row's natural-log log-sum-exp of
+// its scaled, masked scores (what the backward recomputes P from); the
+// split-KV route writes none and refuses one.
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, void* out, int dtype,
     int hd, long long b, long long s, int h, int hk, long long t,
@@ -1268,11 +1693,11 @@ extern "C" int flash_attention(
     long long q_ss, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, long long chunk,
-    void* part, void* stream) {
+    void* part, float* lse, void* stream) {
   if (h <= 0 || hk <= 0 || h % hk) return (int)cudaErrorInvalidValue;
   Params p{q, k, v, out, s, t, kv_len, h, hk, causal, scale,
            q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
-           o_sb, o_ss, o_sh};
+           o_sb, o_ss, o_sh, lse};
   return launch_hd(p, dtype, hd, b, chunk, part,
                    static_cast<cudaStream_t>(stream));
 }
@@ -1287,9 +1712,32 @@ extern "C" int flash_attention_combine(
       n_chunks < 1 || b * hk > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   Params p{nullptr, nullptr, nullptr, out, s, 0, 0, h, hk, 0, 0.f,
-           0, 0, 0, 0, 0, 0, 0, 0, 0, o_sb, o_ss, o_sh};
+           0, 0, 0, 0, 0, 0, 0, 0, 0, o_sb, o_ss, o_sh, nullptr};
   dec::combine_kernel<<<(unsigned)(b * hk), 256, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part), (int)n_chunks, hd, p);
   return (int)cudaGetLastError();
+}
+
+// The gradient of a causal (S == T) or unmasked (kv_len == T) call: dq,
+// dk, dv for the upstream dout, from the forward's q, k, v, out and lse.
+// Every tensor contiguous, dtype as above (q, k, v, out, dout, dq, dk, dv
+// alike); `dd` is (B, H, S) float32 scratch for D = rowsum(dout ∘ out).
+// Three launches on the stream: dot_kernel (D), kv_kernel (dk, dv: one
+// block a (batch, kv head, 64 keys)), q_kernel (dq: one block a (batch,
+// kv head, row tile)).  No atomics: the same bits from call to call.
+extern "C" int flash_attention_backward(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const float* lse, int dtype, int hd, long long b,
+    long long s, int h, int hk, long long t, int causal, float scale,
+    void* dq, void* dk, void* dv, float* dd, void* stream) {
+  if (h <= 0 || hk <= 0 || h % hk || b < 1 || s < 1 || t < 1 ||
+      (causal && s != t))
+    return (int)cudaErrorInvalidValue;
+  bwd::BParams p{q, k, v, out, dout, lse, dd, dq, dk, dv, s, t, h, hk,
+                 causal, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return bwd::launch_hd<float>(p, hd, b, st);
+  if (dtype == 1) return bwd::launch_hd<bf16>(p, hd, b, st);
+  return (int)cudaErrorInvalidValue;
 }

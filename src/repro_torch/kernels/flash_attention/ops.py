@@ -17,6 +17,18 @@ adds one to ``launches["flash_attention_combine"]``.
 the model runs the reference's own plain attention (whose decode and
 short-sequence branches round the probabilities to the model's type), so
 the CPU branch here serves the kernel's tests.
+
+Where q, k or v requires a gradient (a training call), the call goes
+through :class:`FlashAttentionFn`: its forward runs the same kernel and
+also writes each row's float32 log-sum-exp (B, H, S); its backward runs
+``flash_attention_backward`` (one count in
+``launches["flash_attention_backward"]`` a call: D = rowsum(dO ∘ O), then
+dK/dV and dQ, P recomputed from the LSE).  Training takes causal calls
+with S == T and unmasked calls with kv_len == T; the split-KV route
+(bf16, S·H/HK <= 16) writes no LSE, so a training call there raises.
+Serving passes no LSE pointer.  On the CPU the function's forward and
+backward are the plain ``ref.attention_lse_ref`` and
+``ref.attention_backward_ref``.
 """
 from __future__ import annotations
 
@@ -27,7 +39,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import ref
 
-launches = {"flash_attention": 0, "flash_attention_combine": 0}
+launches = {"flash_attention": 0, "flash_attention_combine": 0,
+            "flash_attention_backward": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
 DECODE_ROWS = 16        # bf16 calls with at most this many rows split KV
@@ -36,7 +49,10 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _ARGTYPES = ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _LL, _LL,
               ctypes.c_int, ctypes.c_int, _LL, _LL, ctypes.c_int,
-              ctypes.c_float] + [_LL] * 13 + [_P, _P])
+              ctypes.c_float] + [_LL] * 13 + [_P, _P, _P])
+_BWD_ARGTYPES = ([_P] * 6 + [ctypes.c_int, ctypes.c_int, _LL, _LL,
+                              ctypes.c_int, ctypes.c_int, _LL, ctypes.c_int,
+                              ctypes.c_float] + [_P] * 5)
 _COMBINE_ARGTYPES = [_P, _P, ctypes.c_int, _LL, _LL, ctypes.c_int,
                      ctypes.c_int, _LL, _LL, _LL, _LL, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,6 +73,8 @@ def _lib():
         lib.flash_attention.restype = ctypes.c_int
         lib.flash_attention_combine.argtypes = _COMBINE_ARGTYPES
         lib.flash_attention_combine.restype = ctypes.c_int
+        lib.flash_attention_backward.argtypes = _BWD_ARGTYPES
+        lib.flash_attention_backward.restype = ctypes.c_int
     return lib
 
 
@@ -102,18 +120,32 @@ def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None):
     head h attends with kv head h // (H // HK)) → (B, S, H, D) in q's
     type.  Keys j < ``kv_len`` (default T) are kept, and j <= i when
     ``causal`` (the reference kernel's mask).  D is 16, 32, 64 or 128 on
-    the card."""
+    the card.  Where q, k or v requires a gradient, the call carries one
+    (:class:`FlashAttentionFn`)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, kv_len)
     t = k.shape[1]
     kv_len = t if kv_len is None else int(kv_len)
     if _route(q, k, v) == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+    return _forward(q, k, v, causal, kv_len, None)
+
+
+def _forward(q, k, v, causal: bool, kv_len: int, lse):
+    """The card's launch(es): out, and each row's log-sum-exp into
+    ``lse`` (B, H, S) float32 where it is given."""
     _check(q, k, v, kv_len)
     b, s, h, d = q.shape
-    hk = k.shape[2]
+    hk, t = k.shape[2], k.shape[1]
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     chunks = split_chunks(q.dtype, s, h // hk, kv_len, causal)
+    if chunks and lse is not None:
+        raise ValueError(f"the split-KV route (bf16, S·H/HK = "
+                         f"{s * h // hk} <= {DECODE_ROWS}) writes no LSE: "
+                         f"no gradient through it")
     part = None
     if chunks > 1:
         part = torch.empty(b * hk * chunks * s * (h // hk) * (d + 2),
@@ -125,7 +157,8 @@ def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None):
         _DTYPES[q.dtype], d, b, s, h, hk, t, kv_len, int(causal),
         1.0 / math.sqrt(d), *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *out.stride()[:3], DECODE_CHUNK,
-        None if part is None else part.data_ptr(), stream)
+        None if part is None else part.data_ptr(),
+        None if lse is None else lse.data_ptr(), stream)
     if err:
         raise RuntimeError(f"flash_attention failed with cudaError_t {err}")
     launches["flash_attention"] += 1
@@ -138,6 +171,80 @@ def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None):
                                f"cudaError_t {err}")
         launches["flash_attention_combine"] += 1
     return out
+
+
+def _check_train(q, k, causal: bool, kv_len: int | None):
+    s, t = q.shape[1], k.shape[1]
+    if kv_len is not None and int(kv_len) != t:
+        raise ValueError(f"a training call keeps every key: kv_len "
+                         f"{kv_len} != T {t}")
+    if causal and s != t:
+        raise ValueError(f"a causal training call needs S == T, got S {s} "
+                         f"and T {t}")
+
+
+def flash_attention_forward(q, k, v, causal: bool = True):
+    """The training forward: (out (B, S, H, D), lse (B, H, S) float32, the
+    natural log of each row's Σ_j exp(q·k_j / sqrt(D)) over its kept
+    keys).  The plain version on the CPU, else one kernel launch."""
+    _check_train(q, k, causal, None)
+    if _route(q, k, v) == "cpu":
+        return ref.attention_lse_ref(q, k, v, causal=causal)
+    b, s, h, _ = q.shape
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    return _forward(q, k, v, causal, k.shape[1], lse), lse
+
+
+def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
+    """(dq, dk, dv) of a training call for the upstream ``do``, from its
+    inputs, output and LSE; each in its input's type.  The plain version
+    on the CPU, else one ``flash_attention_backward`` call (three kernels,
+    the same bits from call to call)."""
+    _check_train(q, k, causal, None)
+    if _route(q, k, v, o, lse, do) == "cpu":
+        return ref.attention_backward_ref(q, k, v, o, lse, do, causal)
+    q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do.to(q.dtype)))
+    _check(q, k, v, k.shape[1])
+    b, s, h, d = q.shape
+    hk, t = k.shape[2], k.shape[1]
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or lse.shape != (b, h, s) or lse.dtype != torch.float32:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype}, do "
+                         f"{tuple(do.shape)}, lse {tuple(lse.shape)} "
+                         f"{lse.dtype} do not fit q {tuple(q.shape)}")
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dd = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    err = _lib().flash_attention_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype], d, b, s, h, hk, t,
+        int(causal), 1.0 / math.sqrt(d), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dd.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_backward failed with "
+                           f"cudaError_t {err}")
+    launches["flash_attention_backward"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with its gradient: :func:`flash_attention_forward` (out
+    and LSE) and :func:`flash_attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, kv_len):
+        _check_train(q, k, causal, kv_len)
+        o, lse = flash_attention_forward(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do,
+                                              ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def split_chunks(dtype, s: int, g: int, kv_len: int, causal: bool) -> int:

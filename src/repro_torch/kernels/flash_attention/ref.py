@@ -7,7 +7,10 @@ a softmax and the product with v in float32, cast to q's type.
 :func:`attention_ref` forms the whole (S, T) score matrix;
 :func:`attention_chunked_ref` walks the keys in chunks with an online
 softmax, for lengths where that matrix does not fit.  Both need
-kv_len >= 1 (no row has every key masked).
+kv_len >= 1 (no row has every key masked).  :func:`attention_lse_ref`
+adds each row's log-sum-exp, and :func:`attention_backward_ref` is the
+gradient from the formulas (P from the LSE, D = rowsum(dO ∘ O)), one
+batch row at a time so that a (H, S, T) score block is the most it holds.
 """
 from __future__ import annotations
 
@@ -76,3 +79,47 @@ def attention_chunked_ref(q, k, v, causal: bool = True,
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]       # (B, HK, G, S, D)
     return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+def attention_lse_ref(q, k, v, causal: bool = True):
+    """(out, lse): :func:`attention_ref` and each row's natural-log
+    log-sum-exp of its scaled, masked scores, (B, H, S) float32."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    qg = _grouped(q, k)
+    sc = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(d)
+    sc = sc.masked_fill(~_mask(s, 0, t, t, causal, q.device), float("-inf"))
+    lse = torch.logsumexp(sc, dim=-1)                    # (B, HK, G, S)
+    o = torch.einsum("bkgst,btkd->bskgd", torch.softmax(sc, dim=-1),
+                     v.float())
+    return o.reshape(b, s, h, d).to(q.dtype), lse.reshape(b, h, s)
+
+
+def attention_backward_ref(q, k, v, o, lse, do, causal: bool = True):
+    """(dq, dk, dv) of attention (every key kept, and j <= i when causal)
+    for the upstream ``do``, in float32 from the formulas and cast to each
+    input's type: P = exp(S·scale - lse), dV = Pᵀ dO, dP = dO Vᵀ,
+    D = rowsum(dO ∘ O), dS = P ∘ (dP - D), dQ = scale · dS K,
+    dK = scale · dSᵀ Q; the query heads of a kv head summed into its dK and
+    dV."""
+    b, s, h, d = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    scale = 1.0 / math.sqrt(d)
+    keep = _mask(s, 0, t, t, causal, q.device)
+    outs = ([], [], [])
+    for i in range(b):
+        qg = _grouped(q[i:i + 1], k)[0]                  # (S, HK, G, D)
+        dog = do[i].float().reshape(s, hk, g, d)
+        kf, vf = k[i].float(), v[i].float()              # (T, HK, D)
+        sc = torch.einsum("skgd,tkd->kgst", qg, kf) * scale
+        p = torch.exp(sc - lse[i].reshape(hk, g, s)[..., None])
+        p = p.masked_fill(~keep, 0.0)
+        dd = (dog * o[i].float().reshape(s, hk, g, d)).sum(-1)   # (S, HK, G)
+        dp = torch.einsum("skgd,tkd->kgst", dog, vf)
+        ds = p * (dp - dd.permute(1, 2, 0)[..., None])
+        outs[0].append(torch.einsum("kgst,tkd->skgd", ds, kf)
+                       .reshape(s, h, d) * scale)
+        outs[1].append(torch.einsum("kgst,skgd->tkd", ds, qg) * scale)
+        outs[2].append(torch.einsum("kgst,skgd->tkd", p, dog))
+    return tuple(torch.stack(x).to(y.dtype) for x, y in zip(outs, (q, k, v)))

@@ -1,13 +1,127 @@
-"""Serve-side step bodies of the LM and recsys cells (the serving half of
-the reference's ``launch/steps.py``), with its useful-compute estimates.
+"""The cells' steps: (arch × shape) → a step function, the shapes and
+types of its inputs, and its useful-compute estimate (the reference's
+``launch/steps.py`` on one device), and the serve-side step bodies.
 
-Each body runs its model as one serving call under ``torch.no_grad``, on
-the model's device.  Train steps and sharded steps wait for later slices.
+``make_step`` / ``make_lm_step`` / ``make_gnn_step`` / ``make_recsys_step``
+return a :class:`StepBundle` whose ``fn`` works on the reference's
+parameter pytree: a train ``fn(params, opt_state, batch...)`` returns
+(new params, new optimizer state, loss, grad_norm) through
+``train.optimizer.update``; the prefill, decode, serve and retrieval
+steps take (params, inputs...).  The bundle's model is built on the meta device
+(shapes and types only); ``fn`` runs it on the tensors it is given, on
+their device, by ``torch.func.functional_call``.  ``args`` are meta-device
+tensors that carry only shape and dtype.  A ``mesh`` raises: the sharded
+steps wait for more than one card (ROADMAP.md §1 item 5).
+
+The serve bodies (``prefill_fn``, ``lm_serve_fn``, ``recsys_serve_fn``,
+``retrieval_fn``) run a model as one serving call under
+``torch.no_grad``, on the model's device.
 """
 from __future__ import annotations
 
-import torch
+import dataclasses
+import importlib
+from typing import Callable
 
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from repro_torch.configs.registry import ArchSpec
+from repro_torch.models.common import cross_entropy
+from repro_torch.models.gnn.common import GraphData
+from repro_torch.train import optimizer as opt
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+OPT_CFG = opt.OptConfig(lr=1e-3, warmup_steps=10, total_steps=1000)
+_GNN_CLASSES = {"gin": ("gin", "GIN"), "pna": ("pna", "PNA"),
+                "egnn": ("egnn", "EGNN"),
+                "equiformer_v2": ("equiformer_v2", "EquiformerV2")}
+
+
+@dataclasses.dataclass
+class StepBundle:
+    fn: Callable                 # the step
+    args: tuple                  # meta-device tensors: shapes and dtypes
+    model_flops: float           # 6·N·D-style useful-compute estimate
+    meta: dict
+    loop_scale: int = 1          # trip count of the dominant loop
+    model: nn.Module | None = None   # the meta-device model fn runs
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded steps wait for more than one card (ROADMAP.md §1 "
+            "item 5)")
+
+
+class _Call(nn.Module):
+    """``fn(model, *args)`` as a module, so that ``functional_call`` can
+    run it on the parameters it is given."""
+
+    def __init__(self, model: nn.Module, fn: Callable):
+        super().__init__()
+        self.model = model
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(self.model, *args)
+
+
+def bind(model: nn.Module, fn: Callable, grad: bool = False) -> Callable:
+    """``call(params, *args)`` = ``fn(model, *args)`` with the model's
+    parameters taken from ``params`` (the model's ``param_tree`` layout)
+    instead of its own.  With ``grad``, ``call`` returns (value, the
+    gradient tree of the value), a leaf the value does not reach getting
+    zeros as ``jax.grad`` gives; the backward runs while the parameters
+    are bound, so a layer that remat recomputes reads them too."""
+    by_id = {id(p): f"model.{n}" for n, p in model.named_parameters()}
+    names = [by_id[id(p)] for p in tree_leaves(model.param_tree())]
+
+    def run(params, *args):
+        leaves = [p.detach().requires_grad_() if grad else p
+                  for p in tree_leaves(params)]
+
+        def body(m, *a):
+            if not grad:
+                return fn(m, *a)
+            with torch.enable_grad():
+                value = fn(m, *a)
+                grads = torch.autograd.grad(value, leaves, allow_unused=True)
+            return value.detach(), tree_unflatten(params, [
+                torch.zeros_like(p) if g is None else g
+                for p, g in zip(leaves, grads)])
+
+        return functional_call(_Call(model, body), dict(zip(names, leaves)),
+                               args, strict=True)
+
+    return run
+
+
+def _train_fn(value_and_grad: Callable, ocfg: opt.OptConfig) -> Callable:
+    def train_fn(params, opt_state, *batch):
+        value, grads = value_and_grad(params, *batch)
+        params, opt_state, stats = opt.update(grads, opt_state, params, ocfg)
+        return params, opt_state, value, stats["grad_norm"]
+
+    return train_fn
+
+
+def _specs(model: nn.Module, ocfg: opt.OptConfig | None = None):
+    pspecs = tree_map(lambda p: p.detach(), model.param_tree())
+    if ocfg is None:
+        return pspecs
+    return pspecs, opt.init(pspecs, ocfg)
+
+
+# ===========================================================================
+# LM family
+# ===========================================================================
 
 def lm_model_flops(cfg, shape: dict) -> float:
     s, b = shape["seq_len"], shape["global_batch"]
@@ -26,6 +140,187 @@ def lm_model_flops(cfg, shape: dict) -> float:
     return 2.0 * n_act * t + 2.0 * 2.0 * l * h * hd * t * s
 
 
+def make_lm_step(cfg, shape: dict, mesh=None,
+                 mb_override: int | None = None,
+                 remat_override: str | None = None) -> StepBundle:
+    """The LM cell's step: train (with ``mb`` microbatches, gradients
+    summed in float32 in microbatch order, then loss and gradients divided
+    by ``mb``), prefill or decode."""
+    from repro_torch.models.lm import transformer as tf
+
+    _no_mesh(mesh)
+    if remat_override is not None:
+        cfg = dataclasses.replace(cfg, remat=remat_override)
+    model = tf.Transformer(cfg, device="meta")
+    b, s = shape["global_batch"], shape["seq_len"]
+    kind = shape["kind"]
+    meta = dict(params=cfg.param_count(), active=cfg.active_param_count())
+
+    if kind == "train":
+        if cfg.param_count() > 1e11:
+            raise NotImplementedError(
+                f"{cfg.name}: bf16 optimizer states and accumulators "
+                f"(models over 1e11 parameters) wait for the MoE LMs")
+        pspecs, ospecs = _specs(model, OPT_CFG)
+        tok = _meta((b, s + 1), torch.int32)
+        mb = 4 if (cfg.param_count() > 2e10 and b % 4 == 0) else 1
+        if mb_override is not None:
+            mb = mb_override
+        value_and_grad = bind(model, tf.loss_fn, grad=True)
+
+        def train_fn(params, opt_state, tokens):
+            if mb == 1:
+                value, grads = value_and_grad(params, tokens)
+            else:
+                value = torch.zeros((), device=tokens.device)
+                grads = tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=torch.float32, device=p.device), params)
+                for tok_mb in tokens.reshape(mb, b // mb, s + 1):
+                    v, g = value_and_grad(params, tok_mb)
+                    value = value + v
+                    grads = tree_map(lambda a, x: a + x.float(), grads, g)
+                value = value / mb
+                grads = tree_map(lambda g: g / mb, grads)
+            params, opt_state, stats = opt.update(grads, opt_state, params,
+                                                  OPT_CFG)
+            return params, opt_state, value, stats["grad_norm"]
+
+        return StepBundle(train_fn, (pspecs, ospecs, tok),
+                          model_flops=lm_model_flops(cfg, shape), meta=meta,
+                          loop_scale=cfg.n_layers * mb, model=model)
+
+    pspecs = _specs(model)
+    if kind == "prefill":
+        return StepBundle(bind(model, prefill_fn),
+                          (pspecs, _meta((b, s), torch.int32)),
+                          model_flops=lm_model_flops(cfg, shape), meta=meta,
+                          loop_scale=cfg.n_layers, model=model)
+
+    cache = _meta((cfg.n_layers, b, s, cfg.n_kv_heads, cfg.hd), cfg.dtype)
+    return StepBundle(bind(model, lm_serve_fn),
+                      (pspecs, _meta((b, 1), torch.int32), cache, cache,
+                       _meta((), torch.int32)),
+                      model_flops=lm_model_flops(cfg, shape), meta=meta,
+                      loop_scale=cfg.n_layers, model=model)
+
+
+# ===========================================================================
+# GNN family
+# ===========================================================================
+
+def gnn_model_flops(cfg, shape: dict) -> float:
+    """Rough per-layer message/update matmul count."""
+    d = getattr(cfg, "d_hidden", 64)
+    nl = cfg.n_layers
+    if shape["kind"] == "full":
+        n, e = shape["n_nodes"], 2 * shape["n_edges"]
+    elif shape["kind"] == "minibatch":
+        seeds = shape["batch_nodes"]
+        f1, f2 = shape["fanout"]
+        n = seeds * (1 + f1 + f1 * f2)
+        e = 2 * seeds * (f1 + f1 * f2)
+    else:
+        n = shape["batch"] * shape["n_nodes"]
+        e = 2 * shape["batch"] * shape["n_edges"]
+    name = type(cfg).__name__
+    if name == "GINConfig":          # gather-add per edge, 2-layer MLP/node
+        per_edge, per_node = 2 * d, 2 * 2 * d * d
+    elif name == "PNAConfig":        # pre-MLP per edge, wide post per node
+        per_edge, per_node = 2 * (2 * d) * d, 2 * (13 * d) * d
+    elif name == "EGNNConfig":       # phi_e per edge (2 layers), phi_h/node
+        per_edge, per_node = 2 * 2 * d * d * 2, 2 * 2 * d * d
+    else:                            # EquiformerV2: SO(2) conv per edge
+        c = d
+        l0 = cfg.l_max + 1
+        so2 = 2 * (l0 * c) ** 2
+        for m in range(1, cfg.m_max + 1):
+            so2 += 4 * 2 * ((cfg.l_max + 1 - m) * c) ** 2
+        wig = 2 * sum((2 * ll + 1) ** 2 for ll in range(cfg.l_max + 1)) * c
+        per_edge, per_node = so2 + 2 * wig, 2 * 2 * c * c * (l0 ** 2)
+    return 3.0 * nl * (e * per_edge + n * per_node)         # fwd+bwd ~ 3x
+
+
+def _mk_graph_arrays(shape: dict, batch_lead: int | None):
+    f = shape["d_feat"]
+    i32, f32, bool_ = torch.int32, torch.float32, torch.bool
+    if shape["kind"] == "minibatch":
+        seeds = shape["batch_nodes"] // (batch_lead or 1)
+        f1, f2 = shape["fanout"]
+        n = seeds * (1 + f1 + f1 * f2)
+        e = 2 * seeds * (f1 + f1 * f2)
+        lead = (batch_lead,) if batch_lead else ()
+    elif shape["kind"] == "batched":
+        n, e = shape["n_nodes"], 2 * shape["n_edges"]
+        lead = (shape["batch"],)
+    else:
+        n, e = shape["n_nodes"], 2 * shape["n_edges"]
+        lead = ()
+    per_graph = () if shape["kind"] == "batched" else (n,)
+    return dict(
+        feats=_meta((*lead, n, f), f32),
+        edge_index=_meta((*lead, 2, e), i32),
+        edge_mask=_meta((*lead, e), bool_),
+        labels=_meta((*lead, *per_graph), i32),
+        label_mask=_meta((*lead, *per_graph), bool_),
+        positions=_meta((*lead, n, 3), f32),
+    ), n
+
+
+def make_gnn_step(spec: ArchSpec, cfg, shape: dict, mesh=None
+                  ) -> StepBundle:
+    """The GNN cell's train step on the plain model (no mesh: the
+    vertex-cut engine's sharded step waits for more than one card).  The
+    minibatch (a lead of 1) and batched kinds take the mean of each lead
+    row's loss, a loop standing in for ``jax.vmap``.  Features go to
+    float32 as in the reference (float64 ones stay float64, for a float64
+    check)."""
+    _no_mesh(mesh)
+    module, cls = _GNN_CLASSES[spec.model_module]
+    graph_level = shape["kind"] == "batched"
+    cfg = dataclasses.replace(cfg, d_feat=shape["d_feat"],
+                              n_classes=shape["n_classes"],
+                              graph_level=graph_level)
+    model = getattr(importlib.import_module(
+        f"repro_torch.models.gnn.{module}"), cls)(cfg, device="meta")
+    lead = 1 if shape["kind"] == "minibatch" else None
+    arrays, n_nodes = _mk_graph_arrays(shape, lead)
+    looped = shape["kind"] in ("minibatch", "batched")
+    pspecs, ospecs = _specs(model, OPT_CFG)
+
+    def single_loss(m, feats, edge_index, edge_mask, labels, label_mask,
+                    positions):
+        gids = (torch.zeros((feats.shape[0],), dtype=torch.int32,
+                            device=feats.device) if graph_level else None)
+        g = GraphData(feats.to(torch.promote_types(feats.dtype,
+                                                   torch.float32)),
+                      edge_index, edge_mask,
+                      graph_ids=gids, n_graphs=1, positions=positions)
+        logits = m(g)
+        if graph_level:           # one graph, scalar label
+            return cross_entropy(logits[None], labels.reshape(1, 1),
+                                 label_mask.reshape(1, 1).float())
+        return cross_entropy(logits[None], labels[None],
+                             label_mask[None].float())
+
+    def loss_all(m, a):
+        keys = ("feats", "edge_index", "edge_mask", "labels", "label_mask",
+                "positions")
+        if looped:
+            n_lead = a["feats"].shape[0]
+            return torch.stack([single_loss(m, *(a[k][i] for k in keys))
+                                for i in range(n_lead)]).mean()
+        return single_loss(m, *(a[k] for k in keys))
+
+    return StepBundle(_train_fn(bind(model, loss_all, grad=True), OPT_CFG),
+                      (pspecs, ospecs, arrays),
+                      model_flops=gnn_model_flops(cfg, shape),
+                      meta=dict(n_nodes=n_nodes), model=model)
+
+
+# ===========================================================================
+# recsys family
+# ===========================================================================
+
 def recsys_model_flops(cfg, shape: dict) -> float:
     d_in = cfg.n_fields * cfg.embed_dim
     mlp = 0
@@ -38,6 +333,52 @@ def recsys_model_flops(cfg, shape: dict) -> float:
     if shape["kind"] == "serve":
         return 1.0 * shape["batch"] * per_row
     return per_row + 2.0 * shape["n_candidates"] * cfg.embed_dim
+
+
+def make_recsys_step(cfg, shape: dict, mesh=None) -> StepBundle:
+    """DeepFM's step: train (binary cross-entropy, AdamW over every
+    parameter, the dense table gradient included), serve or retrieval."""
+    from repro_torch.models.recsys import deepfm
+
+    _no_mesh(mesh)
+    model = deepfm.DeepFM(cfg, device="meta")
+    b = shape["batch"]
+    x = _meta((b, cfg.n_fields), torch.int32)
+    kind = shape["kind"]
+    mf = recsys_model_flops(cfg, shape)
+    if kind == "train":
+        pspecs, ospecs = _specs(model, OPT_CFG)
+        return StepBundle(_train_fn(bind(model, deepfm.loss_fn, grad=True),
+                                    OPT_CFG),
+                          (pspecs, ospecs, x, _meta((b,), torch.float32)),
+                          model_flops=mf, meta={}, model=model)
+    fn = recsys_serve_fn if kind == "serve" else retrieval_fn
+    return StepBundle(bind(model, fn), (_specs(model), x), model_flops=mf,
+                      meta={}, model=model)
+
+
+# ===========================================================================
+
+def make_step(spec: ArchSpec, shape_id: str, mesh=None, smoke: bool = False,
+              shape_override: dict | None = None) -> StepBundle:
+    """The (arch, shape) cell's step; ``smoke`` takes the reduced config
+    and the reduced shape of the cell's kind."""
+    from repro_torch.configs.shapes import FAMILY_SHAPES, SMOKE_SHAPES
+
+    cfg = spec.smoke_config if smoke else spec.config
+    if shape_override is not None:
+        shape = shape_override
+    elif smoke:
+        kind = FAMILY_SHAPES[spec.family][shape_id]["kind"]
+        shape = dict(SMOKE_SHAPES[spec.family][kind])
+    else:
+        shape = dict(FAMILY_SHAPES[spec.family][shape_id])
+
+    if spec.family == "lm":
+        return make_lm_step(cfg, shape, mesh)
+    if spec.family == "gnn":
+        return make_gnn_step(spec, cfg, shape, mesh)
+    return make_recsys_step(cfg, shape, mesh)
 
 
 @torch.no_grad()

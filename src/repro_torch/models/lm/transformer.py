@@ -12,19 +12,35 @@ cache_len + 1 cache rows; on the CPU they run ``full_attention`` /
 versions.  The card's kernel keeps the probabilities in float32 where the
 reference's short-sequence and decode branches round them to the model's
 type before the product with v.  MoE layers wait for a later slice.
+
+Training: ``loss_fn`` is the next-token cross-entropy; with gradients on,
+each layer of ``forward`` runs under ``cfg.remat`` as the reference's
+``_maybe_remat``: ``"none"`` keeps every activation, ``"full"``
+recomputes the layer in the backward (``torch.utils.checkpoint``), and
+``"dots"`` saves only the products without batch dimensions (the
+projections, einsum's ``bmm`` with a batch of 1, and ``mm``) and
+recomputes the rest, the attention included, as
+``dots_with_no_batch_dims_saveable`` does.  Remat changes memory, not
+values: the three give the same gradients bit for bit.  On the card the
+prefill attention then carries a gradient through the flash kernel's
+backward (``FlashAttentionFn``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.graph import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash
-from repro_torch.models.common import (embed_init, normal_init,
+from repro_torch.models.common import (cross_entropy, embed_init,
+                                      normal_init,
                                       params_from_numpy,  # noqa: F401
                                       params_to_numpy, rms_norm)
 
@@ -44,6 +60,7 @@ class LMConfig:
     tie_embeddings: bool = True
     moe: Any = None              # MoE waits for a later slice: must be None
     dtype: Any = torch.bfloat16
+    remat: str = "dots"          # none | dots | full
     attn_chunk: int = 2048       # kv-block size for chunked attention
     use_chunked_attn_from: int = 8192  # seq length threshold
 
@@ -51,6 +68,8 @@ class LMConfig:
         if self.moe is not None:
             raise NotImplementedError(
                 f"{self.name}: MoE layers are not ported yet")
+        if self.remat not in ("none", "dots", "full"):
+            raise ValueError(f"remat {self.remat!r}: none, dots or full")
 
     @property
     def hd(self) -> int:
@@ -208,6 +227,26 @@ def _ffn_block(p: dict, x, cfg: LMConfig):
                         p["wo_ffn"])
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the products without batch dimensions (``mm``, and einsum's
+    ``bmm`` over a batch of 1), recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(mode: str, fn, *args):
+    """``fn(*args)`` under the remat mode (only where gradients are on)."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if mode == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.
+                      partial(create_selective_checkpoint_contexts,
+                              _dots_policy))
+
+
 def _stacked(gen, n: int, d_in: int, d_out: int, device, dtype):
     """(n, d_in, d_out): n layers of (d_in, d_out) normal weights scaled
     by 1 / sqrt(d_in)."""
@@ -228,8 +267,8 @@ class Transformer(nn.Module):
                  device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = gen if gen is not None else \
-            torch.Generator(device=dev).manual_seed(0)
+        if gen is None and dev.type != "meta":
+            gen = torch.Generator(device=dev).manual_seed(0)
         self.cfg = cfg
         n, d, hd, dt = cfg.n_layers, cfg.d_model, cfg.hd, cfg.dtype
         h, hk = cfg.n_heads, cfg.n_kv_heads
@@ -269,6 +308,9 @@ class Transformer(nn.Module):
         x = x + a
         return x + _ffn_block(p, x, self.cfg), new_kv
 
+    def _layer_out(self, i: int, x, positions):
+        return self._layer(i, x, positions)[0]
+
     def _logits(self, x):
         x = rms_norm(x, self.final_norm)
         head = self.embed if self.cfg.tie_embeddings else self.lm_head
@@ -288,10 +330,12 @@ class Transformer(nn.Module):
             caches = (torch.empty(shape, dtype=cfg.dtype, device=x.device),
                       torch.empty(shape, dtype=cfg.dtype, device=x.device))
         for i in range(cfg.n_layers):
-            x, (k, v) = self._layer(i, x, positions)
             if return_cache:
+                x, (k, v) = self._layer(i, x, positions)
                 caches[0][i] = k
                 caches[1][i] = v
+            else:
+                x = _remat(cfg.remat, self._layer_out, i, x, positions)
         logits = self._logits(x)
         aux = torch.zeros((), device=x.device)
         return (logits, caches, aux) if return_cache else (logits, aux)
@@ -309,3 +353,11 @@ class Transformer(nn.Module):
             x, _ = self._layer(i, x, positions, (k_all[i], v_all[i]),
                                cache_len)
         return self._logits(x), kv_caches, cache_len + 1
+
+
+def loss_fn(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy (float32) of tokens (B, S + 1): the model
+    reads tokens[:, :-1] and predicts tokens[:, 1:] (a dense model has no
+    auxiliary loss)."""
+    logits, _ = model(tokens[:, :-1])
+    return cross_entropy(logits, tokens[:, 1:])

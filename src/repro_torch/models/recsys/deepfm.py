@@ -9,8 +9,11 @@ The two field sums of ``forward``, Σ_f w1[id_f] (first order) and
 embedding-bag kernel (``kernels.embedding_bag.ops``): two launches a
 forward on the card.  The (B, F, D) gather for the deep branch and
 Σ‖v‖² stay plain torch.  ``retrieval_cand`` scores one query against the
-whole candidate tower with one matmul.  On the card the forward serves
-only: the kernel has no gradient (training waits for a later slice).
+whole candidate tower with one matmul.  Training (``loss_fn`` under
+autograd) takes the table's gradient through the gather and both bags:
+on the card each bag's backward is one ``embedding_bag_backward`` launch,
+a dense (V, D) gradient as in the reference, which AdamW applies to
+every row.
 """
 from __future__ import annotations
 
@@ -57,8 +60,8 @@ class DeepFM(nn.Module):
                  device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = gen if gen is not None else \
-            torch.Generator(device=dev).manual_seed(0)
+        if gen is None and dev.type != "meta":
+            gen = torch.Generator(device=dev).manual_seed(0)
         self.cfg = cfg
         v = cfg.n_fields * cfg.rows_per_field
         fd = cfg.n_fields * cfg.embed_dim

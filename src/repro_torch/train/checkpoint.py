@@ -10,7 +10,10 @@ buffers: torch tensors are copied to the host on save, and restore puts
 the arrays on whatever device the caller names, so a job can come back
 on another device (or device count) after a failure.  A corrupt or
 partial final write is detected by the checksums and the previous step
-is used.  The module imports numpy only; tensors are duck-typed.
+is used.  The module imports numpy only; tensors are duck-typed.  A
+bfloat16 leaf, which numpy has no type for, is stored as its 2-byte words
+under the dtype name ``bfloat16``, as the reference (through ml_dtypes)
+stores it, and read back into a bfloat16 tensor.
 """
 from __future__ import annotations
 
@@ -52,15 +55,48 @@ def _unflatten(flat: dict, template, prefix: str = ""):
     return flat[prefix[:-1]]
 
 
+class Bf16Words:
+    """A bfloat16 array on the host as its 16-bit words (``bits``, uint16),
+    for numpy, which has no bfloat16."""
+
+    dtype = "bfloat16"
+
+    def __init__(self, bits: np.ndarray):
+        self.bits = bits
+        self.shape = bits.shape
+
+    def tobytes(self) -> bytes:
+        return self.bits.tobytes()
+
+
+def _host(x):
+    if hasattr(x, "detach") and str(x.dtype) == "torch.bfloat16":
+        import torch
+
+        return Bf16Words(x.detach().cpu().view(torch.int16).numpy()
+                         .view(np.uint16).copy())
+    return to_numpy(x)
+
+
 def host_flat(tree) -> dict:
-    """The tree's leaves as host numpy arrays, by flattened key."""
-    return {k: to_numpy(v) for k, v in _flatten(tree).items()}
+    """The tree's leaves as host numpy arrays (bfloat16 ones as
+    :class:`Bf16Words`), by flattened key."""
+    return {k: _host(v) for k, v in _flatten(tree).items()}
 
 
-def _put(x: np.ndarray, like, device):
+def _put(x, like, device):
     """``x`` with the dtype of template leaf ``like``: a torch tensor when
     ``like`` is one (on ``device``, else on ``like``'s device), a numpy
     array otherwise (on ``device`` when one is given)."""
+    if isinstance(x, Bf16Words):
+        import torch
+
+        t = torch.from_numpy(x.bits.view(np.int16).copy()).view(
+            torch.bfloat16)
+        if hasattr(like, "detach"):
+            return t.to(like.dtype).to(
+                like.device if device is None else device)
+        x = t.float().numpy()
     if hasattr(like, "detach"):
         import torch
 
@@ -109,7 +145,7 @@ class CheckpointManager:
         with open(tmp / "data.bin", "wb") as f:
             off = 0
             for name, arr in flat.items():
-                a = np.asarray(arr)
+                a = arr if isinstance(arr, Bf16Words) else np.asarray(arr)
                 raw = a.tobytes()
                 f.write(raw)
                 manifest["arrays"][name] = {
@@ -156,8 +192,12 @@ class CheckpointManager:
             raw = data[meta["offset"]: meta["offset"] + meta["nbytes"]]
             if verify and hashlib.sha1(raw).hexdigest()[:16] != meta["sha1"]:
                 raise IOError(f"checksum mismatch in {name} @ step {step}")
-            flat[name] = np.frombuffer(raw, meta["dtype"]).reshape(
-                meta["shape"])
+            if meta["dtype"] == Bf16Words.dtype:
+                flat[name] = Bf16Words(np.frombuffer(raw, np.uint16).reshape(
+                    meta["shape"]))
+            else:
+                flat[name] = np.frombuffer(raw, meta["dtype"]).reshape(
+                    meta["shape"])
         return flat
 
     def meta(self, step: int) -> dict:

@@ -4,7 +4,10 @@ cosine schedule — the reference's ``train/optimizer.py`` on tensors.
 Functions of trees of tensors (``repro_torch.tree``) with the reference's
 arithmetic, step by step in the same order and in float32; not
 ``torch.optim``.  The state is a tree too: ``{"m", "v", "step"}`` for
-AdamW, ``{"step"}`` for SGD.
+AdamW, ``{"step"}`` for SGD; ``state_to_numpy`` / ``state_from_numpy``
+carry it to and from the reference's layout (float32 ``m`` and ``v``
+trees, an int32 ``step``), so that a step of either package can start
+from the other's state.
 """
 from __future__ import annotations
 
@@ -13,7 +16,8 @@ import math
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import (tree_from_numpy, tree_leaves, tree_map,
+                              tree_to_numpy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,3 +96,19 @@ def update(grads, state, params, cfg: OptConfig):
     new_params = tree_map(upd, params, m, v)
     return new_params, {"m": m, "v": v, "step": step}, \
         {"lr": lr, "grad_norm": gn}
+
+
+def state_to_numpy(state) -> dict:
+    """The optimizer state as the reference's layout of numpy arrays."""
+    return tree_to_numpy(state)
+
+
+def state_from_numpy(tree, params, cfg: OptConfig, device=None):
+    """The reference's optimizer state (numpy arrays) as the port's, for
+    ``params`` (a tensor tree; meta tensors give shapes only): float32
+    ``m`` and ``v`` in params' layout, an int32 ``step``, on ``device``
+    (default: params', the CPU for meta params)."""
+    dev = torch.device(device) if device is not None else \
+        tree_leaves(params)[0].device
+    like = init(tree_map(lambda p: p.detach().to("meta"), params), cfg)
+    return tree_from_numpy(tree, like, "cpu" if dev.type == "meta" else dev)

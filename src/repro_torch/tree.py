@@ -1,6 +1,9 @@
 """Nested dicts and lists of tensors (the reference's pytrees), walked in
-``jax.tree`` order: dict keys sorted, lists in order."""
+``jax.tree`` order: dict keys sorted, lists in order; and their carry to
+and from numpy arrays in the reference's layout."""
 from __future__ import annotations
+
+import numpy as np
 
 
 def tree_leaves(tree) -> list:
@@ -21,3 +24,48 @@ def tree_map(fn, tree, *rest):
         return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
                           for i, t in enumerate(tree))
     return fn(tree, *rest)
+
+
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure with ``leaves`` (in :func:`tree_leaves` order:
+    dict keys sorted) in place of its leaves."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = dict.fromkeys(t)
+            for k in sorted(t):
+                out[k] = build(t[k])
+            return out
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    return build(tree)
+
+
+def tree_from_numpy(tree, like, device=None):
+    """A pytree of arrays (the reference's layout) as tensors with the
+    dtypes of the matching leaves of ``like`` (a tensor tree of the same
+    structure, e.g. a step's meta-device args), on ``device`` (default:
+    like's, the CPU for a meta leaf)."""
+    import torch
+
+    def put(a, t):
+        dev = device if device is not None else (
+            "cpu" if t.device.type == "meta" else t.device)
+        return torch.tensor(np.asarray(a), dtype=t.dtype, device=dev)
+
+    return tree_map(put, tree, like)
+
+
+def tree_to_numpy(tree):
+    """A tensor tree as numpy arrays on the host (bfloat16 widened to
+    float32, which numpy holds exactly)."""
+    import torch
+
+    def get(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    return tree_map(get, tree)

@@ -223,6 +223,10 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.configs.pna, repro_torch.configs.egnn\n"
         "import repro_torch.configs.equiformer_v2\n"
         "import repro_torch.tools.step_time\n"
+        "import repro_torch.configs.registry, repro_torch.configs.qwen3_0_6b\n"
+        "import repro_torch.configs.deepseek_67b, repro_torch.launch.train\n"
+        "import repro_torch.train.trainer, repro_torch.train.compression\n"
+        "import repro_torch.graphs.sampler, repro_torch.tree\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

@@ -1,0 +1,347 @@
+"""The backward kernels of the training path, against their plain versions.
+
+The CPU cases hold the autograd functions (``EmbeddingBagFn``,
+``FlashAttentionFn``) to torch's autograd through the plain forwards, the
+routes and refusals of the wrappers, and emulate in float32 on the CPU
+why the flash backward keeps P and dS out of bf16.  The ``gpu`` cases run
+each CUDA backward against its plain version on the card, at small
+shapes and at the training path's, and check that it gives the same bits
+from call to call; that remat none, dots and full give one train step
+the same bits on the card; and int8 gradient compression at world 1 on
+the card (NCCL) against the CPU (gloo).  This file imports no JAX, so it
+runs on the card as it is.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.dist import compat
+from repro_torch.kernels.embedding_bag import ops as eb
+from repro_torch.kernels.embedding_bag import ref as ebref
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.flash_attention import ref as faref
+from repro_torch.train import compression as comp
+
+
+def _normal(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(np.float32) for s in shapes]
+
+
+def _close(got, want, rtol, atol):
+    """|got - want| <= atol + rtol |want| everywhere; returns the max."""
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= atol + rtol * want.float().abs()).all()), \
+        float(err.max())
+    return float(err.max().detach())
+
+
+# --------------------------------------------------------------------------
+# CPU: the autograd functions on their plain versions
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_grad_matches_autograd(weighted, mode):
+    """EmbeddingBagFn on the CPU (the plain backward) equals torch's
+    autograd through the plain gather and sum, for the table and the
+    weights, with repeated ids in a bag and across bags."""
+    rng = np.random.default_rng(3)
+    table0 = torch.from_numpy(rng.normal(size=(50, 6)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 20, (9, 7)).astype(np.int32))
+    w0 = torch.from_numpy(rng.random((9, 7)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(9, 6)).astype(np.float32))
+    t1 = table0.clone().requires_grad_()
+    w1 = w0.clone().requires_grad_() if weighted else None
+    eb.embedding_bag(t1, ids, w1, mode).backward(g)
+    t2 = table0.clone().requires_grad_()
+    w2 = w0.clone().requires_grad_() if weighted else None
+    emb = t2[ids.long()]
+    if weighted:
+        emb = emb * w2[..., None]
+    out = emb.sum(1)
+    if mode == "mean":
+        out = out / (w2.sum(1, keepdim=True).clamp(min=1e-9) if weighted
+                     else ids.shape[1])
+    out.backward(g)
+    _close(t1.grad, t2.grad, 1e-6, 1e-6)
+    if weighted:
+        _close(w1.grad, w2.grad, 1e-6, 1e-6)
+
+
+def test_embedding_bag_backward_ref_is_in_order():
+    """The plain table gradient sums a row's slots in slot order in
+    float32 (what the kernel's run sum does): equal bit for bit to an
+    explicit loop."""
+    rng = np.random.default_rng(4)
+    table = torch.zeros((30, 3))
+    ids = torch.from_numpy(rng.integers(0, 5, (40, 6)).astype(np.int32))
+    w = torch.from_numpy(rng.random((40, 6)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(40, 3)).astype(np.float32))
+    gt, gw = ebref.embedding_bag_backward_ref(table, ids, w, g)
+    want = torch.zeros((30, 3))
+    for b in range(40):
+        for k in range(6):
+            want[ids[b, k]] = want[ids[b, k]] + w[b, k] * g[b]
+    assert torch.equal(gt, want) and gw is None
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,hk", [(3, 3), (6, 2), (3, 1)])
+def test_flash_fn_matches_autograd(causal, h, hk):
+    """FlashAttentionFn on the CPU (plain forward with LSE, plain backward
+    from the formulas) equals torch's autograd through attention_ref in
+    float64: 1e-5 (the plain versions compute in float32)."""
+    q0, k0, v0, do = (torch.from_numpy(a).double() for a in _normal(
+        5, (2, 33, h, 16), (2, 33, hk, 16), (2, 33, hk, 16), (2, 33, h, 16)))
+    x = [t.clone().requires_grad_() for t in (q0, k0, v0)]
+    faref.attention_ref(*x, causal=causal).backward(do)
+    y = [t.clone().float().requires_grad_() for t in (q0, k0, v0)]
+    out = fa.flash_attention(*y, causal=causal)
+    _close(out, faref.attention_ref(q0, k0, v0, causal), 0, 1e-5)
+    out.backward(do.float())
+    for a, b in zip(y, x):
+        _close(a.grad, b.grad, 1e-5, 1e-5)
+
+
+def test_flash_training_calls_refused():
+    """A training call keeps every key, and causal needs S == T."""
+    q = torch.zeros((1, 4, 2, 16), requires_grad=True)
+    k = torch.zeros((1, 6, 2, 16), requires_grad=True)
+    with pytest.raises(ValueError, match="S == T"):
+        fa.flash_attention(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="kv_len"):
+        fa.flash_attention(q, k, k, causal=False, kv_len=5)
+
+
+def _emulate_bwd(q, k, v, do, causal, split):
+    """dV = Pᵀ dO and dK = scale · dSᵀ Q in float32 from bf16 inputs, with
+    P and dS rounded to bf16 (``split`` False), kept as bf16 hi + lo
+    (``split`` True) or float32 (``split`` None) before the products."""
+    o, lse = faref.attention_lse_ref(q, k, v, causal)
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    g = h // hk
+    qg = q.float().reshape(b, s, hk, g, d)
+    dog = do.float().reshape(b, s, hk, g, d)
+    sc = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(d)
+    p = torch.exp(sc - lse.reshape(b, hk, g, s)[..., None])
+    if causal:
+        p = p.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(), 0.0)
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, v.float())
+    dd = (dog * o.float().reshape(b, s, hk, g, d)).sum(-1)
+    ds = p * (dp - dd.permute(0, 2, 3, 1)[..., None])
+
+    def rnd(x):
+        if split is None:
+            return x
+        hi = x.bfloat16().float()
+        return hi + (x - hi).bfloat16().float() if split else hi
+
+    dv = torch.einsum("bkgst,bskgd->btkd", rnd(p), dog)
+    dk = torch.einsum("bkgst,bskgd->btkd", rnd(ds), qg) / math.sqrt(d)
+    return dk, dv
+
+
+def test_bf16_backward_keeps_p_and_ds_in_float32():
+    """At a causal S = T = 512 shape (9 heads over 3, D = 64, random
+    bf16), dV and dK within 2^-7·|plain| + 1e-4·max|plain| of the plain
+    float32 gradient (the tolerance of the card check: one bf16 rounding
+    of each, float32 sums in another order) hold with P and dS in float32
+    (the kernel's FMA products) and with a bf16 hi + lo split, and miss it
+    with bf16(P) and bf16(dS) alone: an mma.sync design of the backward
+    needs the forward's split for both."""
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _normal(
+        6, (1, 512, 9, 64), (1, 512, 3, 64), (1, 512, 3, 64),
+        (1, 512, 9, 64)))
+    o, lse = faref.attention_lse_ref(q, k, v, True)
+    _, want_k, want_v = (x.float() for x in faref.attention_backward_ref(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), True))
+    for split, ok in ((None, True), (True, True), (False, False)):
+        dk, dv = _emulate_bwd(q, k, v, do, True, split)
+        for got, want in ((dk, want_k), (dv, want_v)):
+            tol = 2.0 ** -7 * want.abs() + 1e-4 * float(want.abs().max())
+            fine = bool(((got.bfloat16().float() - want).abs() <= tol).all())
+            assert fine is ok, (split, float((got - want).abs().max()))
+
+
+# --------------------------------------------------------------------------
+# the CUDA kernels (on a card only)
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,d,b,k,weighted", [
+    (1000, 10, 64, 39, False), (1000, 1, 64, 39, True), (50, 16, 300, 7, True),
+    (3, 8, 10, 5, False), (200_000, 10, 4096, 39, False)])
+def test_embedding_bag_backward_kernel(cuda, dtype, v, d, b, k, weighted):
+    """The kernel's table gradient equals the plain in-order float32 sum
+    bit for bit in float32 (each product rounded, then added, in slot
+    order), within one bf16 step in bf16; the weight gradient within
+    1e-5 relative; the same bits from call to call; one count a call."""
+    rng = np.random.default_rng(v + d)
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)
+                             ).to(cuda, dtype)
+    ids = torch.from_numpy(rng.integers(0, v, (b, k)).astype(np.int32)
+                           ).to(cuda)
+    w = (torch.from_numpy(rng.random((b, k)).astype(np.float32)).to(cuda)
+         if weighted else None)
+    g = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)
+                         ).to(cuda, dtype)
+    before = eb.launches["embedding_bag_backward"]
+    gt, gw = eb.embedding_bag_backward(table, ids, w, g, True, weighted)
+    gt2, gw2 = eb.embedding_bag_backward(table, ids, w, g, True, weighted)
+    assert eb.launches["embedding_bag_backward"] == before + 2
+    assert torch.equal(gt, gt2)
+    want_t, want_w = ebref.embedding_bag_backward_ref(
+        table.cpu(), ids.cpu(), None if w is None else w.cpu(), g.cpu(),
+        True, weighted)
+    if dtype == torch.float32:
+        assert torch.equal(gt.cpu(), want_t)
+    else:
+        _close(gt.cpu(), want_t, 2.0 ** -7, 1e-6)
+    if weighted:
+        assert torch.equal(gw, gw2)
+        _close(gw.cpu(), want_w, 1e-5, 1e-5)
+
+
+@pytest.mark.gpu
+def test_embedding_bag_grad_through_autograd_on_card(cuda):
+    """The card's bag carries a gradient: the table's gradient through
+    ``embedding_bag`` equals the plain one from the CPU bit for bit
+    (float32, weight 1)."""
+    rng = np.random.default_rng(9)
+    t0 = torch.from_numpy(rng.normal(size=(500, 10)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 500, (128, 39)).astype(np.int32))
+    g = torch.from_numpy(rng.normal(size=(128, 10)).astype(np.float32))
+    grads = []
+    for dev in (cuda, "cpu"):
+        t = t0.to(dev).requires_grad_()
+        eb.embedding_bag(t, ids.to(dev)).backward(g.to(dev))
+        grads.append(t.grad.cpu())
+    assert torch.equal(*grads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hk,d,causal", [
+    (2, 64, 1, 1, 16, True), (2, 100, 3, 1, 32, True),
+    (1, 130, 6, 2, 64, False), (2, 77, 4, 4, 128, True),
+    (1, 256, 9, 3, 64, True), (1, 70, 2, 1, 128, False)])
+def test_flash_backward_kernel(cuda, dtype, b, s, h, hk, d, causal):
+    """The LSE of the training forward within 1e-5 + 1e-5|plain|; dq, dk,
+    dv against the plain gradient (from the same q, k, v, out and LSE)
+    within 2^-7|plain| + 1e-4 max|plain| in bf16 (one rounding of each,
+    float32 sums in another order), 1e-4|plain| + 1e-5 max|plain| in
+    float32; the same bits from call to call; one count a call."""
+    q, k, v, do = (torch.from_numpy(a).to(cuda, dtype) for a in _normal(
+        s + d, (b, s, h, d), (b, s, hk, d), (b, s, hk, d), (b, s, h, d)))
+    o, lse = fa.flash_attention_forward(q, k, v, causal)
+    _, want_lse = faref.attention_lse_ref(q, k, v, causal)
+    _close(lse, want_lse, 1e-5, 1e-5)
+    before = fa.launches["flash_attention_backward"]
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal)
+    again = fa.flash_attention_backward(q, k, v, o, lse, do, causal)
+    assert fa.launches["flash_attention_backward"] == before + 2
+    want = faref.attention_backward_ref(q, k, v, o, lse, do, causal)
+    rtol, arel = ((2.0 ** -7, 1e-4) if dtype == torch.bfloat16
+                  else (1e-4, 1e-5))
+    for x, y, w in zip(got, again, want):
+        assert torch.equal(x, y)
+        _close(x, w, rtol, arel * float(w.float().abs().max()))
+
+
+@pytest.mark.gpu
+def test_flash_grad_through_autograd_on_card(cuda):
+    """A float32 causal call's gradients through FlashAttentionFn on the
+    card equal the CPU's within 1e-4 of their largest; a bf16 call on the
+    split-KV route refuses to train."""
+    q0, k0, v0, do = (torch.from_numpy(a) for a in _normal(
+        11, (2, 90, 6, 32), (2, 90, 2, 32), (2, 90, 2, 32), (2, 90, 6, 32)))
+    grads = []
+    for dev in (cuda, "cpu"):
+        x = [t.to(dev).requires_grad_() for t in (q0, k0, v0)]
+        fa.flash_attention(*x, causal=True).backward(do.to(dev))
+        grads.append([t.grad.cpu() for t in x])
+    for a, b in zip(*grads):
+        _close(a, b, 0, 1e-4 * float(b.abs().max()))
+    q = torch.zeros((1, 1, 3, 64), device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(ValueError, match="split-KV"):
+        fa.flash_attention(q, q[:, :, :1], q[:, :, :1], causal=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_modes_equal_bit_for_bit_on_card(cuda, dtype):
+    """One train step of smollm-135m's smoke config (S 32, B 2) on the
+    card under remat none, dots and full, from the same parameters,
+    optimizer state and batch, gives the same parameters, state, loss and
+    grad_norm bit for bit, though under dots and full each layer's flash
+    forward (with its LSE) runs again in the backward: L forward launches
+    under none, 2L under dots and full."""
+    import dataclasses
+
+    from repro_torch.configs import smollm_135m
+    from repro_torch.configs.shapes import SMOKE_SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models.lm.transformer import Transformer
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(smollm_135m.SMOKE, dtype=dtype)
+    shape = dict(SMOKE_SHAPES["lm"]["train"])
+    params = tree_map(lambda p: p.detach(), Transformer(
+        cfg, torch.Generator(device=cuda).manual_seed(0),
+        device=cuda).param_tree())
+    state = opt.init(params, steps.OPT_CFG)
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (shape["global_batch"], shape["seq_len"] + 1)).astype(
+        np.int32)).to(cuda)
+    outs = []
+    for mode, forward in (("none", 1), ("dots", 2), ("full", 2)):
+        fn = steps.make_lm_step(cfg, shape, remat_override=mode).fn
+        before = dict(fa.launches)
+        outs.append(tree_leaves(fn(params, state, tok)))
+        assert (fa.launches["flash_attention"] - before["flash_attention"]
+                == forward * cfg.n_layers)
+        assert (fa.launches["flash_attention_backward"]
+                - before["flash_attention_backward"] == cfg.n_layers)
+    for other in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], other))
+
+
+@pytest.mark.gpu
+def test_compression_world1_on_card(cuda):
+    """psum_compressed at world 1 over NCCL on the card equals the CPU's
+    over gloo bit for bit, two steps with the residual carried (at
+    1,024 x 1,024 the scale max|g| / 127 once came out one ulp apart,
+    divided on the card by the reciprocal of a CPU scalar)."""
+    rng = np.random.default_rng(13)
+    grads = [{"w": rng.normal(size=(1024, 1024)).astype(np.float32),
+              "b": rng.normal(size=(9,)).astype(np.float32) * 1e-4}
+             for _ in range(2)]
+    outs = []
+    for dev, backend in ((cuda, "nccl"), ("cpu", "gloo")):
+        with compat.world1(backend):
+            res = {k: torch.zeros(v.shape, device=dev)
+                   for k, v in grads[0].items()}
+            got = []
+            for g in grads:
+                out, res = comp.psum_compressed(
+                    {k: torch.from_numpy(v).to(dev) for k, v in g.items()},
+                    res)
+                got += [out["w"].cpu(), out["b"].cpu(), res["w"].cpu(),
+                        res["b"].cpu()]
+        outs.append(got)
+    assert all(torch.equal(a, b) for a, b in zip(*outs))

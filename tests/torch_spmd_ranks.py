@@ -162,3 +162,16 @@ def gnn_family_checks(edges, n, edge_part, feats, labels, label_mask,
                     "grads": tree_map(lambda p: p.grad.numpy().copy(),
                                       model.param_tree())})
     return out
+
+
+def compression_checks(grads, resid):
+    """On this rank: ``psum_compressed`` of its own gradient and residual
+    trees (numpy, indexed by rank).  Returns (mean grads, new residuals)
+    as numpy trees."""
+    from repro_torch.train import compression as comp
+    from repro_torch.tree import tree_to_numpy
+
+    rank, _ = compat.process_env()
+    as_t = lambda tree: tree_map(torch.from_numpy, tree)
+    out, new_r = comp.psum_compressed(as_t(grads[rank]), as_t(resid[rank]))
+    return tree_to_numpy(out), tree_to_numpy(new_r)
