@@ -106,17 +106,21 @@ Phases, each printing its lines; any failed check exits non-zero:
    memory; then the result saved as an artifact, loaded back and equal;
 10. baselines and hybrid: (a) what the quality matrix does not reach:
    the stream kernels ``hdrf_scan`` and ``oblivious_scan`` against their
-   plain versions bit for bit and call to call on rmat(10, 8, seed 3)
-   at P = 1 and a ragged P = 37, HDRF at lambda 0.5 and 2, Oblivious at
-   a limit every partition fills (the overflow rule); (b) the 32 rows of
+   plain versions (run on the CPU in a pool process beside phase 9) bit
+   for bit and call to call on rmat(10, 8, seed 3): HDRF at P = 1, 4,
+   16, 32, 33, 64 and 256 on its one-warp route and at 257 and a ragged
+   1,500 on its block route, at lambda 0.5 and 2; Oblivious at P = 1 and
+   a ragged 37 at a limit every partition fills (the overflow rule); the
+   registers of each stream kernel (ptxas); (b) the 32 rows of
    ``BENCH_QUALITY.json``'s fast matrix (``repro_torch.tools.quality``:
    RMAT scale 14 and the ingested power-law ``real`` graph, P = 4 and
    16, NE, the hybrid at tau 0.5 and 0.25, the five baselines) each
    equal to its expected (rf, eb, vb), with the launch counts set to 0
    just before and read just after; then each stream kernel at every
    cell of that matrix on the baselines' own inputs: the wrapper's
-   time, the launch's alone and its fills' apart (CUDA events), the
-   bound, and on ``real`` (P = 4 and 16) the kernel against its plain
+   route, its time, the launch's alone and its fills' apart (CUDA
+   events), the bound, and on ``real`` (P = 4 and 16) the kernel against
+   its plain
    version bit for bit, the plain version run on the CPU in a pool
    process beside phase 9 (at (real, P = 16) HDRF's also on the card over
    the stream's first 8,192 edges, bits equal to the CPU's) with its
@@ -156,8 +160,11 @@ Phases, each printing its lines; any failed check exits non-zero:
    65,536 bags of 39 ids; the table, D 10, and w1, D 1; also bit for bit
    the CPU's in-order float32 sum) and ``flash_attention_backward`` at
    smollm-135m's train shape (B 8, S 4,096, 9 heads over 3, D 64, bf16,
-   causal), at a float32 shape and at every head dim, each the same bits
-   call to call, with their times beside their bounds, the plain
+   causal) on its tensor-core route ("mma", P and dS as bf16 hi + lo;
+   HMMA / HGMMA counted in its kernels by ``cuobjdump -sass``, none
+   fails), at a float32 shape on its "fma" route and at every head dim
+   (bf16, ragged S 300, causal and not), each the same bits call to
+   call, with their times beside their bounds, the plain
    versions' and the library's backward (``F.embedding_bag``,
    ``F.scaled_dot_product_attention`` over repeated kv heads); (b) DeepFM
    at full width (phase 7's seeded parameters) through
@@ -268,7 +275,11 @@ BIT_KERNELS = ("pack_bits", "unpack_bits", "or_words")
 # phase 10: the baselines' stream kernels, the quality matrix, the hybrid
 STREAM_SOURCE = "src/repro_torch/kernels/stream/csrc/stream.cu"
 STREAM_KERNELS = ("hdrf_scan", "oblivious_scan")
-STREAM_CHECK_PARTS = (1, 37)       # (a): one partition; a ragged 2nd warp
+STREAM_CHECK_GRAPH = (10, 8, 3)    # (a): rmat(scale, edge factor, seed)
+# (a)'s HDRF: the warp route at 1 to 8 words a vertex (33: a ragged 2nd
+# word), the block route above 256 (1,500: a ragged last warp)
+STREAM_HDRF_PARTS = (1, 4, 16, 32, 33, 64, 256, 257, 1500)
+STREAM_OBLIVIOUS_PARTS = (1, 37)   # one partition; a ragged 2nd warp
 STREAM_LAMBDAS = (0.5, 2.0)        # (a)'s HDRF; the matrix runs lambda 1
 STREAM_PLAIN_GRAPH = "real"        # the matrix's cells held against plain
 STREAM_ROW_P = 16                  # the JSON rows' cell (real, P = 16)
@@ -2390,47 +2401,78 @@ def stream_bound(name: str, m: int, p: int):
                            f"({CLOCK_HZ / 1e9} GHz)")
 
 
-def phase_stream_kernels(torch, dev) -> int:
-    """Phase 10 (a): the cases the quality matrix does not reach, each
-    stream kernel against its plain version on the card, bit for bit, and
-    the same bits call to call, on rmat(10, 8, seed 3): P = 1 and a ragged
-    P = 37 (two warps, the second partly idle), HDRF at lambda 0.5 and 2,
-    Oblivious at a limit every partition fills (the overflow rule).
-    Returns the largest difference (0)."""
+def stream_check_cases():
+    """Phase 10 (a)'s cases: (name, P, lambda or None: Oblivious at a limit
+    every partition fills)."""
+    return ([("hdrf_scan", p, lam) for p in STREAM_HDRF_PARTS
+             for lam in STREAM_LAMBDAS]
+            + [("oblivious_scan", p, None) for p in STREAM_OBLIVIOUS_PARTS])
+
+
+def stream_check_oracle(name: str, p: int, lam):
+    """One of phase 10 (a)'s plain scans on the CPU, run in a pool process
+    before the phase: (its result, the edges it read, its argument), as
+    numpy; Oblivious at the limit max(1, M // 2P)."""
+    sys.path.insert(0, SRC)
     from repro_torch.graphs.rmat import rmat
-    from repro_torch.kernels.stream import ops as sops
     from repro_torch.kernels.stream import ref as sref
 
-    t0 = time.perf_counter()
-    g = rmat(10, 8, seed=3, device=dev)
+    scale, ef, seed = STREAM_CHECK_GRAPH
+    g = rmat(scale, ef, seed=seed, device="cpu")
     e, n, m = g.edges, g.num_vertices, g.num_edges
-    worst = 0
-    for p in STREAM_CHECK_PARTS:
-        calls = []
-        for lam in STREAM_LAMBDAS:
-            calls.append((f"hdrf lam={lam}", lambda lam=lam: sops.hdrf_scan(
-                e, p, n, lam), lambda lam=lam: sref.hdrf_scan_ref(
-                    e, p, n, lam)))
-        limit = max(1, m // (2 * p))
-        calls.append((f"oblivious limit={limit}",
-                      lambda: sops.oblivious_scan(e, p, n, limit),
-                      lambda: sref.oblivious_scan_ref(e, p, n, limit)))
-        for name, kern, plain in calls:
-            a, b, want = kern(), kern(), plain()
-            torch.cuda.synchronize()
-            err = max(max_abs_err(a, want), max_abs_err(a, b))
-            worst = max(worst, err)
-            check(err == 0, f"phase 10: {name} at P={p} differs from its "
-                            f"plain version or from call to call ({err})")
-        # the small limit fills every partition: the overflow rule ran
-        full = torch.bincount(a.long(), minlength=p).min().item()
-        check(full >= limit,
-              f"phase 10: oblivious at P={p} left a partition unfilled")
-        print(f"phase 10: hdrf_scan and oblivious_scan == plain bit for bit "
-              f"and call to call at M={m}, N={n}, P={p} ({len(calls)} "
-              f"cases)", flush=True)
-    print(f"phase 10 (a): took {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    if name == "hdrf_scan":
+        return sref.hdrf_scan_ref(e, p, n, lam).numpy(), e.numpy(), lam
+    limit = max(1, m // (2 * p))
+    return (sref.oblivious_scan_ref(e, p, n, limit).numpy(), e.numpy(),
+            limit)
+
+
+def phase_stream_kernels(torch, dev, plains: dict) -> int:
+    """Phase 10 (a): the cases the quality matrix does not reach, each
+    stream kernel against its plain version (run on the CPU in the pool:
+    ``plains``) bit for bit, and the same bits call to call, on
+    rmat(10, 8, seed 3): HDRF at every P of ``STREAM_HDRF_PARTS`` (the
+    warp route to P = 256, the block route above) at lambda 0.5 and 2,
+    Oblivious at P = 1 and a ragged 37 at a limit every partition fills
+    (the overflow rule).  Returns the largest difference (0)."""
+    from repro_torch.graphs.rmat import rmat
+    from repro_torch.kernels.stream import ops as sops
+
+    t0 = time.perf_counter()
+    scale, ef, seed = STREAM_CHECK_GRAPH
+    g = rmat(scale, ef, seed=seed, device=dev)
+    e, n, m = g.edges, g.num_vertices, g.num_edges
+    worst, routes, waited = 0, {}, 0.0
+    for name, p, lam in stream_check_cases():
+        t1 = time.perf_counter()
+        want, read, arg = plains[(name, p, lam)].result()
+        waited += time.perf_counter() - t1
+        check(torch.equal(torch.from_numpy(read), e.cpu()),
+              f"phase 10 (a): the plain {name} read another edge stream")
+        if name == "hdrf_scan":
+            kern = lambda: sops.hdrf_scan(e, p, n, arg)
+            label = f"hdrf lam={arg} ({sops.hdrf_route(p, m)})"
+        else:
+            kern = lambda: sops.oblivious_scan(e, p, n, arg)
+            label = f"oblivious limit={arg}"
+        a, b = kern(), kern()
+        torch.cuda.synchronize()
+        err = max(max_abs_err(a.cpu(), torch.from_numpy(want)),
+                  max_abs_err(a, b))
+        worst = max(worst, err)
+        check(err == 0, f"phase 10: {label} at P={p} differs from its "
+                        f"plain version or from call to call ({err})")
+        if name == "oblivious_scan":
+            # the small limit fills every partition: the overflow rule ran
+            full = torch.bincount(a.long(), minlength=p).min().item()
+            check(full >= arg,
+                  f"phase 10: oblivious at P={p} left a partition unfilled")
+        routes.setdefault(name, []).append(f"P={p} {label}")
+    for name, cases in routes.items():
+        print(f"phase 10: {name} == plain (CPU) bit for bit and call to "
+              f"call at M={m}, N={n}: {'; '.join(cases)}", flush=True)
+    print(f"phase 10 (a): took {time.perf_counter() - t0:.1f} s (of it "
+          f"{waited:.1f} s waiting for the pool's plain scans)", flush=True)
     return worst
 
 
@@ -2517,18 +2559,21 @@ def stream_plain_oracle(name: str, p: int, tmp: str):
     return out.numpy(), es.numpy(), (time.perf_counter() - t0) * 1e3
 
 
-def start_stream_oracles(pool, tmp: str) -> dict:
+def start_stream_oracles(pool, tmp: str) -> tuple:
     """Phase 10's plain scans on the CPU, submitted to ``pool`` with the
-    app oracles (they run beside phase 9): {(name, P): future}."""
+    app oracles (they run beside phase 9): (a)'s {(name, P, lambda):
+    future} and the cells' {(name, P): future}."""
     from repro_torch.tools import quality
 
+    checks = {case: pool.submit(stream_check_oracle, *case)
+              for case in stream_check_cases()}
     out = {}
     for name in STREAM_KERNELS:
         for p in quality.PARTS:
             d = os.path.join(tmp, f"stream_{name}_{p}")
             os.makedirs(d, exist_ok=True)
             out[(name, p)] = pool.submit(stream_plain_oracle, name, p, d)
-    return out
+    return checks, out
 
 
 def stream_cells(torch, graphs, counts, err: int, plains: dict) -> list:
@@ -2565,9 +2610,10 @@ def stream_cells(torch, graphs, counts, err: int, plains: dict) -> list:
                      lambda: sops.oblivious_scan(es, p, n, limit),
                      lambda x: sref.oblivious_scan_ref(x, p, n, limit))):
                 bound, by, floor = stream_bound(name, m, p)
-                dev_ms, fill_ms = launch_ms(
-                    torch, sops, sops.prepare(name, es, p, n, arg), 3)
+                scan = sops.prepare(name, es, p, n, arg)
+                dev_ms, fill_ms = launch_ms(torch, sops, scan, 3)
                 cell = {"graph": gname, "p": p, "m": m, "n": n,
+                        "kernel_route": scan.route,
                         "ms": time_ms(kern, 3, warmup=1), "device_ms": dev_ms,
                         "fill_ms": fill_ms, "bound_ms": bound, "bound_by": by,
                         "bound_floor": floor, "plain_cpu_ms": None,
@@ -2605,7 +2651,8 @@ def stream_cells(torch, graphs, counts, err: int, plains: dict) -> list:
                              f"edges {cell['plain_card_first_ms']!r} ms, == "
                              f"the CPU's bits")
                 cells[name].append(cell)
-                print(f"phase 10: {name} at {gname} P={p} (M={m}): ms "
+                print(f"phase 10: {name} ({scan.route}) at {gname} P={p} "
+                      f"(M={m}): ms "
                       f"{cell['ms']!r}, launch {dev_ms!r} ms "
                       f"({dev_ms * 1e6 / m!r} ns an edge), fills {fill_ms!r} "
                       f"ms, bound {bound!r} ({by}: {floor}){held}",
@@ -2615,7 +2662,8 @@ def stream_cells(torch, graphs, counts, err: int, plains: dict) -> list:
         top = next(c for c in cs if c["graph"] == STREAM_PLAIN_GRAPH
                    and c["p"] == STREAM_ROW_P)
         rows.append({
-            "name": name, "route": "cuda", "source": STREAM_SOURCE,
+            "name": name, "route": "cuda",
+            "kernel_route": top["kernel_route"], "source": STREAM_SOURCE,
             "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": max([err] + [c["max_abs_err"] for c in cs
                                         if c["max_abs_err"] is not None]),
@@ -3302,10 +3350,14 @@ def flash_bwd_case(torch, fa, faref, shape, dtype, causal, gen, label):
     gradient from the same q, k, v, out and LSE (bf16: 2^-7 |plain| +
     1e-4 max|plain|, one bf16 rounding of each and float32 sums in another
     order; float32: 1e-4 |plain| + 1e-5 max|plain|), the same bits call to
-    call.  Returns (the largest absolute error, the largest over
+    call, on the route the type takes ("mma" for bf16, "fma" for
+    float32).  Returns (the largest absolute error, the largest over
     max|plain|, the inputs)."""
     b, s, h, hk, d = shape
     dev = torch.device("cuda")
+    route = fa.flash_attention_backward_route(dtype, d)
+    check(route == ("mma" if dtype == torch.bfloat16 else "fma"),
+          f"phase 12 (a): {dtype} takes the {route!r} route at {label}")
     q, do = (torch.randn((b, s, h, d), generator=gen, device=dev,
                          dtype=dtype) for _ in range(2))
     k, v = (torch.randn((b, s, hk, d), generator=gen, device=dev,
@@ -3334,25 +3386,57 @@ def flash_bwd_case(torch, fa, faref, shape, dtype, causal, gen, label):
     return worst_abs, worst, (q, k, v, o, lse, do)
 
 
+def flash_bwd_instructions() -> dict:
+    """Phase 12 (a): the tensor-core instructions (HMMA, HGMMA) that
+    ``cuobjdump -sass`` counts in the built "mma" route's kernels,
+    {kernel: {instruction: count}}; fails if the tool is found and a
+    kernel has none."""
+    from repro_torch.kernels import build
+
+    tool = cuobjdump()
+    if tool is None:
+        print("phase 12 (a): backward kernel instructions: no cuobjdump "
+              "found, not counted", flush=True)
+        return {}
+    counts = {}                    # one cuobjdump of the library for both
+    for fn, c in sass_counts(tool, build, "flash_attention", "_mma_kernel",
+                             ("HMMA", "HGMMA")).items():
+        kern = "kv_mma_kernel" if "kv_mma_kernel" in fn else "q_mma_kernel"
+        counts[f"{kern}<{fn.split(kern + 'ILi')[1].split('E')[0]}>"] = c
+    check(len(counts) == 8, f"phase 12 (a): {len(counts)} mma backward "
+                            f"kernels in the flash library's SASS, not 8")
+    check(all(c["HMMA"] + c["HGMMA"] > 0 for c in counts.values()),
+          f"phase 12 (a): an mma backward kernel without tensor-core "
+          f"instructions: {counts}")
+    print(f"phase 12 (a): mma backward kernel instructions ({tool} -sass): "
+          f"{counts}", flush=True)
+    return counts
+
+
 def train_flash_kernel(torch, fa, faref, reps) -> dict:
     """Phase 12 (a), flash: the backward against its plain version at the
     training path's shape (B 8, S = T = 4,096, 9 heads over 3, D 64,
-    bf16, causal), at a float32 one (B 2, S 1,024) and at every head dim
-    (bf16, 2 heads a kv head, causal and not); its times at the path's
-    shape beside the bound, the plain version's and the backward of
-    ``F.scaled_dot_product_attention`` with the kv heads repeated."""
+    bf16, causal: the "mma" route), at a float32 one (B 2, S 1,024: the
+    "fma" route) and at every head dim (bf16, 2 heads a kv head, ragged
+    S 300, causal and not); the tensor-core instructions of the "mma"
+    kernels; its times at the path's shape beside the bound, the plain
+    version's and the backward of ``F.scaled_dot_product_attention`` with
+    the kv heads repeated."""
     gen = torch.Generator(device="cuda").manual_seed(122)
     bf = torch.bfloat16
+    sass = flash_bwd_instructions()
+    route = fa.flash_attention_backward_route(bf, FLASH_TRAIN[4])
     err, worst, inputs = flash_bwd_case(torch, fa, faref, FLASH_TRAIN, bf,
                                         True, gen, "the train_4k shape")
-    print(f"phase 12 (a): flash_attention_backward == plain at B, S, H, HK, "
-          f"D = {FLASH_TRAIN} bf16 causal: max abs err {err!r}, "
+    print(f"phase 12 (a): flash_attention_backward ({route}) == plain at B, "
+          f"S, H, HK, D = {FLASH_TRAIN} bf16 causal: max abs err {err!r}, "
           f"{worst!r} of max|plain| "
           f"(tol 2^-7|plain| + 1e-4 max), LSE within 1e-5, the same bits "
           f"call to call", flush=True)
     errs = {}
-    cases = [((2, 1024, 9, 3, 64), torch.float32, True, "float32")]
-    cases += [((2, 300, 4, 2, d), bf, c, f"D={d} {'causal' if c else 'all'}")
+    cases = [((2, 1024, 9, 3, 64), torch.float32, True, "float32 (fma)")]
+    cases += [((2, 300, 4, 2, d), bf, c,
+               f"D={d} {'causal' if c else 'all'} (mma)")
               for d in fa.HEAD_DIMS for c in (True, False)]
     for shape, dtype, causal, label in cases:
         errs[label] = flash_bwd_case(torch, fa, faref, shape, dtype, causal,
@@ -3382,6 +3466,7 @@ def train_flash_kernel(torch, fa, faref, reps) -> dict:
           f"max {scale!r}")
     bound = flash_bwd_bound(b, s, h, hk, d, 2)
     row = {"name": "flash_attention_backward", "route": "cuda",
+           "kernel_route": route, "sass": sass,
            "source": FA_SOURCE, "replaces": REPLACES[
                "flash_attention_backward"], "max_abs_err": err,
            "max_err_over_max": worst, "max_err_over_max_other": errs,
@@ -3391,7 +3476,8 @@ def train_flash_kernel(torch, fa, faref, reps) -> dict:
            "bound_ms": bound[0], "bound_by": bound[1],
            "library_ms": time_ms(libf, reps),
            "library_device_ms": device_ms(torch, libf, reps)[0]}
-    print(f"phase 12 (a): flash_attention_backward at {FLASH_TRAIN} bf16: "
+    print(f"phase 12 (a): flash_attention_backward ({route}) at "
+          f"{FLASH_TRAIN} bf16: "
           f"ms {row['ms']!r}, device_ms {row['device_ms']!r}, bound "
           f"{row['bound_ms']!r} ({row['bound_by']}), plain "
           f"{row['plain_ms']!r}, SDPA backward {row['library_ms']!r} "
@@ -4261,7 +4347,7 @@ def main() -> None:
     try:
         oracles = start_app_oracles(np, pool, main_edges, 1 << args.scale,
                                     work)
-        stream_plains = start_stream_oracles(pool, work)
+        stream_checks, stream_plains = start_stream_oracles(pool, work)
         family_cpu = start_family_oracles(pool)
         # --- phase 9: the driver from the store, killed and resumed ---------
         mark("9")
@@ -4274,9 +4360,9 @@ def main() -> None:
         # --- phase 10: baselines and hybrid ----------------------------------
         mark("10")
         t0 = time.perf_counter()
-        ptxas_report(build, "stream", ("hdrf_kernel", "oblivious_kernel"),
-                     "phase 10")
-        err = phase_stream_kernels(torch, dev)
+        ptxas_report(build, "stream", ("hdrf_kernel", "hdrf_warp_kernel",
+                                       "oblivious_kernel"), "phase 10")
+        err = phase_stream_kernels(torch, dev, stream_checks)
         graphs, q_rows, q_counts = phase_quality(torch, np, dev, work)
         stream = stream_cells(torch, graphs, q_counts, err, stream_plains)
         phase_hybrid_scale(torch, np, ef, dev)

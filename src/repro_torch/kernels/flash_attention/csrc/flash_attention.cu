@@ -1119,7 +1119,46 @@ combine_kernel(const float* part, int n_chunks, int hd, Params p) {
 
 
 // --------------------------------------------------------------------------
-// the backward: dot_kernel, kv_kernel and q_kernel (float32 or bfloat16)
+// the backward: dot_kernel, then kv_kernel and q_kernel (route "fma",
+// float32) or kv_mma_kernel and q_mma_kernel (route "mma", bfloat16)
+//
+// It replaces no TPU kernel: the reference trains through XLA's gradient
+// of train_4k's full_attention (repro/models/lm/transformer.py:175).
+// dQ, dK, dV of causal (S == T) or unmasked attention with GQA, P
+// recomputed from the forward's float32 LSE: D = rowsum(dO ∘ O), P =
+// exp(S·scale - lse), dS = P ∘ (dP - D), dV = Pᵀ·dO, dK = scale·dSᵀ·Q,
+// dQ = scale·dS·K.  Two passes and no atomics (the same bits every call:
+// training's resume check needs them): kv blocks own a tile of keys and
+// walk all G heads' rows; q blocks own a tile of rows and walk the keys.
+//
+// Bound: operations.  Five products of 2·D operations a kept (row, key)
+// pair, against 989 TFLOP/s bf16 on the tensor cores; the bytes (q, k, v,
+// out, dout read and dq, dk, dv written once) are ~1 % of that at S 4,096.
+//
+// Route "fma" (float32): 256 threads over float32 shared-memory tiles,
+// every product an FMA on the CUDA cores (67 TFLOP/s at best).
+//
+// Route "mma" (bfloat16): the products on the tensor cores by
+// mma.sync.m16n8k16 (bf16 operands, float32 sums), as FlashAttention-2's
+// backward shapes them.  Four warps a block; tiles stay bf16 in shared
+// memory (rows padded by 16 bytes, so each ldmatrix row falls on its own
+// banks), the next tile comes in by cp.async into a two-stage ring while
+// the present one is used.  kv_mma_kernel: warp w holds 16 keys and takes
+// Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (64 rows a tile, 32 at D = 128), Pᵀ and dSᵀ in
+// float32 registers, then dV += Pᵀ·dO and dK += dSᵀ·Q with the accumulator
+// fragments of Pᵀ and dSᵀ reused as the A operand in registers.
+// q_mma_kernel: warp w holds 16 rows, S = Q·Kᵀ and dP = dO·Vᵀ over 64-key
+// tiles, dQ += dS·K.  Masks are applied only on tiles that cross the
+// causal diagonal or a ragged edge.
+//
+// Precision: q, k, v and dO are bf16 inputs, so S and dP are exact
+// products summed in float32.  P and dS are never fed to a product as
+// one bf16 term: each is split into hi = bf16(x) and lo = bf16(x - hi),
+// and each of dV, dK and dQ takes two products, hi and lo, summed in
+// float32 (bf16(P) or bf16(dS) alone misses the tolerance below:
+// tests/test_torch_train_gpu.py).  dQ, dK, dV are rounded once to bf16 at
+// the end.  Tolerance against the plain float32 gradient: 2^-7·|plain| +
+// 1e-4·max|plain|.
 // --------------------------------------------------------------------------
 
 namespace bwd {
@@ -1166,9 +1205,6 @@ struct BParams {
 __device__ __forceinline__ float wid(float x) { return x; }
 __device__ __forceinline__ float wid(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(bf16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // 16 bytes of T widened to float32
 template <typename T>
@@ -1179,20 +1215,6 @@ struct V16<float> {
   __device__ static void get(const float* p, float (&o)[4]) {
     const float4 x = *reinterpret_cast<const float4*>(p);
     o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
-  }
-};
-template <>
-struct V16<bf16> {
-  static constexpr int N = 8;
-  __device__ static void get(const bf16* p, float (&o)[8]) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float2 f = __bfloat1622float2(h[u]);
-      o[2 * u] = f.x;
-      o[2 * u + 1] = f.y;
-    }
   }
 };
 
@@ -1491,6 +1513,448 @@ __global__ void __launch_bounds__(THREADS) q_kernel(BParams p) {
   }
 }
 
+// ---- route "mma": bfloat16 on the tensor cores --------------------------
+
+constexpr int MMA_THREADS = 128;          // 4 warps
+constexpr int MBK = 64;                   // keys a tile: 16 a warp in kv
+constexpr int QBQ = 64;                   // q_mma: rows a block, 16 a warp
+
+template <int HD>
+struct MCfg {
+  static constexpr int BQ = HD == 128 ? 32 : 64;   // kv_mma: rows a tile
+  // bf16 row stride of every tile: 16 bytes of padding put the 8 rows an
+  // ldmatrix reads on distinct banks
+  static constexpr int LD = HD + 8;
+  // kv_mma: K, V [MBK][LD]; two stages of Q, dO [BQ][LD] and lse, D [BQ]
+  static constexpr int KV_BYTES = 2 * MBK * LD * 2 + 2 * (2 * BQ * LD * 2 +
+                                                          2 * BQ * 4);
+  // q_mma: Q, dO [QBQ][LD], lse, D [QBQ]; two stages of K, V [MBK][LD]
+  static constexpr int Q_BYTES = 2 * QBQ * LD * 2 + 2 * QBQ * 4 +
+                                 2 * 2 * MBK * LD * 2;
+};
+
+// 4 bytes global -> shared; zero where !ok
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory, one row address a lane
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)) : "memory");
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)) : "memory");
+}
+
+// c += a (16 x 16, row) · b (16 x 8, col), bf16 in, float32 sums
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x, y) as two bf16x2 terms: hi = bf16(x, y), lo = bf16(x - hi.x, y - hi.y)
+// (x - hi.x is exact in float32); the lower column in the low half
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// the A operand (16 x 16, k = 16 columns) of two accumulator tiles
+// (16 x 8 each: columns 0-7 and 8-15), as hi and lo terms: FlashAttention-
+// 2's reuse of an accumulator fragment as the next product's operand
+__device__ __forceinline__ void a_split(const float (&c0)[4],
+                                        const float (&c1)[4],
+                                        uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split2(c0[0], c0[1], hi[0], lo[0]);
+  split2(c0[2], c0[3], hi[1], lo[1]);
+  split2(c1[0], c1[1], hi[2], lo[2]);
+  split2(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// rows r0 .. r0 + n of (batch b, kv head hk) of q and dO into bf16 tiles
+// [n][LD] and their lse and D, by cp.async, zeros past the last row
+template <int HD>
+__device__ __forceinline__ void stage_rows_mma(const BParams& p, long long b,
+                                               int hk, long long r0, int n,
+                                               bf16* qs, bf16* dos,
+                                               float* lse_s, float* dd_s) {
+  constexpr int LD = MCfg<HD>::LD;
+  const int g = p.h / p.hk;
+  const long long rows = p.s * g;
+  for (int e = threadIdx.x; e < n * HD / 8; e += MMA_THREADS) {
+    const int rr = e / (HD / 8);
+    const int c = (e % (HD / 8)) * 8;
+    const long long r = r0 + rr;
+    const bool ok = r < rows;
+    const long long rc = ok ? r : 0;
+    const long long off = ((b * p.s + rc / g) * p.h + hk * g + rc % g) * HD
+                          + c;
+    cp_async16(smem_u32(qs + rr * LD + c),
+               static_cast<const bf16*>(p.q) + off, ok);
+    cp_async16(smem_u32(dos + rr * LD + c),
+               static_cast<const bf16*>(p.dout) + off, ok);
+  }
+  for (int rr = threadIdx.x; rr < n; rr += MMA_THREADS) {
+    const long long r = r0 + rr;
+    const bool ok = r < rows;
+    const long long rc = ok ? r : 0;
+    const long long li = (b * p.h + hk * g + rc % g) * p.s + rc / g;
+    cp_async4(smem_u32(lse_s + rr), p.lse + li, ok);
+    cp_async4(smem_u32(dd_s + rr), p.dd + li, ok);
+  }
+}
+
+// keys j0 .. j0 + MBK of (batch b, kv head hk) of k and v into bf16 tiles
+// [MBK][LD] by cp.async, zeros past T
+template <int HD>
+__device__ __forceinline__ void stage_keys_mma(const BParams& p, long long b,
+                                               int hk, long long j0, bf16* ks,
+                                               bf16* vs) {
+  constexpr int LD = MCfg<HD>::LD;
+  for (int e = threadIdx.x; e < MBK * HD / 8; e += MMA_THREADS) {
+    const int jj = e / (HD / 8);
+    const int c = (e % (HD / 8)) * 8;
+    const long long j = j0 + jj;
+    const bool ok = j < p.t;
+    const long long off = ((b * p.t + (ok ? j : 0)) * p.hk + hk) * HD + c;
+    cp_async16(smem_u32(ks + jj * LD + c),
+               static_cast<const bf16*>(p.k) + off, ok);
+    cp_async16(smem_u32(vs + jj * LD + c),
+               static_cast<const bf16*>(p.v) + off, ok);
+  }
+}
+
+// does a (rows r0 .. r0 + nr, keys j0 .. j0 + MBK) tile need its mask:
+// a ragged edge, or causal with a key past the tile's first position
+__device__ __forceinline__ bool needs_mask(const BParams& p, long long r0,
+                                           int nr, long long j0) {
+  const long long rows = p.s * (p.h / p.hk);
+  return r0 + nr > rows || j0 + MBK > p.t ||
+         (p.causal && j0 + MBK - 1 > r0 / (p.h / p.hk));
+}
+
+// is (row, key j) kept
+__device__ __forceinline__ bool kept(const BParams& p, long long row,
+                                     long long j) {
+  const int g = p.h / p.hk;
+  return row < p.s * g && j < p.t && (!p.causal || j <= row / g);
+}
+
+// dK and dV of MBK keys of one (batch, kv head): warp w takes keys
+// 16w .. 16w + 16 and walks the row tiles of all G query heads of the
+// group (causal: from the first row whose position reaches the tile), the
+// next tile's Q and dO loading into the other stage meanwhile.  Per tile:
+// Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, Pᵀ = exp(Sᵀ·scale - lse) and dSᵀ = Pᵀ ∘ (dPᵀ
+// - D) in registers, dV += Pᵀ·dO and dK += dSᵀ·Q with Pᵀ and dSᵀ as hi +
+// lo bf16 terms.
+template <int HD>
+__global__ void __launch_bounds__(MMA_THREADS) kv_mma_kernel(BParams p) {
+  using C = MCfg<HD>;
+  constexpr int BQ = C::BQ, LD = C::LD;
+  constexpr int NT = BQ / 8;              // row n-tiles of Sᵀ
+  constexpr int DT = HD / 8;              // d n-tiles of dK, dV
+  extern __shared__ float4 smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + MBK * LD;
+  bf16* qs = vs + MBK * LD;               // [2][BQ][LD]
+  bf16* dos = qs + 2 * BQ * LD;           // [2][BQ][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * LD);   // [2][BQ]
+  float* dd_s = lse_s + 2 * BQ;                                 // [2][BQ]
+
+  const int g = p.h / p.hk;
+  const long long rows = p.s * g;
+  const long long b = blockIdx.x / p.hk;
+  const int hk = (int)(blockIdx.x % p.hk);
+  const long long j0 = (long long)blockIdx.y * MBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kw = warp * 16;               // the warp's first key in the tile
+  const long long r_begin = p.causal ? j0 * g / BQ * BQ : 0;
+  const int tiles = (int)((rows - r_begin + BQ - 1) / BQ);
+
+  stage_keys_mma<HD>(p, b, hk, j0, ks, vs);
+  stage_rows_mma<HD>(p, b, hk, r_begin, BQ, qs, dos, lse_s, dd_s);
+  cp_async_commit();
+
+  float dk[DT][4], dv[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[t][c] = dv[t][c] = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const long long r0 = r_begin + (long long)it * BQ;
+    const int buf = it & 1;
+    if (it + 1 < tiles)
+      stage_rows_mma<HD>(p, b, hk, r0 + BQ, BQ, qs + (buf ^ 1) * BQ * LD,
+                         dos + (buf ^ 1) * BQ * LD, lse_s + (buf ^ 1) * BQ,
+                         dd_s + (buf ^ 1) * BQ);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* qt = qs + buf * BQ * LD;
+    const bf16* dt = dos + buf * BQ * LD;
+    const float* ls = lse_s + buf * BQ;
+    const float* ds = dd_s + buf * BQ;
+
+    float st[NT][4], dpt[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) st[n][c] = dpt[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      const int ao = (kw + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
+      ldsm4(ka, ks + ao);
+      ldsm4(va, vs + ao);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t qb[4], ob[4];
+        const int bo = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                       kk * 16 + ((lane >> 3) & 1) * 8;
+        ldsm4(qb, qt + bo);
+        ldsm4(ob, dt + bo);
+        mma16816(st[2 * np], ka, qb[0], qb[1]);
+        mma16816(st[2 * np + 1], ka, qb[2], qb[3]);
+        mma16816(dpt[2 * np], va, ob[0], ob[1]);
+        mma16816(dpt[2 * np + 1], va, ob[2], ob[3]);
+      }
+    }
+    // Pᵀ and dSᵀ: element c of n-tile n is key kw + lane/4 (+ 8 for c >= 2)
+    // and row n·8 + 2(lane % 4) + c % 2
+    const bool edge = needs_mask(p, r0, BQ, j0);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int rr = n * 8 + 2 * (lane & 3);
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + rr);
+      const float2 d2 = *reinterpret_cast<const float2*>(ds + rr);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float pr = expf(fmaf(st[n][c], p.scale, -(c & 1 ? l2.y : l2.x)));
+        if (edge && !kept(p, r0 + rr + (c & 1),
+                          j0 + kw + (lane >> 2) + (c >> 1) * 8))
+          pr = 0.f;
+        st[n][c] = pr;
+        dpt[n][c] = pr * (dpt[n][c] - (c & 1 ? d2.y : d2.x));
+      }
+    }
+    // dV += Pᵀ·dO, dK += dSᵀ·Q: k runs over the tile's rows
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      a_split(st[2 * kk], st[2 * kk + 1], ph, pl);
+      a_split(dpt[2 * kk], dpt[2 * kk + 1], sh, sl);
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t ob[4], qb[4];
+        const int bo = (kk * 16 + (lane & 15)) * LD + dp * 16 +
+                       (lane >> 4) * 8;
+        ldsm4t(ob, dt + bo);
+        ldsm4t(qb, qt + bo);
+        mma16816(dv[2 * dp], ph, ob[0], ob[1]);
+        mma16816(dv[2 * dp], pl, ob[0], ob[1]);
+        mma16816(dv[2 * dp + 1], ph, ob[2], ob[3]);
+        mma16816(dv[2 * dp + 1], pl, ob[2], ob[3]);
+        mma16816(dk[2 * dp], sh, qb[0], qb[1]);
+        mma16816(dk[2 * dp], sl, qb[0], qb[1]);
+        mma16816(dk[2 * dp + 1], sh, qb[2], qb[3]);
+        mma16816(dk[2 * dp + 1], sl, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();                // the stage is consumed
+  }
+  // element c of n-tile t: key kw + lane/4 (+ 8 for c >= 2), column
+  // t·8 + 2(lane % 4) + c % 2
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const long long j = j0 + kw + (lane >> 2) + half * 8;
+    if (j >= p.t) continue;
+    const long long off = ((b * p.t + j) * p.hk + hk) * HD + 2 * (lane & 3);
+#pragma unroll
+    for (int t = 0; t < DT; ++t) {
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dk) + off +
+                                         t * 8) =
+          __floats2bfloat162_rn(dk[t][2 * half] * p.scale,
+                                dk[t][2 * half + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dv) + off +
+                                         t * 8) =
+          __floats2bfloat162_rn(dv[t][2 * half], dv[t][2 * half + 1]);
+    }
+  }
+}
+
+// dQ of QBQ rows of one (batch, kv head) (the forward's rows: position
+// r / G of head hk·G + r % G): warp w takes rows 16w .. 16w + 16 and walks
+// the key tiles up to the last row's position when causal, the next
+// tile's K and V loading into the other stage meanwhile.  Per tile: S =
+// Q·Kᵀ and dP = dO·Vᵀ, P and dS = P ∘ (dP - D) in registers, dQ += dS·K
+// with dS as hi + lo bf16 terms.
+template <int HD>
+__global__ void __launch_bounds__(MMA_THREADS) q_mma_kernel(BParams p) {
+  constexpr int LD = MCfg<HD>::LD;
+  constexpr int NT = MBK / 8;             // key n-tiles of S
+  constexpr int DT = HD / 8;              // d n-tiles of dQ
+  extern __shared__ float4 smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [QBQ][LD]
+  bf16* dos = qs + QBQ * LD;
+  bf16* ks = dos + QBQ * LD;              // [2][MBK][LD]
+  bf16* vs = ks + 2 * MBK * LD;           // [2][MBK][LD]
+  float* lse_s = reinterpret_cast<float*>(vs + 2 * MBK * LD);   // [QBQ]
+  float* dd_s = lse_s + QBQ;
+
+  const int g = p.h / p.hk;
+  const long long rows = p.s * g;
+  const long long b = blockIdx.x / p.hk;
+  const int hk = (int)(blockIdx.x % p.hk);
+  const long long r0 = (long long)(gridDim.y - 1 - blockIdx.y) * QBQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rw = warp * 16;               // the warp's first row in the tile
+  long long kv_end = p.t;
+  if (p.causal) {
+    const long long last = (r0 + QBQ < rows ? r0 + QBQ : rows) - 1;
+    if (last / g + 1 < kv_end) kv_end = last / g + 1;
+  }
+  const int tiles = (int)((kv_end + MBK - 1) / MBK);
+
+  stage_rows_mma<HD>(p, b, hk, r0, QBQ, qs, dos, lse_s, dd_s);
+  stage_keys_mma<HD>(p, b, hk, 0, ks, vs);
+  cp_async_commit();
+
+  float dq[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dq[t][c] = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const long long j0 = (long long)it * MBK;
+    const int buf = it & 1;
+    if (it + 1 < tiles)
+      stage_keys_mma<HD>(p, b, hk, j0 + MBK, ks + (buf ^ 1) * MBK * LD,
+                         vs + (buf ^ 1) * MBK * LD);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* kt = ks + buf * MBK * LD;
+    const bf16* vt = vs + buf * MBK * LD;
+
+    float sc[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sc[n][c] = dp[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qa[4], oa[4];
+      const int ao = (rw + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
+      ldsm4(qa, qs + ao);
+      ldsm4(oa, dos + ao);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kb[4], vb[4];
+        const int bo = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                       kk * 16 + ((lane >> 3) & 1) * 8;
+        ldsm4(kb, kt + bo);
+        ldsm4(vb, vt + bo);
+        mma16816(sc[2 * np], qa, kb[0], kb[1]);
+        mma16816(sc[2 * np + 1], qa, kb[2], kb[3]);
+        mma16816(dp[2 * np], oa, vb[0], vb[1]);
+        mma16816(dp[2 * np + 1], oa, vb[2], vb[3]);
+      }
+    }
+    // P and dS: element c of n-tile n is row rw + lane/4 (+ 8 for c >= 2)
+    // and key n·8 + 2(lane % 4) + c % 2
+    const bool edge = needs_mask(p, r0, QBQ, j0);
+    const int ra = rw + (lane >> 2);
+    const float la = lse_s[ra], lb = lse_s[ra + 8];
+    const float da = dd_s[ra], db = dd_s[ra + 8];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float pr = expf(fmaf(sc[n][c], p.scale, -(c >> 1 ? lb : la)));
+        if (edge && !kept(p, r0 + ra + (c >> 1) * 8,
+                          j0 + n * 8 + 2 * (lane & 3) + (c & 1)))
+          pr = 0.f;
+        sc[n][c] = pr * (dp[n][c] - (c >> 1 ? db : da));
+      }
+    // dQ += dS·K: k runs over the tile's keys
+#pragma unroll
+    for (int kk = 0; kk < MBK / 16; ++kk) {
+      uint32_t sh[4], sl[4];
+      a_split(sc[2 * kk], sc[2 * kk + 1], sh, sl);
+#pragma unroll
+      for (int d2 = 0; d2 < DT / 2; ++d2) {
+        uint32_t kb[4];
+        ldsm4t(kb, kt + (kk * 16 + (lane & 15)) * LD + d2 * 16 +
+                       (lane >> 4) * 8);
+        mma16816(dq[2 * d2], sh, kb[0], kb[1]);
+        mma16816(dq[2 * d2], sl, kb[0], kb[1]);
+        mma16816(dq[2 * d2 + 1], sh, kb[2], kb[3]);
+        mma16816(dq[2 * d2 + 1], sl, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();                // the stage is consumed
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const long long row = r0 + rw + (lane >> 2) + half * 8;
+    if (row >= rows) continue;
+    bf16* dqp = static_cast<bf16*>(p.dq) +
+                ((b * p.s + row / g) * p.h + hk * g + row % g) * HD +
+                2 * (lane & 3);
+#pragma unroll
+    for (int t = 0; t < DT; ++t)
+      *reinterpret_cast<__nv_bfloat162*>(dqp + t * 8) =
+          __floats2bfloat162_rn(dq[t][2 * half] * p.scale,
+                                dq[t][2 * half + 1] * p.scale);
+  }
+}
+
+template <int HD>
+int launch_mma(const BParams& p, long long b, cudaStream_t s) {
+  using C = MCfg<HD>;
+  const long long rows_all = b * p.s * p.h;
+  const long long key_tiles = (p.t + MBK - 1) / MBK;
+  const long long row_tiles = (p.s * (p.h / p.hk) + QBQ - 1) / QBQ;
+  if (key_tiles > 65535 || row_tiles > 65535 || b * p.hk > 0x7fffffffLL ||
+      (rows_all * 32 + 255) / 256 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kv_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::KV_BYTES);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(q_mma_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::Q_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  dot_kernel<bf16, HD><<<(unsigned)((rows_all * 32 + 255) / 256), 256, 0,
+                         s>>>(p, b);
+  kv_mma_kernel<HD><<<dim3((unsigned)(b * p.hk), (unsigned)key_tiles),
+                      MMA_THREADS, C::KV_BYTES, s>>>(p);
+  q_mma_kernel<HD><<<dim3((unsigned)(b * p.hk), (unsigned)row_tiles),
+                     MMA_THREADS, C::Q_BYTES, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int HD>
 int launch(const BParams& p, long long b, cudaStream_t s) {
   using C = Cfg<HD>;
@@ -1519,13 +1983,23 @@ int launch(const BParams& p, long long b, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_hd(const BParams& p, int hd, long long b, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<T, 16>(p, b, s);
-    case 32: return launch<T, 32>(p, b, s);
-    case 64: return launch<T, 64>(p, b, s);
-    case 128: return launch<T, 128>(p, b, s);
+// route 0 ("fma"): float32; route 1 ("mma"): bfloat16
+int launch_hd(const BParams& p, int route, int hd, long long b,
+              cudaStream_t s) {
+  if (route == 0) {
+    switch (hd) {
+      case 16: return launch<float, 16>(p, b, s);
+      case 32: return launch<float, 32>(p, b, s);
+      case 64: return launch<float, 64>(p, b, s);
+      case 128: return launch<float, 128>(p, b, s);
+    }
+  } else if (route == 1) {
+    switch (hd) {
+      case 16: return launch_mma<16>(p, b, s);
+      case 32: return launch_mma<32>(p, b, s);
+      case 64: return launch_mma<64>(p, b, s);
+      case 128: return launch_mma<128>(p, b, s);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1721,23 +2195,24 @@ extern "C" int flash_attention_combine(
 
 // The gradient of a causal (S == T) or unmasked (kv_len == T) call: dq,
 // dk, dv for the upstream dout, from the forward's q, k, v, out and lse.
-// Every tensor contiguous, dtype as above (q, k, v, out, dout, dq, dk, dv
-// alike); `dd` is (B, H, S) float32 scratch for D = rowsum(dout ∘ out).
-// Three launches on the stream: dot_kernel (D), kv_kernel (dk, dv: one
-// block a (batch, kv head, 64 keys)), q_kernel (dq: one block a (batch,
-// kv head, row tile)).  No atomics: the same bits from call to call.
+// Every tensor contiguous and 16-byte aligned, dtype as above (q, k, v,
+// out, dout, dq, dk, dv alike); `dd` is (B, H, S) float32 scratch for
+// D = rowsum(dout ∘ out).  `route` 0 ("fma") takes float32 only, 1
+// ("mma") bfloat16 only; any other pairing is refused.  Three launches on
+// the stream: dot_kernel (D), then kv_kernel / kv_mma_kernel (dk, dv: one
+// block a (batch, kv head, 64 keys)) and q_kernel / q_mma_kernel (dq: one
+// block a (batch, kv head, row tile)).  No atomics: the same bits from
+// call to call.
 extern "C" int flash_attention_backward(
     const void* q, const void* k, const void* v, const void* out,
-    const void* dout, const float* lse, int dtype, int hd, long long b,
-    long long s, int h, int hk, long long t, int causal, float scale,
-    void* dq, void* dk, void* dv, float* dd, void* stream) {
+    const void* dout, const float* lse, int dtype, int route, int hd,
+    long long b, long long s, int h, int hk, long long t, int causal,
+    float scale, void* dq, void* dk, void* dv, float* dd, void* stream) {
   if (h <= 0 || hk <= 0 || h % hk || b < 1 || s < 1 || t < 1 ||
-      (causal && s != t))
+      (causal && s != t) || s * (h / hk) > 0x7fffffffLL ||
+      !((dtype == 0 && route == 0) || (dtype == 1 && route == 1)))
     return (int)cudaErrorInvalidValue;
   bwd::BParams p{q, k, v, out, dout, lse, dd, dq, dk, dv, s, t, h, hk,
                  causal, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return bwd::launch_hd<float>(p, hd, b, st);
-  if (dtype == 1) return bwd::launch_hd<bf16>(p, hd, b, st);
-  return (int)cudaErrorInvalidValue;
+  return bwd::launch_hd(p, route, hd, b, static_cast<cudaStream_t>(stream));
 }

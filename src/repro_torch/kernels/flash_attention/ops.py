@@ -23,8 +23,11 @@ through :class:`FlashAttentionFn`: its forward runs the same kernel and
 also writes each row's float32 log-sum-exp (B, H, S); its backward runs
 ``flash_attention_backward`` (one count in
 ``launches["flash_attention_backward"]`` a call: D = rowsum(dO ∘ O), then
-dK/dV and dQ, P recomputed from the LSE).  Training takes causal calls
-with S == T and unmasked calls with kv_len == T; the split-KV route
+dK/dV and dQ, P recomputed from the LSE).
+:func:`flash_attention_backward_route` names its design: ``"mma"`` for
+bf16 (the tensor cores, P and dS as bf16 hi + lo terms), ``"fma"`` for
+float32; the C entry refuses any other pairing.  Training takes causal
+calls with S == T and unmasked calls with kv_len == T; the split-KV route
 (bf16, S·H/HK <= 16) writes no LSE, so a training call there raises.
 Serving passes no LSE pointer.  On the CPU the function's forward and
 backward are the plain ``ref.attention_lse_ref`` and
@@ -50,12 +53,13 @@ _LL = ctypes.c_longlong
 _ARGTYPES = ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _LL, _LL,
               ctypes.c_int, ctypes.c_int, _LL, _LL, ctypes.c_int,
               ctypes.c_float] + [_LL] * 13 + [_P, _P, _P])
-_BWD_ARGTYPES = ([_P] * 6 + [ctypes.c_int, ctypes.c_int, _LL, _LL,
-                              ctypes.c_int, ctypes.c_int, _LL, ctypes.c_int,
-                              ctypes.c_float] + [_P] * 5)
+_BWD_ARGTYPES = ([_P] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              _LL, _LL, ctypes.c_int, ctypes.c_int, _LL,
+                              ctypes.c_int, ctypes.c_float] + [_P] * 5)
 _COMBINE_ARGTYPES = [_P, _P, ctypes.c_int, _LL, _LL, ctypes.c_int,
                      ctypes.c_int, _LL, _LL, _LL, _LL, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_BWD_ROUTES = {"fma": 0, "mma": 1}
 
 
 def reset_launches() -> None:
@@ -195,6 +199,27 @@ def flash_attention_forward(q, k, v, causal: bool = True):
     return _forward(q, k, v, causal, k.shape[1], lse), lse
 
 
+def _aligned(x):
+    """``x`` contiguous from a 16-byte aligned start (the backward
+    kernels' 16-byte copies), copied where it is not."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def flash_attention_backward_route(dtype, d: int) -> str:
+    """The backward kernels a card call takes: "mma" (bf16, the tensor
+    cores) or "fma" (float32, the CUDA cores), at a head dim in
+    :data:`HEAD_DIMS`; raises for any other type or head dim."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        return "mma"
+    if dtype == torch.float32:
+        return "fma"
+    raise TypeError(f"flash_attention_backward takes float32 or bfloat16, "
+                    f"got {dtype}")
+
+
 def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
     """(dq, dk, dv) of a training call for the upstream ``do``, from its
     inputs, output and LSE; each in its input's type.  The plain version
@@ -203,7 +228,7 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
     _check_train(q, k, causal, None)
     if _route(q, k, v, o, lse, do) == "cpu":
         return ref.attention_backward_ref(q, k, v, o, lse, do, causal)
-    q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do.to(q.dtype)))
+    q, k, v, o, do = (_aligned(x) for x in (q, k, v, o, do.to(q.dtype)))
     _check(q, k, v, k.shape[1])
     b, s, h, d = q.shape
     hk, t = k.shape[2], k.shape[1]
@@ -217,8 +242,9 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
     dd = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     err = _lib().flash_attention_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype], d, b, s, h, hk, t,
-        int(causal), 1.0 / math.sqrt(d), dq.data_ptr(), dk.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype],
+        _BWD_ROUTES[flash_attention_backward_route(q.dtype, d)], d, b, s, h,
+        hk, t, int(causal), 1.0 / math.sqrt(d), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), dd.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_backward failed with "

@@ -27,11 +27,13 @@ launches = {"hdrf_scan": 0, "oblivious_scan": 0}
 _P = ctypes.c_void_p
 _ARGTYPES = {
     "stream_hdrf": [_P, ctypes.c_longlong, ctypes.c_int, _P, _P,
-                    ctypes.c_float, ctypes.c_int, _P, _P],
+                    ctypes.c_float, ctypes.c_int, ctypes.c_int, _P, _P],
     "stream_oblivious": [_P, ctypes.c_longlong, ctypes.c_int, _P,
                          ctypes.c_int, ctypes.c_int, _P, _P],
 }
 MAX_THREADS = 1024
+WARP_MAX_P = 256                 # the warp route's 8 words a vertex
+_ROUTES = {"block": 0, "warp": 1}
 
 
 def reset_launches() -> None:
@@ -43,6 +45,15 @@ def threads(p: int) -> int:
     """The block's threads: P rounded up to a warp, at most 1,024 (a
     thread then owns several partitions)."""
     return min(MAX_THREADS, -(-p // 32) * 32)
+
+
+def hdrf_route(p: int, m: int = 0) -> str:
+    """The HDRF kernel a card call with ``p`` partitions over ``m`` edges
+    takes: "warp" for 1 <= P <= :data:`WARP_MAX_P` and M < 2^31 (its
+    32-bit step count), else "block"."""
+    if p < 1:
+        raise ValueError(f"p={p}: need p >= 1")
+    return "warp" if p <= WARP_MAX_P and m < 2**31 else "block"
 
 
 def _lib():
@@ -79,10 +90,12 @@ class Scan(NamedTuple):
     """One scan on the card: its kernel, its inputs and its state."""
 
     name: str                      # "hdrf_scan" or "oblivious_scan"
+    route: str                     # "warp" or "block"
     edges: torch.Tensor            # (M, 2) int32, contiguous, 8-byte aligned
     p: int
     arg: float | int               # HDRF's lambda, Oblivious' limit
-    vparts: torch.Tensor           # (N, P) uint8 replica flags
+    vparts: torch.Tensor           # replica flags: (N, P) uint8 ("block"),
+                                   # (N, ceil(P/32)) int32 words ("warp")
     degree: torch.Tensor | None    # (N,) int32 partial degrees (HDRF)
     out: torch.Tensor              # (M,) int32 partitions
 
@@ -97,10 +110,13 @@ def prepare(name: str, edges: torch.Tensor, p: int, n: int,
     if edges.data_ptr() % 8:             # the kernel reads int2 rows
         edges = edges.clone()
     dev = edges.device
-    degree = (torch.zeros(n, dtype=torch.int32, device=dev)
-              if name == "hdrf_scan" else None)
-    return Scan(name, edges, p, arg,
-                torch.zeros((n, p), dtype=torch.uint8, device=dev), degree,
+    hdrf = name == "hdrf_scan"
+    route = hdrf_route(p, edges.shape[0]) if hdrf else "block"
+    degree = torch.zeros(n, dtype=torch.int32, device=dev) if hdrf else None
+    vparts = (torch.zeros((n, -(-p // 32)), dtype=torch.int32, device=dev)
+              if route == "warp" else
+              torch.zeros((n, p), dtype=torch.uint8, device=dev))
+    return Scan(name, route, edges, p, arg, vparts, degree,
                 torch.empty(edges.shape[0], dtype=torch.int32, device=dev))
 
 
@@ -111,17 +127,19 @@ def launch(scan: Scan) -> torch.Tensor:
     m = scan.edges.shape[0]
     if scan.name == "hdrf_scan":
         fn = "stream_hdrf"
-        args = (scan.degree.data_ptr(), ctypes.c_float(scan.arg))
+        args = (scan.degree.data_ptr(), ctypes.c_float(scan.arg),
+                _ROUTES[scan.route])
     else:
         fn = "stream_oblivious"
         args = (int(scan.arg),)
     err = getattr(lib, fn)(
         scan.edges.data_ptr(), m, scan.p, scan.vparts.data_ptr(), *args,
-        threads(scan.p), scan.out.data_ptr(),
+        32 if scan.route == "warp" else threads(scan.p), scan.out.data_ptr(),
         torch.cuda.current_stream(scan.edges.device).cuda_stream)
     if err:
         raise RuntimeError(f"{fn} failed with cudaError_t {err} "
-                           f"(M={m}, P={scan.p}, N={scan.vparts.shape[0]})")
+                           f"(M={m}, P={scan.p}, N={scan.vparts.shape[0]}, "
+                           f"route {scan.route})")
     launches[scan.name] += 1
     return scan.out
 

@@ -189,6 +189,34 @@ def test_wrappers_check_inputs_and_count_only_kernels(g):
         [32, 32, 64, 64, 1024, 1024]
 
 
+def test_hdrf_route_and_its_state(g):
+    """HDRF takes the one-warp kernel up to P = 256 (the quality
+    matrix's P 4 and 16, the NE cells' 64) and below 2^31 edges, and the
+    block kernel otherwise;
+    the warp route's replica flags are (N, ceil(P/32)) int32 bit words,
+    the block route's (N, P) bytes; Oblivious keeps the block kernel.
+    Only ``prepare``'s allocation is reached here: it runs on the CPU too,
+    and nothing is launched."""
+    assert [ops.hdrf_route(p) for p in (1, 4, 16, 32, 33, 64, 256, 257,
+                                        1500)] == ["warp"] * 7 + ["block"] * 2
+    assert ops.hdrf_route(16, 2**31 - 1) == "warp"
+    assert ops.hdrf_route(16, 2**31) == "block"      # the warp's int steps
+    with pytest.raises(ValueError, match="p >= 1"):
+        ops.hdrf_route(0)
+    e, n = g.edges[:10], g.num_vertices
+    for p, route, shape, dtype in ((16, "warp", (n, 1), torch.int32),
+                                   (33, "warp", (n, 2), torch.int32),
+                                   (256, "warp", (n, 8), torch.int32),
+                                   (257, "block", (n, 257), torch.uint8)):
+        scan = ops.prepare("hdrf_scan", e, p, n, 1.0)
+        assert (scan.route, tuple(scan.vparts.shape), scan.vparts.dtype) \
+            == (route, shape, dtype)
+        assert not scan.vparts.any() and not scan.degree.any()
+    scan = ops.prepare("oblivious_scan", e, 16, n, 5)
+    assert (scan.route, tuple(scan.vparts.shape), scan.degree) == \
+        ("block", (n, 16), None)
+
+
 # --------------------------------------------------------------------------
 # on the card: the CUDA kernels against their plain versions
 # --------------------------------------------------------------------------
@@ -201,8 +229,11 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("p", [1, 4, 37, 64, 1500])
+@pytest.mark.parametrize("p", [1, 4, 16, 32, 33, 37, 64, 256, 257, 1500])
 def test_stream_kernels_match_plain(cuda, g, p):
+    """Both scans on the card equal their plain versions bit for bit over
+    1,500 edges, HDRF on the warp route up to P = 256 (1 to 8 words a
+    vertex, a ragged last word at 33, 37) and on the block route above."""
     e = g.edges[:1500].to(cuda)
     n = g.num_vertices
     before = dict(ops.launches)
@@ -216,6 +247,52 @@ def test_stream_kernels_match_plain(cuda, g, p):
             got, ref.oblivious_scan_ref(e, p, n, limit), rtol=0, atol=0)
     assert ops.launches["hdrf_scan"] == before["hdrf_scan"] + 2
     assert ops.launches["oblivious_scan"] == before["oblivious_scan"] + 2
+
+
+def _shared_endpoint_streams():
+    """Streams whose consecutive edges share endpoints, so that a step
+    reads what the steps before wrote: a star (every edge at the hub), a
+    path (each edge at the last one's end), repeated edges, self-loops,
+    both orders of one edge, and streams of 1, 2 and 3 edges (as short as
+    the warp kernel's look-ahead); (M, 2) int32 and N."""
+    rng = np.random.default_rng(21)
+    star = np.stack([np.zeros(400, np.int64), rng.integers(1, 60, 400)], 1)
+    path = np.stack([np.arange(300), np.arange(1, 301)], 1)
+    rep = np.repeat(rng.integers(0, 60, (40, 2)), 6, axis=0)
+    loops = np.repeat(np.arange(30)[:, None], 2, axis=1)
+    back = np.concatenate([rep[:60], rep[:60, ::-1]], 1).reshape(-1, 2)
+    mixed = np.concatenate([star[:50], loops, rep[:50], path[:50],
+                            loops[::-1], back])
+    tiny = [np.array(x) for x in ([[0, 1]], [[0, 1], [1, 1]],
+                                  [[0, 0], [0, 0], [0, 1]])]
+    return [(torch.from_numpy(x.astype(np.int32)), int(x.max()) + 1)
+            for x in [star, path, rep, loops, mixed] + tiny]
+
+
+@pytest.mark.parametrize("p", [1, 4, 33])
+def test_hdrf_plain_on_shared_endpoints(p):
+    """The plain HDRF equals the reference's scan on the streams the card
+    test below runs (consecutive edges sharing endpoints, self-loops)."""
+    for e, n in _shared_endpoint_streams():
+        np.testing.assert_array_equal(ref.hdrf_scan_ref(e, p, n, 1.0),
+                                      np.asarray(_hdrf_scan(e.numpy(), p, n,
+                                                            1.0)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 4, 33, 256, 300])
+def test_hdrf_forwarding_on_shared_endpoints(cuda, p):
+    """The warp kernel loads edge i + 1's degrees and flags before edge i
+    writes them and forwards edge i's writes from registers: on streams
+    whose consecutive edges share endpoints (star, path, repeated edges,
+    self-loops, both orders, 1 to 3 edges) it gives the plain version's
+    bits, as the block kernel (P = 300) does."""
+    for e, n in _shared_endpoint_streams():
+        for lam in (0.1, 1.0, 3.0):
+            got = ops.hdrf_scan(e.to(cuda), p, n, lam)
+            torch.testing.assert_close(got.cpu(),
+                                       ref.hdrf_scan_ref(e, p, n, lam),
+                                       rtol=0, atol=0)
 
 
 @pytest.mark.gpu

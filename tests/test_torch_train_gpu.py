@@ -106,6 +106,28 @@ def test_flash_fn_matches_autograd(causal, h, hk):
         _close(a.grad, b.grad, 1e-5, 1e-5)
 
 
+def test_flash_backward_route_and_refusals():
+    """bf16 takes the tensor-core route ("mma") and float32 the FMA route
+    at every head dim; any other type or head dim is refused, and so is a
+    backward call on a device with no kernel or across devices."""
+    for d in fa.HEAD_DIMS:
+        assert fa.flash_attention_backward_route(torch.bfloat16, d) == "mma"
+        assert fa.flash_attention_backward_route(torch.float32, d) == "fma"
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_backward_route(torch.float16, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_backward_route(torch.bfloat16, 48)
+    q = torch.zeros((1, 4, 2, 16))
+    lse = torch.zeros((1, 2, 4))
+    with pytest.raises(ValueError, match="no flash_attention kernel"):
+        fa.flash_attention_backward(*(x.to("meta") for x in (q, q, q, q)),
+                                    lse.to("meta"), q.to("meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        fa.flash_attention_backward(q, q, q, q, lse, q.to("meta"))
+    with pytest.raises(ValueError, match="S == T"):
+        fa.flash_attention_backward(q, q[:, :3], q[:, :3], q, lse, q)
+
+
 def test_flash_training_calls_refused():
     """A training call keeps every key, and causal needs S == T."""
     q = torch.zeros((1, 4, 2, 16), requires_grad=True)
@@ -117,9 +139,10 @@ def test_flash_training_calls_refused():
 
 
 def _emulate_bwd(q, k, v, do, causal, split):
-    """dV = Pᵀ dO and dK = scale · dSᵀ Q in float32 from bf16 inputs, with
-    P and dS rounded to bf16 (``split`` False), kept as bf16 hi + lo
-    (``split`` True) or float32 (``split`` None) before the products."""
+    """dV = Pᵀ dO, dK = scale · dSᵀ Q and dQ = scale · dS K in float32 from
+    bf16 inputs, with P and dS rounded to bf16 (``split`` False), kept as
+    bf16 hi + lo (``split`` True) or float32 (``split`` None) before the
+    products."""
     o, lse = faref.attention_lse_ref(q, k, v, causal)
     b, s, h, d = q.shape
     hk = k.shape[2]
@@ -142,26 +165,28 @@ def _emulate_bwd(q, k, v, do, causal, split):
 
     dv = torch.einsum("bkgst,bskgd->btkd", rnd(p), dog)
     dk = torch.einsum("bkgst,bskgd->btkd", rnd(ds), qg) / math.sqrt(d)
-    return dk, dv
+    dq = torch.einsum("bkgst,btkd->bskgd", rnd(ds), k.float()).reshape(
+        b, s, h, d) / math.sqrt(d)
+    return dk, dv, dq
 
 
 def test_bf16_backward_keeps_p_and_ds_in_float32():
     """At a causal S = T = 512 shape (9 heads over 3, D = 64, random
-    bf16), dV and dK within 2^-7·|plain| + 1e-4·max|plain| of the plain
-    float32 gradient (the tolerance of the card check: one bf16 rounding
-    of each, float32 sums in another order) hold with P and dS in float32
-    (the kernel's FMA products) and with a bf16 hi + lo split, and miss it
-    with bf16(P) and bf16(dS) alone: an mma.sync design of the backward
-    needs the forward's split for both."""
+    bf16), dV, dK and dQ within 2^-7·|plain| + 1e-4·max|plain| of the
+    plain float32 gradient (the tolerance of the card check: one bf16
+    rounding of each, float32 sums in another order) hold with P and dS
+    in float32 (the "fma" route's products) and with a bf16 hi + lo split
+    (the "mma" route's), and miss it with bf16(P) and bf16(dS) alone: the
+    tensor-core design needs the forward's split for both, dQ's dS too."""
     q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _normal(
         6, (1, 512, 9, 64), (1, 512, 3, 64), (1, 512, 3, 64),
         (1, 512, 9, 64)))
     o, lse = faref.attention_lse_ref(q, k, v, True)
-    _, want_k, want_v = (x.float() for x in faref.attention_backward_ref(
+    want_q, want_k, want_v = (x.float() for x in faref.attention_backward_ref(
         q.float(), k.float(), v.float(), o.float(), lse, do.float(), True))
     for split, ok in ((None, True), (True, True), (False, False)):
-        dk, dv = _emulate_bwd(q, k, v, do, True, split)
-        for got, want in ((dk, want_k), (dv, want_v)):
+        dk, dv, dq = _emulate_bwd(q, k, v, do, True, split)
+        for got, want in ((dk, want_k), (dv, want_v), (dq, want_q)):
             tol = 2.0 ** -7 * want.abs() + 1e-4 * float(want.abs().max())
             fine = bool(((got.bfloat16().float() - want).abs() <= tol).all())
             assert fine is ok, (split, float((got - want).abs().max()))
@@ -237,13 +262,19 @@ def test_embedding_bag_grad_through_autograd_on_card(cuda):
 @pytest.mark.parametrize("b,s,h,hk,d,causal", [
     (2, 64, 1, 1, 16, True), (2, 100, 3, 1, 32, True),
     (1, 130, 6, 2, 64, False), (2, 77, 4, 4, 128, True),
-    (1, 256, 9, 3, 64, True), (1, 70, 2, 1, 128, False)])
+    (1, 256, 9, 3, 64, True), (1, 70, 2, 1, 128, False),
+    (1, 300, 8, 2, 64, True), (2, 129, 4, 1, 128, True)])
 def test_flash_backward_kernel(cuda, dtype, b, s, h, hk, d, causal):
     """The LSE of the training forward within 1e-5 + 1e-5|plain|; dq, dk,
     dv against the plain gradient (from the same q, k, v, out and LSE)
-    within 2^-7|plain| + 1e-4 max|plain| in bf16 (one rounding of each,
-    float32 sums in another order), 1e-4|plain| + 1e-5 max|plain| in
-    float32; the same bits from call to call; one count a call."""
+    within 2^-7|plain| + 1e-4 max|plain| in bf16 on the "mma" route (P
+    and dS as bf16 hi + lo, one rounding of each output, float32 sums in
+    another order), 1e-4|plain| + 1e-5 max|plain| in float32 on the "fma"
+    route; the same bits from call to call; one count a call.  Ragged S
+    (77, 100, 129, 130, 300) and G = H / HK up to 4 cut the tiles at
+    their edges."""
+    route = fa.flash_attention_backward_route(dtype, d)
+    assert route == ("mma" if dtype == torch.bfloat16 else "fma")
     q, k, v, do = (torch.from_numpy(a).to(cuda, dtype) for a in _normal(
         s + d, (b, s, h, d), (b, s, hk, d), (b, s, hk, d), (b, s, h, d)))
     o, lse = fa.flash_attention_forward(q, k, v, causal)
