@@ -109,8 +109,9 @@ Phases, each printing its lines; any failed check exits non-zero:
    plain versions (run on the CPU in a pool process beside phase 9) bit
    for bit and call to call on rmat(10, 8, seed 3): HDRF at P = 1, 4,
    16, 32, 33, 64 and 256 on its one-warp route and at 257 and a ragged
-   1,500 on its block route, at lambda 0.5 and 2; Oblivious at P = 1 and
-   a ragged 37 at a limit every partition fills (the overflow rule); the
+   1,500 on its block route, at lambda 0.5 and 2; Oblivious at P = 1, 4,
+   33, 37 and 256 on its one-warp route and at 257 and 1,500 on its
+   block route, at a limit every partition fills (the overflow rule); the
    registers of each stream kernel (ptxas); (b) the 32 rows of
    ``BENCH_QUALITY.json``'s fast matrix (``repro_torch.tools.quality``:
    RMAT scale 14 and the ingested power-law ``real`` graph, P = 4 and
@@ -158,7 +159,9 @@ Phases, each printing its lines; any failed check exits non-zero:
 12. training, with the backward kernels: (a) ``embedding_bag_backward``
    against its plain version on the card at DeepFM's train calls (B
    65,536 bags of 39 ids; the table, D 10, and w1, D 1; also bit for bit
-   the CPU's in-order float32 sum) and ``flash_attention_backward`` at
+   the CPU's in-order float32 sum; a call's kernels from its profile:
+   ``tile_kernel`` and no ``zero_kernel``, the sort's device time) and
+   ``flash_attention_backward`` at
    smollm-135m's train shape (B 8, S 4,096, 9 heads over 3, D 64, bf16,
    causal) on its tensor-core route ("mma", P and dS as bf16 hi + lo;
    HMMA / HGMMA counted in its kernels by ``cuobjdump -sass``, none
@@ -275,11 +278,17 @@ BIT_KERNELS = ("pack_bits", "unpack_bits", "or_words")
 # phase 10: the baselines' stream kernels, the quality matrix, the hybrid
 STREAM_SOURCE = "src/repro_torch/kernels/stream/csrc/stream.cu"
 STREAM_KERNELS = ("hdrf_scan", "oblivious_scan")
+# the CUDA kernels of each, by route ("warp" for P <= 256, else "block")
+STREAM_CUDA = {"hdrf_scan": ["hdrf_warp_kernel<W>", "hdrf_kernel"],
+               "oblivious_scan": ["oblivious_warp_kernel<W>",
+                                  "oblivious_kernel"]}
 STREAM_CHECK_GRAPH = (10, 8, 3)    # (a): rmat(scale, edge factor, seed)
 # (a)'s HDRF: the warp route at 1 to 8 words a vertex (33: a ragged 2nd
 # word), the block route above 256 (1,500: a ragged last warp)
 STREAM_HDRF_PARTS = (1, 4, 16, 32, 33, 64, 256, 257, 1500)
-STREAM_OBLIVIOUS_PARTS = (1, 37)   # one partition; a ragged 2nd warp
+# (a)'s Oblivious: the warp route at 1 to 8 words (33, 37: ragged words),
+# the block route above 256
+STREAM_OBLIVIOUS_PARTS = (1, 4, 33, 37, 256, 257, 1500)
 STREAM_LAMBDAS = (0.5, 2.0)        # (a)'s HDRF; the matrix runs lambda 1
 STREAM_PLAIN_GRAPH = "real"        # the matrix's cells held against plain
 STREAM_ROW_P = 16                  # the JSON rows' cell (real, P = 16)
@@ -895,6 +904,17 @@ def phase_times(torch, tp, ops, ref, g, cfg, limit, state, reps):
         if name == "two_hop_best":
             rows[-1]["plain_device_ms"] = device_ms(torch, plain,
                                                     max(1, reps // 4))[0]
+        if name == "one_hop":
+            # three reads of its times; the row keeps the middle one
+            reads = [(rows[-1]["ms"], rows[-1]["device_ms"])] + [
+                (time_ms(kern, reps), device_ms(torch, kern, reps)[0])
+                for _ in range(2)]
+            ms_reads, dev_reads = (sorted(x) for x in zip(*reads))
+            rows[-1].update(ms=ms_reads[1], device_ms=dev_reads[1],
+                            ms_reads=ms_reads, device_ms_reads=dev_reads)
+            print(f"phase 5: one_hop, three reads: ms {ms_reads}, device "
+                  f"ms {dev_reads}; bound {bound[0]!r} ({bound[1]})",
+                  flush=True)
         if name == "claim_scatter":
             _, kernels = device_ms(torch, kern, reps)
             check(kernels == 1, f"claim_scatter ran {kernels} kernels a "
@@ -2433,8 +2453,9 @@ def phase_stream_kernels(torch, dev, plains: dict) -> int:
     ``plains``) bit for bit, and the same bits call to call, on
     rmat(10, 8, seed 3): HDRF at every P of ``STREAM_HDRF_PARTS`` (the
     warp route to P = 256, the block route above) at lambda 0.5 and 2,
-    Oblivious at P = 1 and a ragged 37 at a limit every partition fills
-    (the overflow rule).  Returns the largest difference (0)."""
+    Oblivious at every P of ``STREAM_OBLIVIOUS_PARTS`` (the same two
+    routes) at a limit every partition fills (the overflow rule).
+    Returns the largest difference (0)."""
     from repro_torch.graphs.rmat import rmat
     from repro_torch.kernels.stream import ops as sops
 
@@ -2454,7 +2475,7 @@ def phase_stream_kernels(torch, dev, plains: dict) -> int:
             label = f"hdrf lam={arg} ({sops.hdrf_route(p, m)})"
         else:
             kern = lambda: sops.oblivious_scan(e, p, n, arg)
-            label = f"oblivious limit={arg}"
+            label = f"oblivious limit={arg} ({sops.oblivious_route(p, m)})"
         a, b = kern(), kern()
         torch.cuda.synchronize()
         err = max(max_abs_err(a.cpu(), torch.from_numpy(want)),
@@ -2664,6 +2685,7 @@ def stream_cells(torch, graphs, counts, err: int, plains: dict) -> list:
         rows.append({
             "name": name, "route": "cuda",
             "kernel_route": top["kernel_route"], "source": STREAM_SOURCE,
+            "cuda_kernels": STREAM_CUDA[name],
             "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": max([err] + [c["max_abs_err"] for c in cs
                                         if c["max_abs_err"] is not None]),
@@ -3292,8 +3314,13 @@ def train_bag_kernel(torch, eb, ebref, table, ids, name, reps) -> dict:
     D 1; float32, weight 1) against its plain version on the card (1e-6 +
     1e-5 |plain|: its ``index_add_`` adds by atomics, in no fixed order),
     bit for bit the plain version's in-order float32 sum on the CPU, the
-    same bits call to call; its times beside the bound, the plain
-    version's and the backward of ``F.embedding_bag(mode="sum")``."""
+    same bits call to call; a call's kernels from its profile (one
+    ``tile_kernel``, no ``zero_kernel``: each gradient row written once),
+    the preparation's (the sort, its index fill, the int32 cast) apart as
+    ``sort_device_ms``; its times beside the bound, the plain version's
+    and the backward of ``F.embedding_bag(mode="sum")``."""
+    from repro_torch.tools.bag_backward_profile import short
+
     dev = table.device
     (b, k), (v, d) = ids.shape, table.shape
     g = torch.randn((b, d), generator=torch.Generator(device=dev)
@@ -3326,8 +3353,24 @@ def train_bag_kernel(torch, eb, ebref, table, ids, name, reps) -> dict:
     plain = lambda: ebref.embedding_bag_backward_ref(table, ids, None, g)
     libf = lambda: torch.autograd.grad(out, tg, g, retain_graph=True)
     bound = bag_bwd_bound(v, d, b, k)
-    row = {"ms": time_ms(kern, reps), "device_ms": device_ms(torch, kern,
-                                                             reps)[0],
+    for _ in range(5):             # an empty profile is taken again
+        per = device_kernels(torch, kern, reps)
+        if per:
+            break
+    tiles = {n: c for n, (_, c) in per.items() if "tile_kernel" in n}
+    check(sum(tiles.values()) == 1 and not any(
+        "zero_kernel" in n or "run_kernel" in n for n in per),
+        f"phase 12 (a): embedding_bag_backward ({name}) ran {sorted(per)} "
+        f"a call, not one tile_kernel and no zero_kernel")
+    tile_ms = kernel_ms(per, "tile_kernel")
+    sort_ms = sum(t for n, (t, _) in per.items() if "tile_kernel" not in n)
+    print(f"phase 12 (a): embedding_bag_backward ({name}) device ms a call "
+          f"by kernel: " + "; ".join(f"{short(n)} x{c} {t!r}"
+                                     for n, (t, c) in per.items()),
+          flush=True)
+    row = {"ms": time_ms(kern, reps), "device_ms": tile_ms + sort_ms,
+           "tile_device_ms": tile_ms, "sort_device_ms": sort_ms,
+           "cuda_kernels": ["tile_kernel<T>"],
            "plain_ms": time_ms(plain, max(1, reps // 4)),
            "bound_ms": bound[0], "bound_by": bound[1],
            "library_ms": time_ms(libf, reps),
@@ -3337,7 +3380,8 @@ def train_bag_kernel(torch, eb, ebref, table, ids, name, reps) -> dict:
           f"B={b}, K={k}) == plain (max abs err {err!r}, tol 1e-6 + "
           f"1e-5|plain|), == the CPU's in-order sum bit for bit, the same "
           f"bits call to call; ms {row['ms']!r}, device_ms "
-          f"{row['device_ms']!r}, bound {row['bound_ms']!r} (bytes), plain "
+          f"{row['device_ms']!r} (tile_kernel {tile_ms!r}, the sort and "
+          f"its casts {sort_ms!r}), bound {row['bound_ms']!r} (bytes), plain "
           f"{row['plain_ms']!r}, F.embedding_bag backward "
           f"{row['library_ms']!r} (device_ms {row['library_device_ms']!r})",
           flush=True)
@@ -4361,7 +4405,8 @@ def main() -> None:
         mark("10")
         t0 = time.perf_counter()
         ptxas_report(build, "stream", ("hdrf_kernel", "hdrf_warp_kernel",
-                                       "oblivious_kernel"), "phase 10")
+                                       "oblivious_kernel",
+                                       "oblivious_warp_kernel"), "phase 10")
         err = phase_stream_kernels(torch, dev, stream_checks)
         graphs, q_rows, q_counts = phase_quality(torch, np, dev, work)
         stream = stream_cells(torch, graphs, q_counts, err, stream_plains)

@@ -58,15 +58,36 @@
 //           grad_out[b]⟩, summed over the columns in order by fmaf.
 //   The caller sorts the flat ids stably (`sorted`, with `perm` the slot
 //   of each sorted entry: preparation, a torch.sort), so the slots of one
-//   row form a run in slot order.  zero_kernel writes the whole grad
-//   table; then run_kernel gives one thread each (run, column), and the
-//   thread at the run's first entry sums the run in order and stores
-//   once.  No atomics: the bits are the same from call to call.
+//   row form a run in slot order.
 //
 //   Bound: bytes.  The dense grad write V·D·sizeof(T) (1.64 GB at
 //   DeepFM's full table) dominates; the sorted ids, the permutation and
 //   the grad_out rows read are small beside it.
 //
+//   Design (tile_kernel): every row of the gradient is written once, zeros
+//   and sums alike.  A tile is R consecutive rows and DT columns, R·DT
+//   float32 values in shared memory (ops.backward_plan: R·DT = 8,192 at
+//   DeepFM's calls); a block writes GROUP = 4 consecutive tiles:
+//   * its first tile's first entry of `sorted` by one warp's 32-way
+//     search (one load a lane narrows the range 32-fold), while the other
+//     warps zero the tile; each later tile starts where the last ended;
+//   * the tile's entries staged in shared memory, ids and slots 2·threads
+//     at a time (coalesced loads), counted below the tile's end;
+//   * sums: thread (entry, column) at the first entry of a run sums the
+//     run in slot order (__fmul_rn, __fadd_rn, as the plain version) into
+//     the tile, a run past the stage going on in device memory; the
+//     first terms of four entries load together.  No atomics, so the bits
+//     are the same from call to call; a hot row only lengthens its
+//     threads' chains;
+//   * one write: after a barrier the block streams the tile out, 16-byte
+//     stores between a scalar head and tail (one run of R·D values where
+//     DT == D, else a warp a row), marked evict-first (st.global.cs) so
+//     that the 1.64 GB stream does not push the sorted ids, the slots and
+//     grad_out out of L2, where the next tiles' loads find them.
+//   The design before this one wrote the whole table with zeros first and
+//   then each touched row again, a scatter of partial sectors after the
+//   zero stream had left L2.
+
 // Plain C interface: device pointers and a cudaStream_t passed as void*;
 // launches on that stream, does not synchronise, allocates nothing, and
 // returns the cudaError_t of the launch (0 on success).
@@ -240,40 +261,173 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// out[0 .. n) = 0 in 16-byte stores between a scalar head and tail
-__global__ void zero_kernel(unsigned char* __restrict__ out, long long n) {
-  const long long head = (long long)((16 - ((uintptr_t)out & 15)) & 15);
-  const long long h = head < n ? head : n;
-  const long long body = (n - h) / 16;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (long long i = t; i < h; i += stride) out[i] = 0;
-  uint4* o4 = reinterpret_cast<uint4*>(out + h);
-  for (long long i = t; i < body; i += stride) o4[i] = make_uint4(0, 0, 0, 0);
-  for (long long i = h + 16 * body + t; i < n; i += stride) out[i] = 0;
+constexpr int STAGE = 2;               // sorted entries a thread stages
+constexpr int UNROLL = 4;              // run sums a thread starts at once
+constexpr int GROUP = 4;               // consecutive tiles a block writes
+
+// VEC float32 values as one 16-byte word of T: a float32 each, or two
+// bf16 a word (element 2i in the low half, as in memory), rounded to
+// nearest even as store() rounds
+__device__ __forceinline__ uint4 pack16(const float* x, float) {
+  return make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]),
+                    __float_as_uint(x[2]), __float_as_uint(x[3]));
+}
+__device__ __forceinline__ unsigned pack2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+__device__ __forceinline__ uint4 pack16(const float* x, __nv_bfloat16) {
+  return make_uint4(pack2(x[0], x[1]), pack2(x[2], x[3]), pack2(x[4], x[5]),
+                    pack2(x[6], x[7]));
 }
 
-// thread (p, c): if sorted entry p starts a run of equal ids, the run's
-// column c, summed in order
+// dst[0 .. n) = src[0 .. n) in T, by the nt threads of a group (this one
+// t): 16-byte stores between a scalar head and tail
 template <typename T>
-__global__ void run_kernel(const int* __restrict__ sorted,
-                           const int* __restrict__ perm,
-                           const T* __restrict__ gout,
-                           const float* __restrict__ w, long long n, int k,
-                           int d, T* __restrict__ gtab) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n * d) return;
-  const long long p = e / d;
-  const int c = (int)(e - p * d);
-  const int id = sorted[p];
-  if (p > 0 && sorted[p - 1] == id) return;
-  float acc = 0.f;
-  for (long long q = p; q < n && sorted[q] == id; ++q) {
-    const long long slot = perm[q];
-    const float g = widen(gout[(slot / k) * d + c]);
-    acc = __fadd_rn(acc, w ? __fmul_rn(w[slot], g) : g);
+__device__ void put_run(T* __restrict__ dst, const float* __restrict__ src,
+                        long long n, int t, int nt) {
+  constexpr int VEC = 16 / sizeof(T);
+  long long head = (long long)(((16 - ((uintptr_t)dst & 15)) & 15)
+                               / sizeof(T));
+  head = head < n ? head : n;
+  const long long body = (n - head) / VEC;
+  for (long long i = t; i < head; i += nt) store(dst + i, src[i]);
+  uint4* d4 = reinterpret_cast<uint4*>(dst + head);
+  const float* s = src + head;
+  if ((uintptr_t)s % 16 == 0) {        // 16-byte shared loads: no conflict
+    for (long long i = t; i < body; i += nt) {
+      float x[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; j += 4)
+        *reinterpret_cast<float4*>(x + j) =
+            *reinterpret_cast<const float4*>(s + i * VEC + j);
+      __stcs(d4 + i, pack16(x, T()));
+    }
+  } else {
+    for (long long i = t; i < body; i += nt)
+      __stcs(d4 + i, pack16(s + i * VEC, T()));
   }
-  store(gtab + (long long)id * d + c, acc);
+  for (long long i = head + VEC * body + t; i < n; i += nt)
+    store(dst + i, src[i]);
+}
+
+// the first q in [0, n) with sorted[q] >= x, else n, by one warp: each
+// round probes 32 evenly spaced entries and keeps the part between the
+// last below x and the first at or above it
+__device__ long long lower_bound_warp(const int* __restrict__ sorted,
+                                      long long n, long long x, int lane) {
+  long long lo = 0, hi = n;            // the answer lies in [lo, hi]
+  while (hi - lo > 32) {
+    const long long step = (hi - lo + 31) / 32;
+    const long long q = lo + (lane + 1) * step - 1;
+    const bool below = q < hi && sorted[q] < x;
+    // sorted: the probes below x are lanes 0 .. c - 1
+    const int c = __popc(__ballot_sync(0xffffffffu, below));
+    if (c < 32) hi = min(hi, lo + (c + 1) * step - 1);
+    lo += c * step;
+  }
+  const long long q = lo + lane;
+  return lo + __popc(__ballot_sync(0xffffffffu, q < hi && sorted[q] < x));
+}
+
+// grid (ceil(T / GROUP), ceil(D / dt)): block b takes the row tiles
+// [b GROUP, (b + 1) GROUP) (T = ceil(V / rows)) of the columns [c0, c0 +
+// dt) in order, each as an (nr, nc) float32 tile in shared memory,
+// followed by the staged ids and slots (STAGE a thread); blockDim >= dt
+// (ops.backward_plan).  Entry q of `sorted` is the one after
+// the last tile's: only the block's first tile needs the search.
+template <typename T>
+__global__ void __launch_bounds__(256)
+tile_kernel(const int* __restrict__ sorted, const int* __restrict__ perm,
+            const T* __restrict__ gout, const float* __restrict__ w,
+            long long n, int k, int d, long long v, int rows, int dt,
+            T* __restrict__ gtab) {
+  extern __shared__ float tile[];
+  __shared__ long long first;
+  const int t = threadIdx.x, nt = blockDim.x, lane = t & 31;
+  const int stage = STAGE * nt;
+  int* ids_s = reinterpret_cast<int*>(tile + rows * dt);
+  int* slot_s = ids_s + stage;
+  const long long tiles = (v + rows - 1) / rows;
+  const long long ta = (long long)blockIdx.x * GROUP;
+  const long long tb = ta + GROUP < tiles ? ta + GROUP : tiles;
+  const int c0 = blockIdx.y * dt;
+  const int nc = d - c0 < dt ? d - c0 : dt;
+  const int per = nt / nc;                       // entries a pass
+  const int c = t % nc;
+  const bool summing = t < per * nc;
+  // a slot's term in column c: its weight times grad_out (rounded)
+  auto term = [&](int slot) {
+    const float g = widen(gout[(long long)(slot / k) * d + c0 + c]);
+    return w ? __fmul_rn(w[slot], g) : g;
+  };
+  if (t < 32) {                    // while the other warps zero the tile
+    const long long at = lower_bound_warp(sorted, n, ta * rows, lane);
+    if (lane == 0) first = at;
+  }
+  long long q = 0;
+  for (long long ti = ta; ti < tb; ++ti) {
+    const long long r0 = ti * rows, r1 = r0 + rows;
+    const int nr = (int)(v - r0 < rows ? v - r0 : rows);
+    for (int i = t; i < nr * nc / 4; i += nt)
+      reinterpret_cast<float4*>(tile)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = nr * nc / 4 * 4 + t; i < nr * nc; i += nt) tile[i] = 0.f;
+    if (ti == ta) {
+      __syncthreads();
+      q = first;
+    }
+    // the tile's entries, staged `stage` at a time: ids and slots loaded
+    // together (coalesced), counted below r1 (they are sorted)
+    int last = -1;                               // the id before entry q
+    for (;;) {
+      int cnt = 0;
+#pragma unroll
+      for (int j = 0; j < STAGE; ++j) {
+        const long long at = q + j * nt + t;
+        ids_s[j * nt + t] = at < n ? sorted[at] : 0x7fffffff;
+        slot_s[j * nt + t] = at < n ? perm[at] : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < STAGE; ++j)            // barriers, and the count
+        cnt += __syncthreads_count(ids_s[j * nt + t] < r1);
+      // thread (entry, column) at a run's first entry sums the run in
+      // slot order; a run past the stage goes on in device memory.  The
+      // first terms of UNROLL entries load together.
+      for (int e0 = t / nc; summing && e0 < cnt; e0 += UNROLL * per) {
+        float head[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+          if (e0 + u * per < cnt) head[u] = term(slot_s[e0 + u * per]);
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int e = e0 + u * per;
+          if (e >= cnt) break;
+          const int id = ids_s[e];
+          if ((e ? ids_s[e - 1] : last) == id) continue;
+          float acc = __fadd_rn(0.f, head[u]);
+          int r = e + 1;
+          for (; r < cnt && ids_s[r] == id; ++r)
+            acc = __fadd_rn(acc, term(slot_s[r]));
+          if (r == stage)
+            for (long long a = q + r; a < n && sorted[a] == id; ++a)
+              acc = __fadd_rn(acc, term(perm[a]));
+          tile[(id - r0) * nc + c] = acc;
+        }
+      }
+      if (cnt) last = ids_s[cnt - 1];
+      q += cnt;
+      __syncthreads();                           // the stage is reused
+      if (cnt < stage) break;
+    }
+    // one write of the tile: nr rows of nc columns at row stride d
+    if (nc == d) {
+      put_run(gtab + r0 * d, tile, (long long)nr * d, t, nt);
+    } else {
+      for (int r = t >> 5; r < nr; r += nt >> 5)
+        put_run(gtab + (r0 + r) * d + c0, tile + r * nc, nc, lane, 32);
+    }
+    __syncthreads();                             // the tile is reused
+  }
 }
 
 // thread s: grad_w[s] = Σ_c table[ids[s], c] · grad_out[s / K, c]
@@ -294,21 +448,17 @@ __global__ void weight_grad_kernel(const T* __restrict__ table,
 template <typename T>
 int launch_backward(const void* table, const int* ids, const int* sorted,
                     const int* perm, const float* w, const void* gout,
-                    long long b, int k, int d, long long v, void* gtab,
-                    float* gw, cudaStream_t s) {
+                    long long b, int k, int d, long long v, int rows, int dt,
+                    int threads, int smem, void* gtab, float* gw,
+                    cudaStream_t s) {
   const long long n = b * k;
   const T* go = static_cast<const T*>(gout);
-  if (gtab) {
-    const long long bytes = v * d * (long long)sizeof(T);
-    zero_kernel<<<2 * 132 * 8, 256, 0, s>>>(
-        static_cast<unsigned char*>(gtab), bytes);
-    const long long work = n * d;
-    if (work > 0) {
-      const long long blocks = (work + 255) / 256;
-      if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-      run_kernel<T><<<(unsigned)blocks, 256, 0, s>>>(
-          sorted, perm, go, w, n, k, d, static_cast<T*>(gtab));
-    }
+  if (gtab && v > 0) {
+    const long long gx = ((v + rows - 1) / rows + GROUP - 1) / GROUP;
+    const int gy = (d + dt - 1) / dt;
+    if (gx > 0x7fffffffLL || gy > 65535) return (int)cudaErrorInvalidValue;
+    tile_kernel<T><<<dim3((unsigned)gx, (unsigned)gy), threads, smem, s>>>(
+        sorted, perm, go, w, n, k, d, v, rows, dt, static_cast<T*>(gtab));
   }
   if (gw && n > 0) {
     const long long blocks = (n + 255) / 256;
@@ -373,24 +523,37 @@ extern "C" int embedding_bag(const void* table, int dtype, const int* ids,
 // b·K + k; weights (B, K) float32 or null (weight 1); grad_out (B, D).
 // grad_table (V, D), or null for no table gradient; grad_w (B, K)
 // float32, or null for no weight gradient.  Ids must lie in [0, V).
+// rows, dt, threads and smem are ops.backward_plan's: rows and columns a
+// tile, threads a block (a multiple of 32, at least dt, at most 256) and
+// the dynamic shared-memory bytes (the rows·dt float32 tile and the
+// stage, within 48 KB); a plan the kernel cannot run is refused before
+// any launch.
 extern "C" int embedding_bag_backward(const void* table, int dtype,
                                       const int* ids, const int* sorted,
                                       const int* perm, const float* weights,
                                       const void* grad_out, long long b,
-                                      int k, int d, long long v,
+                                      int k, int d, long long v, int rows,
+                                      int dt, int threads, int smem,
                                       void* grad_table, float* grad_w,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b < 0 || k < 0 || d < 1 || v < 0 || (grad_table && (!sorted || !perm))
-      || (grad_w && (!table || !ids)))
+  if (b < 0 || k < 0 || d < 1 || v < 0 ||
+      (grad_table && b * k > 0 && (!sorted || !perm)) ||
+      (grad_w && b * k > 0 && (!table || !ids)))
+    return (int)cudaErrorInvalidValue;
+  if (grad_table && (rows < 1 || dt < 1 || dt > d || threads < 32 ||
+                     threads > 256 || threads % 32 || threads < dt ||
+                     smem < 4LL * rows * dt + 8LL * STAGE * threads ||
+                     smem > 48 * 1024))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_backward<float>(table, ids, sorted, perm, weights,
-                                  grad_out, b, k, d, v, grad_table, grad_w,
-                                  s);
+                                  grad_out, b, k, d, v, rows, dt, threads,
+                                  smem, grad_table, grad_w, s);
   if (dtype == 1)
     return launch_backward<__nv_bfloat16>(table, ids, sorted, perm, weights,
-                                          grad_out, b, k, d, v, grad_table,
-                                          grad_w, s);
+                                          grad_out, b, k, d, v, rows, dt,
+                                          threads, smem, grad_table, grad_w,
+                                          s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,7 +13,8 @@ The sum carries a gradient (:class:`EmbeddingBagFn`) to the table and,
 where they require one, to the weights: on the card through the
 ``embedding_bag_backward`` kernel (one count in
 ``launches["embedding_bag_backward"]`` a call; a stable ``torch.sort``
-of the flat ids prepares it), on the CPU through the plain
+of the flat ids prepares it; :func:`backward_plan` cuts the gradient
+into the tiles each block writes once), on the CPU through the plain
 ``ref.embedding_bag_backward_ref``.
 """
 from __future__ import annotations
@@ -31,7 +32,8 @@ _P = ctypes.c_void_p
 _ARGTYPES = [_P, ctypes.c_int, _P, _P, ctypes.c_longlong,
              *[ctypes.c_int] * 8, _P, _P]
 _BWD_ARGTYPES = [_P, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P, _P, _P]
+                 ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                 *[ctypes.c_int] * 4, _P, _P, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 SMS = 132                  # the H100's SMs: at least 2 blocks an SM
@@ -39,6 +41,10 @@ THREADS = 256              # the most threads a block
 SMEM_BUDGET = 48 * 1024    # a block's shared memory without opting in
 MAX_COLS = 1024            # columns of the output a block
 UNITS = 4 * THREADS        # row loads a block aims at where B allows
+BWD_TILE = 8192            # float32 values of a backward tile
+BWD_COLS = 256             # the most columns a backward tile
+BWD_THREADS = 256          # the most threads a backward block (>= BWD_COLS)
+BWD_STAGE = 2              # sorted entries a backward thread stages
 
 
 class Plan(NamedTuple):
@@ -78,6 +84,39 @@ def plan(b: int, k: int, d: int, size: int, weighted: bool,
     work = g * max(kt * (dt // vec), dt)
     threads = min(THREADS, max(32, -(-work // 32) * 32))
     return Plan(g, kt, dt, vec, threads, smem)
+
+
+class BackwardPlan(NamedTuple):
+    """How the backward cuts the (V, D) table gradient: tiles of ``rows``
+    rows (a multiple of 8, so a tile of all D columns starts 16 bytes on
+    from the one before) and ``dt`` columns, blocks of ``threads`` (each
+    writes four consecutive tiles and searches the sorted ids once) with
+    ``smem`` bytes of shared memory: an (rows, dt) float32 tile and
+    :data:`BWD_STAGE` sorted ids and slots a thread."""
+    rows: int
+    dt: int
+    threads: int
+    smem: int
+
+
+def backward_plan(v: int, d: int, size: int) -> BackwardPlan:
+    """The backward's cut of a (V, D) table gradient of ``size``-byte
+    elements: at most :data:`BWD_COLS` columns and :data:`BWD_TILE`
+    float32 values a tile (32 KB, with the stage 36 KB of shared memory),
+    no more rows than V rounded up to 8.  Blocks of :data:`BWD_THREADS`
+    threads, fewer where a small tile's 16-byte stores leave them idle,
+    never fewer than the tile's columns (a thread sums one column of a
+    run).  The sizes were picked by timing DeepFM's two calls on an
+    H100."""
+    if d < 1 or v < 0 or size not in (2, 4):
+        raise ValueError(f"no backward plan for V={v}, D={d}, "
+                         f"{size}-byte elements")
+    dt = min(d, BWD_COLS)
+    rows = min(BWD_TILE // dt // 8 * 8, max(8, -(-v // 8) * 8))
+    stores = -(-rows * dt * size // 16)
+    threads = min(BWD_THREADS, -(-max(dt, stores) // 32) * 32)
+    return BackwardPlan(rows, dt, threads,
+                        4 * rows * dt + 8 * BWD_STAGE * threads)
 
 
 def reset_launches() -> None:
@@ -181,7 +220,9 @@ def embedding_bag_backward(table, ids, weights, grad_out,
         None if sorted_ids is None else sorted_ids.data_ptr(),
         None if perm is None else perm.data_ptr(),
         None if weights is None else weights.data_ptr(), grad_out.data_ptr(),
-        b, k, d, table.shape[0], None if gt is None else gt.data_ptr(),
+        b, k, d, table.shape[0],
+        *backward_plan(table.shape[0], d, table.element_size()),
+        None if gt is None else gt.data_ptr(),
         None if gw is None else gw.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if err:

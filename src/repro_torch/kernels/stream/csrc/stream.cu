@@ -29,6 +29,11 @@
 //   holds both endpoints, else one endpoint, else any; every partition
 //   full: the first of least |E_p| overall.  |E_p| is compared as float32,
 //   as the reference's -f32(sizes) score is, so ties past 2^24 stay its.
+//   The candidate sets nest (both ⊆ one endpoint ⊆ room ⊆ all), so each
+//   partition has a class: 0 both endpoints with room, 1 one endpoint
+//   with room, 2 room, 3 none.  The pick is the least (class,
+//   f32(|E_p|), index): the candidates are the partitions at the least
+//   class, and every partition is at class 3 when none has room.
 //
 // Bound: latency.  Each step reads |E_p| after the step before chose its
 // partition, so the M steps form one dependent chain: the scores, a
@@ -62,10 +67,24 @@
 // The score's division with a zero dividend (a partition at max) gives
 // +0 without __fdiv_rn, whose slow path a zero dividend takes.
 //
-// hdrf_kernel (route "block", any P: the tests' P = 1,500) and
-// oblivious_kernel: one thread block for the whole stream; thread t owns
-// the partitions t, t + T, t + 2T, ... (T = blockDim, P rounded up to 32,
-// at most 1,024), so any P works.  |E_p| lives in shared memory and only
+// oblivious_warp_kernel (route "warp", P <= 256: the quality matrix's P
+// 4 and 16) is HDRF's warp design without the degrees: lane l owns the
+// partitions l, l + 32, ... with their |E_p| in registers, the flags are
+// (N, W) bit words, edge i + 1's flag words load before edge i's stores
+// and the bit edge i sets is forwarded from registers.  A step: each lane
+// takes the least class of its slots (the room test is register work);
+// the warp's least class by __reduce_min_sync; among the slots at that
+// class the least float32 bit pattern of |E_p| (|E_p| >= 0, so the bits
+// order as the values; past 2^24 equal floats tie as in the reference)
+// by a second __reduce_min_sync; then the first such index by
+// __ballot_sync + __ffs, slot by slot in index order.  Two redux.sync
+// and W ballots a step, where the block kernel runs four 64-bit shuffle
+// trees, a shared-memory exchange and two barriers.
+//
+// hdrf_kernel and oblivious_kernel (route "block", any P: the tests' P =
+// 1,500): one thread block for the whole stream; thread t owns the
+// partitions t, t + T, t + 2T, ... (T = blockDim, P rounded up to 32, at
+// most 1,024), so any P works.  |E_p| lives in shared memory and only
 // its owner writes it; the (N, P) byte flags and the partial degrees in
 // device memory (L2-resident at the test sizes).  A step: the next edge
 // is already in registers; each thread scores its partitions and keeps
@@ -381,6 +400,100 @@ oblivious_kernel(const int2* __restrict__ edges, long long m, int p,
   }
 }
 
+template <int W>
+__global__ void __launch_bounds__(32, 1)
+oblivious_warp_kernel(const int2* __restrict__ edges, int m, int p,
+                      uint32_t* vp, int limit, int* __restrict__ out) {
+  constexpr unsigned FULL = 0xffffffffu;
+  constexpr int PAST = 4;                        // a lane slot past P
+  const int lane = threadIdx.x;
+  int sz[W];                                     // |E_p| of my partitions
+#pragma unroll
+  for (int s = 0; s < W; ++s) sz[s] = 0;
+  // edge i's flag words as loaded, and the bit edge i - 1 set in them
+  // (kept apart: applying it never waits on the load)
+  int2 e = edges[0];
+  uint32_t fu_l[W], fv_l[W];
+#pragma unroll
+  for (int s = 0; s < W; ++s) {
+    fu_l[s] = vp[(size_t)e.x * W + s];
+    fv_l[s] = vp[(size_t)e.y * W + s];
+  }
+  bool hu = false, hv = false;                   // endpoint written ...
+  int fts = 0;                                   // ... in word fts
+  uint32_t fbit = 0;                             // ... with this bit
+  int2 nx = m > 1 ? edges[1] : e;                // edge i + 1's endpoints
+  for (int i = 0; i < m; ++i) {
+    const int u = e.x, v = e.y;
+    uint32_t fu[W], fv[W];
+#pragma unroll
+    for (int s = 0; s < W; ++s) {
+      fu[s] = fu_l[s] | (hu && s == fts ? fbit : 0u);
+      fv[s] = fv_l[s] | (hv && s == fts ? fbit : 0u);
+    }
+    // edge i + 1's flag words start loading, before edge i's stores
+    if (i + 1 < m) {
+#pragma unroll
+      for (int s = 0; s < W; ++s) {
+        fu_l[s] = vp[(size_t)nx.x * W + s];
+        fv_l[s] = vp[(size_t)nx.y * W + s];
+      }
+    }
+    const int2 nn = i + 2 < m ? edges[i + 2] : nx;
+    int cls[W];
+    int cmin = PAST;
+#pragma unroll
+    for (int s = 0; s < W; ++s) {
+      const uint32_t iu = (fu[s] >> lane) & 1u, iv = (fv[s] >> lane) & 1u;
+      cls[s] = !(W * 32 <= p || s * 32 + lane < p) ? PAST
+               : sz[s] >= limit ? 3 : (iu & iv) ? 0 : (iu | iv) ? 1 : 2;
+      cmin = min(cmin, cls[s]);
+    }
+    cmin = __reduce_min_sync(FULL, cmin);
+    uint32_t key[W];
+    uint32_t best = 0xffffffffu;
+#pragma unroll
+    for (int s = 0; s < W; ++s) {
+      key[s] = cls[s] == cmin ? __float_as_uint(__int2float_rn(sz[s]))
+                              : 0xffffffffu;
+      best = min(best, key[s]);
+    }
+    // a candidate's key is a float's bits below 0xffffffff
+    best = __reduce_min_sync(FULL, best);
+    int ts = W, tl = 0;                          // the first at the least
+#pragma unroll
+    for (int s = 0; s < W; ++s) {
+      const uint32_t hit = __ballot_sync(FULL, key[s] == best);
+      if (ts == W && hit) {
+        ts = s;
+        tl = __ffs(hit) - 1;
+      }
+    }
+    const uint32_t bit = 1u << tl;
+    uint32_t wu = 0, wv = 0;
+#pragma unroll
+    for (int s = 0; s < W; ++s)
+      if (s == ts) {
+        wu = fu[s] | bit;
+        wv = fv[s] | bit;
+      }
+    // every lane stores the same values: one transaction each
+    vp[(size_t)u * W + ts] = wu;
+    vp[(size_t)v * W + ts] = wv;                // == wu where u == v
+    if (lane == 0) out[i] = ts * 32 + tl;
+#pragma unroll
+    for (int s = 0; s < W; ++s)
+      if (s == ts && lane == tl) ++sz[s];
+    // what edge i wrote that edge i + 1 loaded before the stores
+    hu = nx.x == u || nx.x == v;
+    hv = nx.y == u || nx.y == v;
+    fts = ts;
+    fbit = bit;
+    e = nx;
+    nx = nn;
+  }
+}
+
 // Shared memory of a launch, opted in above 48 KB; cudaErrorInvalidValue
 // where P does not fit a block.
 int prepare(const void* kernel, int p, int threads, size_t* smem) {
@@ -400,6 +513,15 @@ int launch_hdrf_warp(const void* edges, long long m, int p, void* vp,
   hdrf_warp_kernel<W><<<1, 32, 0, s>>>(
       static_cast<const int2*>(edges), (int)m, p, static_cast<uint32_t*>(vp),
       static_cast<int*>(pdeg), lam, static_cast<int*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <int W>
+int launch_oblivious_warp(const void* edges, long long m, int p, void* vp,
+                          int limit, void* out, cudaStream_t s) {
+  oblivious_warp_kernel<W><<<1, 32, 0, s>>>(
+      static_cast<const int2*>(edges), (int)m, p, static_cast<uint32_t*>(vp),
+      limit, static_cast<int*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -440,14 +562,35 @@ extern "C" int stream_hdrf(const void* edges, long long m, int p, void* vp,
   return (int)cudaGetLastError();
 }
 
+// routes as stream_hdrf's: 0 ("block") the (N, P) uint8 flags and
+// `threads` a block, 1 ("warp") the (N, ceil(P / 32)) uint32 bit words
+// and one warp; a route whose precondition fails is refused.
 extern "C" int stream_oblivious(const void* edges, long long m, int p,
-                                void* vp, int limit, int threads, void* out,
-                                void* stream) {
+                                void* vp, int limit, int route, int threads,
+                                void* out, void* stream) {
   if (m < 1 || p < 1 || (uintptr_t)edges % 8) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (p > WARP_MAX_P || m > 0x7fffffffLL || threads != 32 ||
+        (uintptr_t)vp % 4)
+      return (int)cudaErrorInvalidValue;
+    switch ((p + 31) / 32) {
+      case 1: return launch_oblivious_warp<1>(edges, m, p, vp, limit, out, st);
+      case 2: return launch_oblivious_warp<2>(edges, m, p, vp, limit, out, st);
+      case 3: return launch_oblivious_warp<3>(edges, m, p, vp, limit, out, st);
+      case 4: return launch_oblivious_warp<4>(edges, m, p, vp, limit, out, st);
+      case 5: return launch_oblivious_warp<5>(edges, m, p, vp, limit, out, st);
+      case 6: return launch_oblivious_warp<6>(edges, m, p, vp, limit, out, st);
+      case 7: return launch_oblivious_warp<7>(edges, m, p, vp, limit, out, st);
+      case 8: return launch_oblivious_warp<8>(edges, m, p, vp, limit, out, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   size_t smem;
   const int err = prepare((const void*)oblivious_kernel, p, threads, &smem);
   if (err) return err;
-  oblivious_kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  oblivious_kernel<<<1, threads, smem, st>>>(
       static_cast<const int2*>(edges), m, p,
       static_cast<unsigned char*>(vp), limit, static_cast<int*>(out));
   return (int)cudaGetLastError();

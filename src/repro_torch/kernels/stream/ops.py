@@ -29,7 +29,7 @@ _ARGTYPES = {
     "stream_hdrf": [_P, ctypes.c_longlong, ctypes.c_int, _P, _P,
                     ctypes.c_float, ctypes.c_int, ctypes.c_int, _P, _P],
     "stream_oblivious": [_P, ctypes.c_longlong, ctypes.c_int, _P,
-                         ctypes.c_int, ctypes.c_int, _P, _P],
+                         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
 }
 MAX_THREADS = 1024
 WARP_MAX_P = 256                 # the warp route's 8 words a vertex
@@ -47,13 +47,16 @@ def threads(p: int) -> int:
     return min(MAX_THREADS, -(-p // 32) * 32)
 
 
-def hdrf_route(p: int, m: int = 0) -> str:
-    """The HDRF kernel a card call with ``p`` partitions over ``m`` edges
-    takes: "warp" for 1 <= P <= :data:`WARP_MAX_P` and M < 2^31 (its
-    32-bit step count), else "block"."""
+def route(p: int, m: int = 0) -> str:
+    """The kernel a card call of either scan with ``p`` partitions over
+    ``m`` edges takes: "warp" for 1 <= P <= :data:`WARP_MAX_P` and
+    M < 2^31 (its 32-bit step count), else "block"."""
     if p < 1:
         raise ValueError(f"p={p}: need p >= 1")
     return "warp" if p <= WARP_MAX_P and m < 2**31 else "block"
+
+
+hdrf_route = oblivious_route = route
 
 
 def _lib():
@@ -110,13 +113,13 @@ def prepare(name: str, edges: torch.Tensor, p: int, n: int,
     if edges.data_ptr() % 8:             # the kernel reads int2 rows
         edges = edges.clone()
     dev = edges.device
-    hdrf = name == "hdrf_scan"
-    route = hdrf_route(p, edges.shape[0]) if hdrf else "block"
-    degree = torch.zeros(n, dtype=torch.int32, device=dev) if hdrf else None
+    kind = route(p, edges.shape[0])
+    degree = (torch.zeros(n, dtype=torch.int32, device=dev)
+              if name == "hdrf_scan" else None)
     vparts = (torch.zeros((n, -(-p // 32)), dtype=torch.int32, device=dev)
-              if route == "warp" else
+              if kind == "warp" else
               torch.zeros((n, p), dtype=torch.uint8, device=dev))
-    return Scan(name, route, edges, p, arg, vparts, degree,
+    return Scan(name, kind, edges, p, arg, vparts, degree,
                 torch.empty(edges.shape[0], dtype=torch.int32, device=dev))
 
 
@@ -127,13 +130,13 @@ def launch(scan: Scan) -> torch.Tensor:
     m = scan.edges.shape[0]
     if scan.name == "hdrf_scan":
         fn = "stream_hdrf"
-        args = (scan.degree.data_ptr(), ctypes.c_float(scan.arg),
-                _ROUTES[scan.route])
+        args = (scan.degree.data_ptr(), ctypes.c_float(scan.arg))
     else:
         fn = "stream_oblivious"
         args = (int(scan.arg),)
     err = getattr(lib, fn)(
         scan.edges.data_ptr(), m, scan.p, scan.vparts.data_ptr(), *args,
+        _ROUTES[scan.route],
         32 if scan.route == "warp" else threads(scan.p), scan.out.data_ptr(),
         torch.cuda.current_stream(scan.edges.device).cuda_stream)
     if err:

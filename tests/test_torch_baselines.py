@@ -190,11 +190,11 @@ def test_wrappers_check_inputs_and_count_only_kernels(g):
 
 
 def test_hdrf_route_and_its_state(g):
-    """HDRF takes the one-warp kernel up to P = 256 (the quality
+    """Both scans take the one-warp kernel up to P = 256 (the quality
     matrix's P 4 and 16, the NE cells' 64) and below 2^31 edges, and the
     block kernel otherwise;
     the warp route's replica flags are (N, ceil(P/32)) int32 bit words,
-    the block route's (N, P) bytes; Oblivious keeps the block kernel.
+    the block route's (N, P) bytes, for HDRF and Oblivious alike.
     Only ``prepare``'s allocation is reached here: it runs on the CPU too,
     and nothing is launched."""
     assert [ops.hdrf_route(p) for p in (1, 4, 16, 32, 33, 64, 256, 257,
@@ -212,9 +212,21 @@ def test_hdrf_route_and_its_state(g):
         assert (scan.route, tuple(scan.vparts.shape), scan.vparts.dtype) \
             == (route, shape, dtype)
         assert not scan.vparts.any() and not scan.degree.any()
-    scan = ops.prepare("oblivious_scan", e, 16, n, 5)
-    assert (scan.route, tuple(scan.vparts.shape), scan.degree) == \
-        ("block", (n, 16), None)
+    assert [ops.oblivious_route(p) for p in (1, 4, 16, 33, 256, 257,
+                                             1500)] == \
+        ["warp"] * 5 + ["block"] * 2
+    assert ops.oblivious_route(1, 2**31 - 1) == "warp"
+    assert ops.oblivious_route(256, 2**31) == "block"
+    with pytest.raises(ValueError, match="p >= 1"):
+        ops.oblivious_route(0)
+    for p, route, shape, dtype in ((1, "warp", (n, 1), torch.int32),
+                                   (16, "warp", (n, 1), torch.int32),
+                                   (256, "warp", (n, 8), torch.int32),
+                                   (257, "block", (n, 257), torch.uint8)):
+        scan = ops.prepare("oblivious_scan", e, p, n, 5)
+        assert (scan.route, tuple(scan.vparts.shape), scan.vparts.dtype,
+                scan.degree) == (route, shape, dtype, None)
+        assert not scan.vparts.any()
 
 
 # --------------------------------------------------------------------------
@@ -232,8 +244,8 @@ def cuda():
 @pytest.mark.parametrize("p", [1, 4, 16, 32, 33, 37, 64, 256, 257, 1500])
 def test_stream_kernels_match_plain(cuda, g, p):
     """Both scans on the card equal their plain versions bit for bit over
-    1,500 edges, HDRF on the warp route up to P = 256 (1 to 8 words a
-    vertex, a ragged last word at 33, 37) and on the block route above."""
+    1,500 edges, on the warp route up to P = 256 (1 to 8 words a vertex,
+    a ragged last word at 33, 37) and on the block route above."""
     e = g.edges[:1500].to(cuda)
     n = g.num_vertices
     before = dict(ops.launches)
@@ -279,6 +291,24 @@ def test_hdrf_plain_on_shared_endpoints(p):
                                                             1.0)))
 
 
+def _filling_limit(e, p):
+    """A limit every partition fills: at most half a fair share."""
+    return max(1, e.shape[0] // (2 * p))
+
+
+@pytest.mark.parametrize("fill", [True, False])
+@pytest.mark.parametrize("p", [1, 4, 33])
+def test_oblivious_plain_on_shared_endpoints(p, fill):
+    """The plain Oblivious equals the reference's scan on the streams the
+    card test below runs, at a limit every partition fills (the overflow
+    rule) and at one none reaches."""
+    for e, n in _shared_endpoint_streams():
+        limit = _filling_limit(e, p) if fill else e.shape[0] + 1
+        np.testing.assert_array_equal(
+            ref.oblivious_scan_ref(e, p, n, limit),
+            np.asarray(_oblivious_scan(e.numpy(), p, n, limit)))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("p", [1, 4, 33, 256, 300])
 def test_hdrf_forwarding_on_shared_endpoints(cuda, p):
@@ -293,6 +323,24 @@ def test_hdrf_forwarding_on_shared_endpoints(cuda, p):
             torch.testing.assert_close(got.cpu(),
                                        ref.hdrf_scan_ref(e, p, n, lam),
                                        rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 4, 33, 256, 300])
+def test_oblivious_forwarding_on_shared_endpoints(cuda, p):
+    """The Oblivious warp kernel forwards the bit edge i sets to edge
+    i + 1's loaded flag words: on streams whose consecutive edges share
+    endpoints it gives the plain version's bits at a limit every
+    partition fills and at one none reaches, as the block kernel (P =
+    300) does, and the same bits from call to call."""
+    for e, n in _shared_endpoint_streams():
+        for limit in (_filling_limit(e, p), e.shape[0] + 1):
+            got = ops.oblivious_scan(e.to(cuda), p, n, limit)
+            again = ops.oblivious_scan(e.to(cuda), p, n, limit)
+            assert torch.equal(got, again)
+            torch.testing.assert_close(
+                got.cpu(), ref.oblivious_scan_ref(e, p, n, limit),
+                rtol=0, atol=0)
 
 
 @pytest.mark.gpu

@@ -223,6 +223,7 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.configs.pna, repro_torch.configs.egnn\n"
         "import repro_torch.configs.equiformer_v2\n"
         "import repro_torch.tools.step_time\n"
+        "import repro_torch.tools.bag_backward_profile\n"
         "import repro_torch.configs.registry, repro_torch.configs.qwen3_0_6b\n"
         "import repro_torch.configs.deepseek_67b, repro_torch.launch.train\n"
         "import repro_torch.train.trainer, repro_torch.train.compression\n"
@@ -266,7 +267,7 @@ def test_port_sources_name_no_jax_and_no_repro():
                 "models/gnn/egnn.py", "models/gnn/wigner.py",
                 "models/gnn/equiformer_v2.py", "configs/pna.py",
                 "configs/egnn.py", "configs/equiformer_v2.py",
-                "tools/step_time.py"):
+                "tools/step_time.py", "tools/bag_backward_profile.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_spmd_ranks.py"]
     assert len(files) > 25

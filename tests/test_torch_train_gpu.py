@@ -31,7 +31,11 @@ def _normal(seed, *shapes):
 
 
 def _close(got, want, rtol, atol):
-    """|got - want| <= atol + rtol |want| everywhere; returns the max."""
+    """|got - want| <= atol + rtol |want| everywhere; returns the max (0
+    for empty tensors of the same shape)."""
+    assert got.shape == want.shape
+    if got.numel() == 0:
+        return 0.0
     err = (got.float() - want.float()).abs()
     assert bool((err <= atol + rtol * want.float().abs()).all()), \
         float(err.max())
@@ -86,6 +90,194 @@ def test_embedding_bag_backward_ref_is_in_order():
         for k in range(6):
             want[ids[b, k]] = want[ids[b, k]] + w[b, k] * g[b]
     assert torch.equal(gt, want) and gw is None
+
+
+# --------------------------------------------------------------------------
+# CPU: the backward kernel's cut and its design, emulated
+# --------------------------------------------------------------------------
+
+DEEPFM_V = 39 << 20            # DeepFM's table: 39 fields x 2^20 rows
+
+
+def _tiles(v, d, plan):
+    """The (r0, rows, c0, columns) of every block, as the C entry's grid
+    (ceil(V / rows), ceil(D / dt)) and the kernel cut them."""
+    return [(r0, min(plan.rows, v - r0), c0, min(plan.dt, d - c0))
+            for r0 in range(0, v, plan.rows) for c0 in range(0, d, plan.dt)]
+
+
+@pytest.mark.parametrize("d", [1, 10, 300])
+@pytest.mark.parametrize("v", [1, 8, 1000, 4099, 40_000])
+def test_backward_plan_tiles_cover_once(v, d):
+    """Each element of the (V, D) gradient lies in exactly one tile, the
+    rows a multiple of 8 (a tile of all D columns starts 16 bytes on)."""
+    plan = eb.backward_plan(v, d, 4)
+    assert plan.rows % 8 == 0 and 1 <= plan.dt <= min(d, eb.BWD_COLS)
+    seen = np.zeros((v, d), np.int64)
+    for r0, nr, c0, nc in _tiles(v, d, plan):
+        assert nr >= 1 and nc >= 1
+        seen[r0:r0 + nr, c0:c0 + nc] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("size", [2, 4])
+@pytest.mark.parametrize("d", [1, 10, 16, 300, 4096])
+def test_backward_plan_shared_memory(d, size):
+    """The float32 tile and the staged ids and slots fit the 48 KB a
+    block gets without opting in, at DeepFM's V and a small one; threads
+    are whole warps, at least the tile's columns, at most 256."""
+    for v in (DEEPFM_V, 100):
+        plan = eb.backward_plan(v, d, size)
+        assert plan.smem == (4 * plan.rows * plan.dt
+                             + 8 * eb.BWD_STAGE * plan.threads) <= 48 * 1024
+        assert plan.threads % 32 == 0
+        assert max(32, plan.dt) <= plan.threads <= eb.BWD_THREADS
+        assert d <= eb.BWD_COLS or plan.dt < d          # column tiles
+
+
+def test_backward_plan_ragged_v():
+    """Where the tile's rows do not divide V (DeepFM's table, D 10; 4,099
+    rows at D 1) the last tile is ragged and ends at V; a small V takes
+    one tile of V rounded up to 8 rows."""
+    for v, d in ((DEEPFM_V, 10), (4099, 1), (4099, 300)):
+        plan = eb.backward_plan(v, d, 4)
+        assert v % plan.rows
+        *_, (r0, nr, _, _) = _tiles(v, d, plan)
+        assert r0 + nr == v and nr == v % plan.rows
+    assert eb.backward_plan(5, 10, 4).rows == 8
+    assert eb.backward_plan(0, 10, 4).rows == 8
+    for bad in ((10, 0, 4), (-1, 10, 4), (10, 10, 8)):
+        with pytest.raises(ValueError, match="no backward plan"):
+            eb.backward_plan(*bad)
+
+
+def _lower_bound_warp(sorted_ids, x):
+    """The kernel's 32-way search (``lower_bound_warp``): each round, 32
+    probes at lo + (j + 1) step - 1, then the part between the last
+    below x and the first at or above it."""
+    lo, hi = 0, len(sorted_ids)
+    while hi - lo > 32:
+        step = -(-(hi - lo) // 32)
+        below = [q < hi and sorted_ids[q] < x
+                 for q in (lo + (j + 1) * step - 1 for j in range(32))]
+        c = sum(below)
+        assert below == [True] * c + [False] * (32 - c)
+        if c < 32:
+            hi = min(hi, lo + (c + 1) * step - 1)
+        lo += c * step
+    return lo + sum(q < hi and sorted_ids[q] < x
+                    for q in range(lo, lo + 32))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 1025, 20_000])
+def test_lower_bound_warp_emulated(n):
+    """The search gives np.searchsorted's left bound on sorted ids with
+    runs, at every value from below the first to past the last."""
+    rng = np.random.default_rng(n)
+    ids = np.sort(rng.integers(0, max(1, n // 3), n))
+    for x in [-1, 0, *rng.integers(0, max(1, n // 3), 40), n // 3, n]:
+        assert _lower_bound_warp(ids, x) == np.searchsorted(ids, x, "left")
+
+
+def _bag_ids(rng, kind, v, b, k, rows):
+    """(B, K) int32 ids in [0, V): "uniform"; "skew" (half the slots on
+    one row); "last_tile" (only in the last, ragged tile of ``rows``);
+    "one_tile" (every id in the second tile)."""
+    if kind == "last_tile":
+        r0 = (v - 1) // rows * rows
+        return rng.integers(r0, v, (b, k)).astype(np.int32)
+    if kind == "one_tile":
+        return rng.integers(rows, min(v, 2 * rows), (b, k)).astype(np.int32)
+    ids = rng.integers(0, v, (b, k)).astype(np.int32)
+    if kind == "skew":
+        ids.reshape(-1)[rng.random(b * k) < 0.5] = v // 3
+    return ids
+
+
+def _emulate_tiles(v, d, ids, w, g, plan, group, stage):
+    """The tile kernel's walk and float32 arithmetic in numpy: a stable
+    sort; blocks of ``group`` consecutive row tiles, one warp search for
+    the first; each tile's entries staged ``stage`` at a time and
+    counted below the tile's end; each run summed in slot order (product
+    rounded, then added) into a zero tile from its first entry, past the
+    stage in the sorted arrays; the tile written once.  Returns the
+    (V, D) gradient and how often each row was written."""
+    flat = ids.reshape(-1)
+    perm = np.argsort(flat, kind="stable")
+    srt = flat[perm]
+    n, kk = len(flat), ids.shape[1]
+    out = np.full((v, d), np.nan, np.float32)
+    writes = np.zeros(v, np.int64)
+    tiles = -(-v // plan.rows)
+
+    def part(slot, c0, nc):
+        x = g[slot // kk, c0:c0 + nc]
+        return x if w is None else np.float32(w.reshape(-1)[slot]) * x
+
+    for ta in range(0, tiles, group):
+        tb = min(ta + group, tiles)
+        for c0 in range(0, d, plan.dt):
+            nc = min(plan.dt, d - c0)
+            q = _lower_bound_warp(srt, ta * plan.rows)
+            for ti in range(ta, tb):
+                r0 = ti * plan.rows
+                r1, nr = r0 + plan.rows, min(plan.rows, v - r0)
+                tile = np.zeros((nr, nc), np.float32)
+                last = -1
+                while True:
+                    ids_s = [srt[q + j] if q + j < n else 2**31 - 1
+                             for j in range(stage)]
+                    slot_s = [perm[q + j] if q + j < n else 0
+                              for j in range(stage)]
+                    cnt = sum(x < r1 for x in ids_s)
+                    for e in range(cnt):
+                        rid = ids_s[e]
+                        if (ids_s[e - 1] if e else last) == rid:
+                            continue
+                        acc, r = np.zeros(nc, np.float32), e
+                        while r < cnt and ids_s[r] == rid:
+                            acc = acc + part(slot_s[r], c0, nc)
+                            r += 1
+                        if r == stage:
+                            a = q + r
+                            while a < n and srt[a] == rid:
+                                acc = acc + part(perm[a], c0, nc)
+                                a += 1
+                        tile[rid - r0] = acc
+                    if cnt:
+                        last = ids_s[cnt - 1]
+                    q += cnt
+                    if cnt < stage:
+                        break
+                out[r0:r0 + nr, c0:c0 + nc] = tile
+                writes[r0:r0 + nr] += c0 == 0
+    return out, writes
+
+
+@pytest.mark.parametrize("group,stage", [(1, 8), (4, 512)])
+@pytest.mark.parametrize("v,d,b,k,weighted,kind", [
+    (3000, 10, 64, 39, False, "skew"), (2000, 10, 64, 39, True,
+                                        "last_tile"),
+    (2000, 10, 64, 39, False, "one_tile"), (816 * 2 + 5, 10, 40, 9, True,
+                                            "uniform"),
+    (300, 300, 16, 7, True, "uniform"), (50, 1, 30, 39, False, "skew")])
+def test_tile_design_emulated_equals_plain(v, d, b, k, weighted, kind,
+                                           group, stage):
+    """The tile design's walk and arithmetic, emulated on the CPU (one
+    tile a block, or four as the kernel writes; runs that straddle a
+    small stage or fit the kernel's 512 entries), are the plain in-order
+    float32 sum bit for bit, and write every row once."""
+    rng = np.random.default_rng(v + d + k)
+    plan = eb.backward_plan(v, d, 4)
+    ids = _bag_ids(rng, kind, v, b, k, plan.rows)
+    w = rng.random((b, k)).astype(np.float32) if weighted else None
+    g = rng.normal(size=(b, d)).astype(np.float32)
+    got, writes = _emulate_tiles(v, d, ids, w, g, plan, group, stage)
+    want, _ = ebref.embedding_bag_backward_ref(
+        torch.zeros((v, d)), torch.from_numpy(ids),
+        None if w is None else torch.from_numpy(w), torch.from_numpy(g))
+    assert (writes == 1).all()
+    assert torch.equal(torch.from_numpy(got), want)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -206,19 +398,31 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("v,d,b,k,weighted", [
-    (1000, 10, 64, 39, False), (1000, 1, 64, 39, True), (50, 16, 300, 7, True),
-    (3, 8, 10, 5, False), (200_000, 10, 4096, 39, False)])
-def test_embedding_bag_backward_kernel(cuda, dtype, v, d, b, k, weighted):
+@pytest.mark.parametrize("v,d,b,k,weighted,kind", [
+    (1000, 10, 64, 39, False, "uniform"), (1000, 1, 64, 39, True, "uniform"),
+    (50, 16, 300, 7, True, "uniform"), (3, 8, 10, 5, False, "uniform"),
+    (200_000, 10, 4096, 39, False, "uniform"),
+    (200_000, 10, 4096, 39, False, "skew"),
+    (20_000, 10, 512, 39, True, "last_tile"),
+    (20_000, 1, 512, 39, False, "last_tile"),
+    (50_000, 10, 1024, 39, False, "one_tile"),
+    (816 * 5 + 3, 10, 256, 39, False, "uniform"),
+    (3000, 300, 128, 7, True, "uniform"),
+    (100, 10, 0, 5, True, "uniform"), (100, 10, 8, 0, True, "uniform")])
+def test_embedding_bag_backward_kernel(cuda, dtype, v, d, b, k, weighted,
+                                       kind):
     """The kernel's table gradient equals the plain in-order float32 sum
     bit for bit in float32 (each product rounded, then added, in slot
     order), within one bf16 step in bf16; the weight gradient within
-    1e-5 relative; the same bits from call to call; one count a call."""
+    1e-5 relative; the same bits from call to call; one count a call.
+    Ids uniform, skewed (one row holds half the slots), only in the last
+    ragged tile, all in one tile; V not a multiple of the tile's rows; D
+    300 (column tiles); B or K of 0."""
     rng = np.random.default_rng(v + d)
     table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)
                              ).to(cuda, dtype)
-    ids = torch.from_numpy(rng.integers(0, v, (b, k)).astype(np.int32)
-                           ).to(cuda)
+    rows = eb.backward_plan(v, d, table.element_size()).rows
+    ids = torch.from_numpy(_bag_ids(rng, kind, v, b, k, rows)).to(cuda)
     w = (torch.from_numpy(rng.random((b, k)).astype(np.float32)).to(cuda)
          if weighted else None)
     g = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)
