@@ -7,7 +7,8 @@
 Phases, each printing its lines; any failed check exits non-zero:
 
 1. the device (name and power limit from nvidia-smi) and the time to
-   build the CUDA kernels from ``src/repro_torch/kernels/*/csrc``;
+   build the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (their
+   nvcc processes run while the host makes the main path's RMAT graph);
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes (RMAT scale-22 graph, P = 64, K = 256; ``select_chunk``
    over all 64 rows of the map, as the main path calls it, with restart
@@ -189,8 +190,34 @@ Phases, each printing its lines; any failed check exits non-zero:
    equal an uninterrupted 6-step run bit for bit, all under
    ``torch.use_deterministic_algorithms(True)``; (e) one smoke
    ``make_step`` train step of every ported arch on the card against the
-   CPU; (f) ``psum_compressed`` at world 1 on the card (NCCL) == the CPU
-   (gloo) bit for bit.  The two backward rows join the kernels line.
+   CPU (the MoE LMs' CPU step replaying the card's tied router choices);
+   (f) ``psum_compressed`` at world 1 on the card (NCCL) == the CPU
+   (gloo) bit for bit.  The two backward rows join the kernels line;
+13. olmoe-1b-7b serving at full width in bf16 (16 layers, d 2,048, 16
+   heads of 128 over 16 kv heads, 64 experts of 1,024, top-8; 6.92 B
+   seeded random parameters made on the card, 13.8 GB): (a) the
+   ``flash_attention`` kernel at its attention's shapes against its plain
+   version and bit for bit call to call, on the tensor-core route at
+   prefills of 333 and 4,096 tokens and at one 32,768-token layer, on the
+   split-KV route at decode_32k's shape at batch 8 (one chunk, a chunk
+   boundary, a key past it, all 32 chunks); (b) one MoE layer and (c)
+   the model with 2 of its 16 layers, in float32 on the card against the
+   CPU (a prefill and 8 teacher-forced decode steps), within 1e-4 of the
+   largest value, the router's choices equal wherever they do not tie
+   within 1e-4 of a row's largest probability, and where they tie the
+   CPU takes the card's, each named; (d) at full depth ``serve_batch`` of
+   8 prompts of 64 tokens with 32 new ones (16 x 95 flash launches),
+   prefill_32k at batch 1 (cut from 32) and one decode_32k step at batch
+   8 (cut from 128: a 34.4 GB cache; 16 flash and 16 combine launches),
+   each with its counts set to 0 just before and read just after, its ms,
+   tokens/s, a profiled step's busy share and peak memory beside its
+   bound (every expert's weights and the cache read once; the experts'
+   products at capacity, the causal attention, the projections); then
+   the kernel's times at its prefill_32k and decode_32k layers (D 128)
+   beside its bound, the plain version's and SDPA's, a row of its own
+   in the kernels line.  It runs right after phase 8: late in a full run
+   torch.profiler returned no device events for whole windows of the
+   flash kernel's and SDPA's calls.
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU
 fallback: without a CUDA device the script exits non-zero.
@@ -204,6 +231,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # cuBLAS's workspace as the card's default (32 MiB on Hopper), named so
 # that torch's deterministic mode (phase 12 (d)) accepts cuBLAS calls; set
@@ -344,6 +372,14 @@ RESUME_MODELS = ("deepfm", "lm")
 RESUME_ROWS = 65536                # (d)'s DeepFM: rows a field
 RESUME_BATCH = 4096
 RESUME_LM = (2, 512, 2)            # (d)'s LM: layers, S, B (bf16)
+
+
+def timed_build(build) -> float:
+    """Build every kernel family (one nvcc each, all together); returns
+    the seconds it took."""
+    t0 = time.perf_counter()
+    build.load(*build.FAMILIES)
+    return time.perf_counter() - t0
 
 
 def fail(msg: str) -> None:
@@ -1823,12 +1859,14 @@ def top2_margin(logits):
 
 
 def check_flash(torch, fa, faref, name, q, k, v, causal, kv_len,
-                combines: int) -> float:
+                combines: int, plain=None) -> float:
     """The flash kernel against its plain version on the card in bfloat16:
     both compute in float32 and round once to bf16, in different orders:
     1e-5 + 2^-7 |plain| (one bf16 step).  A second call must give the same
     bits, each call one flash_attention launch and ``combines`` combine
-    launches.  Returns the largest error."""
+    launches.  ``plain`` is ``faref.attention_ref`` unless given (the
+    chunked one where the scores would not fit).  Returns the largest
+    error."""
     before = dict(fa.launches)
     got = fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
     again = fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
@@ -1840,8 +1878,8 @@ def check_flash(torch, fa, faref, name, q, k, v, causal, kv_len,
           == before["flash_attention_combine"] + 2 * combines,
           f"flash_attention launches at {name}: {fa.launches}, before "
           f"{before}, want {combines} combine launches a call")
-    err, ok = within(got, faref.attention_ref(q, k, v, causal, kv_len),
-                     2.0 ** -7, 1e-5)
+    plain = faref.attention_ref if plain is None else plain
+    err, ok = within(got, plain(q, k, v, causal, kv_len), 2.0 ** -7, 1e-5)
     check(ok, f"flash_attention differs from plain at {name}: {err!r}")
     return err
 
@@ -1934,34 +1972,103 @@ def prefill_instructions(build) -> None:
           f"a prefill kernel without tensor-core instructions: {counts}")
 
 
-def phase_lm_card_vs_cpu(torch, cfg, steps, dev):
-    """Phase 8, check 2: the model in float32 at full width on the card and
-    on the CPU (plain attention), from the same parameters: the last
+def route_tape(torch, k: int, replay=None, tol: float = 1e-4):
+    """A torch function mode over the MoE router's top-k (``moe.top_k``'s
+    stable descending ``torch.sort``), as :func:`relu_tape` is over ReLU:
+    it records each call's order and sorted probabilities on the host.
+    Given ``replay`` (the card's record), the CPU takes the card's order
+    after checking that each of the card's first ``k`` choices has a CPU
+    probability within ``tol`` of the row's largest of the CPU's own
+    choice at that place: a choice may differ only where two experts tie
+    within the tolerance and the card's and the CPU's sums broke the tie
+    apart.  Those rows are named in ``tied``; ``max_diff`` is the largest
+    difference of a chosen probability, card against CPU."""
+    from torch.overrides import TorchFunctionMode
+
+    class Tape(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.orders, self.tied, self.max_diff = [], [], 0.0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is not torch.sort or not k:      # k 0: no MoE router
+                return out
+            i = len(self.orders)
+            self.orders.append((out[0].detach().cpu(), out[1].cpu()))
+            if replay is None:
+                return out
+            probs, (vals, own) = args[0], out
+            card_vals, card = (t.to(probs.device) for t in replay.orders[i])
+            theirs = probs.gather(-1, card)
+            chosen = theirs[:, :k].detach()
+            self.max_diff = max(self.max_diff, float(
+                (chosen - card_vals[:, :k]).abs().max()))
+            gap = (chosen - vals[:, :k].detach()).abs()
+            scale = vals[:, :1].detach()
+            check(bool((gap <= tol * scale).all()),
+                  f"router call {i}: the card's choices differ from the "
+                  f"CPU's by {float(gap.max())!r} of a probability, above "
+                  f"{tol} of the row's largest")
+            for r in torch.nonzero((own[:, :k] != card[:, :k]).any(-1)
+                                   ).flatten().tolist():
+                self.tied.append(
+                    f"call {i} token {r}: card {card[r, :k].tolist()} CPU "
+                    f"{own[r, :k].tolist()} (gap {float(gap[r].max())!r} "
+                    f"of {float(scale[r, 0])!r})")
+            return theirs, card
+
+    return Tape()
+
+
+def phase_lm_card_vs_cpu(torch, cfg, steps, dev, label="phase 8"):
+    """Phase 8 and 13 (c): the model in float32 at full width on the card
+    and on the CPU (plain attention), from the same parameters: the last
     position's logits of a 2 x 64-token prefill, then 8 decode steps that
     the CPU takes on the card's greedy tokens.  Logits within 1e-4 of the
-    largest (float32 through 30 layers, sums in other orders); the CPU's
+    largest (float32 through the layers, sums in other orders); the CPU's
     greedy token must be the card's at every step whose top-2 margin is
-    above that tolerance, and the steps where it is not are named."""
+    above that tolerance, and the steps where it is not are named.  An MoE
+    model's CPU run takes the card's router choices where the two tie
+    (:func:`route_tape`), and those are named too."""
     import copy
 
     from repro_torch.models.lm.transformer import Transformer
 
     tol = 1e-4
     c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    k = c32.moe.top_k if c32.moe is not None else 0
     card = Transformer(c32, torch.Generator(device=dev).manual_seed(1),
                        device=dev)
     cpu = copy.deepcopy(card).to("cpu")
     tok = torch.randint(0, cfg.vocab, (2, 64),
                         generator=torch.Generator().manual_seed(82),
                         dtype=torch.int32)
-    runs = {}
-    for name, model, d in (("card", card, dev), ("CPU", cpu, "cpu")):
+    ties, route_diff = [], 0.0
+
+    def pair(name, on_card, on_cpu):
+        nonlocal route_diff
+        tape = route_tape(torch, k)
+        with tape:
+            got = on_card()
+        rep = route_tape(torch, k, tape)
+        with rep:
+            want = on_cpu()
+        ties.extend(f"{name} {t}" for t in rep.tied)
+        route_diff = max(route_diff, rep.max_diff)
+        return got, want
+
+    def prefill(model, d):
         last, caches = steps.prefill_fn(model, tok.to(d))
         full = tuple(torch.zeros((c32.n_layers, 2, 72, c32.n_kv_heads,
                                   c32.hd), device=d) for _ in range(2))
         for f, c in zip(full, caches):
             f[:, :, :64] = c
-        runs[name] = (last.cpu(), full)
+        return last.cpu(), full
+
+    runs = dict(zip(("card", "CPU"), pair("prefill",
+                                          lambda: prefill(card, dev),
+                                          lambda: prefill(cpu, "cpu"))))
 
     def close(got, want):
         scale = float(want.abs().max())
@@ -1972,8 +2079,9 @@ def phase_lm_card_vs_cpu(torch, cfg, steps, dev):
     rows = [("prefill", err, ok, runs["card"][0], runs["CPU"][0])]
     nxt = runs["card"][0].argmax(-1).to(torch.int32)[:, None]
     for i in range(8):
-        lc = steps.lm_serve_fn(card, nxt.to(dev), *runs["card"][1], 64 + i)[0]
-        lh = steps.lm_serve_fn(cpu, nxt, *runs["CPU"][1], 64 + i)[0]
+        lc, lh = pair(f"decode {i}", lambda: steps.lm_serve_fn(
+            card, nxt.to(dev), *runs["card"][1], 64 + i)[0],
+            lambda: steps.lm_serve_fn(cpu, nxt, *runs["CPU"][1], 64 + i)[0])
         lc = lc[:, -1].cpu()
         lh = lh[:, -1]
         err, ok = close(lc, lh)
@@ -1981,68 +2089,113 @@ def phase_lm_card_vs_cpu(torch, cfg, steps, dev):
         nxt = lc.argmax(-1).to(torch.int32)[:, None]
     near = []
     for name, err, ok, lc, lh in rows:
-        check(ok, f"card vs CPU logits at {name}: {err!r} > {tol}")
+        check(ok, f"{label}: card vs CPU logits at {name}: {err!r} > {tol}")
         scale = float(lh.abs().max())
         margin = top2_margin(lh)
         same = lc.argmax(-1) == lh.argmax(-1)
         tied = margin <= tol * scale
         check(bool((same | tied).all()),
-              f"card vs CPU greedy tokens differ at {name} with a clear "
-              f"margin: {margin.tolist()}")
+              f"{label}: card vs CPU greedy tokens differ at {name} with a "
+              f"clear margin: {margin.tolist()}")
         near += [f"{name} row {r} (margin {float(margin[r])!r})"
                  for r in torch.nonzero(tied).flatten().tolist()]
-    print(f"phase 8: card vs CPU (float32, full width): logits max err / "
-          f"max {[r[1] for r in rows]} (tol {tol}); greedy tokens equal "
-          f"wherever the top-2 margin is above the tolerance; "
-          f"steps with a top-2 margin under the tolerance: {near or 'none'}",
-          flush=True)
+    routing = "" if not k else (
+        f"; router choices equal wherever the margin is above {tol} of a "
+        f"row's largest probability (chosen probabilities within "
+        f"{route_diff!r}), tied choices the CPU took from the card: "
+        f"{ties or 'none'}")
+    print(f"{label}: card vs CPU (float32, full width, {c32.n_layers} "
+          f"layers): logits max err / max {[r[1] for r in rows]} (tol "
+          f"{tol}); greedy tokens equal wherever the top-2 margin is above "
+          f"the tolerance; steps with a top-2 margin under the tolerance: "
+          f"{near or 'none'}{routing}", flush=True)
+    del card, cpu
+    torch.cuda.empty_cache()
     return max(r[1] for r in rows)
 
 
-def phase_lm(torch, args):
-    """Phase 8: smollm-135m serving at full width in bf16 (30 layers,
-    d_model 576, 9 heads over 3 kv heads, head_dim 64, d_ff 1,536, vocab
-    49,152, tied), seeded random weights.  Returns flash_attention's row
-    of the kernels line."""
-    from repro_torch.configs import smollm_135m
+def lm_bounds(cfg, dec_batch: int, dec_len: int, prefill_len: int) -> dict:
+    """The least time (ms) of a decode step and of a prefill on the card:
+    a decode step reads every weight once (an MoE layer runs all its
+    experts on their capacity buffers, so all of them) and the cache's
+    first ``dec_len`` rows of ``dec_batch`` sequences; a prefill of
+    ``prefill_len`` tokens does the projections, the FFN (an MoE layer's
+    experts at capacity: E · C slots), the causal attention's two
+    products and the head at the bf16 rate, the float32 router at the
+    FP32 rate.  Returns each part and the totals."""
+    from repro_torch.models.lm.moe import capacity
+
+    d, hd, h, hk, L = (cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.n_layers)
+    size = 2                                    # bf16
+    attn_w = d * (h + 2 * hk) * hd + h * hd * d
+    head_w = cfg.vocab * d
+    t = prefill_len
+    if cfg.moe is not None:
+        e, f = cfg.moe.n_experts, cfg.moe.d_expert
+        ffn_w, router_w = e * 3 * d * f, d * e
+        ffn_ops = 2 * 3 * d * f * e * capacity(t, cfg.moe)
+    else:
+        ffn_w, router_w = 3 * d * cfg.d_ff, 0
+        ffn_ops = 2 * 3 * d * cfg.d_ff * t
+    weights = L * (attn_w + ffn_w) * size + L * router_w * 4 \
+        + head_w * size
+    cache = 2 * L * dec_batch * dec_len * hk * hd * size
+    parts = {
+        "weights_ms": bound_ms(weights),
+        "cache_ms": bound_ms(cache),
+        "experts_ms" if cfg.moe is not None else "ffn_ms":
+            L * ffn_ops / BF16_FLOPS * 1e3,
+        "attention_ms": L * 4 * h * hd * (t * (t + 1) // 2)
+        / BF16_FLOPS * 1e3,
+        "projections_ms": (L * 2 * attn_w + 2 * head_w) * t
+        / BF16_FLOPS * 1e3,
+        "router_ms": L * 2 * router_w * t / FP32_FLOPS * 1e3}
+    parts["decode_ms"] = parts["weights_ms"] + parts["cache_ms"]
+    parts["prefill_ms"] = sum(v for k, v in parts.items() if k not in (
+        "weights_ms", "cache_ms", "decode_ms"))
+    return parts
+
+
+def lm_serve_paths(torch, label, model, dec_batch: int):
+    """The three serving paths of a full-width bf16 model, each with the
+    launch counts set to 0 just before and read just after, its ms a step,
+    tokens/s, peak memory and a profiled step (the device's busy share),
+    beside the bounds of :func:`lm_bounds`: ``serve_batch`` of 8 prompts
+    of 64 tokens with 32 new ones (cache 256; L x 95 flash launches);
+    prefill_32k at batch 1 (cut from 32; L launches); one decode_32k step
+    at batch ``dec_batch`` (cut from 128) on a seeded random cache (L
+    flash and L combine launches).  Returns (serve_batch's flash launches,
+    the decode cache (k, v))."""
     from repro_torch.configs.shapes import LM_SHAPES
-    from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_attention import ref as faref
     from repro_torch.launch import steps
     from repro_torch.models.lm import serve
-    from repro_torch.models.lm.transformer import Transformer
 
     dev = torch.device("cuda")
-    cfg = smollm_135m.CONFIG
-    no_tf32(torch, "phase 8")
-    worst = phase_lm_kernel(torch, fa, faref, dev)
-    prefill_instructions(build)
-    phase_lm_card_vs_cpu(torch, cfg, steps, dev)
-    torch.cuda.empty_cache()
-    model = Transformer(cfg, torch.Generator(device=dev).manual_seed(0),
-                        device=dev)
-    nparam = sum(p.numel() for p in model.parameters())
-    print(f"phase 8: {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
-          f"H={cfg.n_heads} HK={cfg.n_kv_heads} hd={cfg.hd} "
-          f"d_ff={cfg.d_ff} V={cfg.vocab}: {nparam} bf16 parameters",
-          flush=True)
+    cfg = model.cfg
     L = cfg.n_layers
+    s = LM_SHAPES["prefill_32k"]["seq_len"]
+    smax = LM_SHAPES["decode_32k"]["seq_len"]
 
     # --- main path 1: serve_batch, greedy ---------------------------------
     prompts = torch.randint(0, cfg.vocab, (8, 64),
                             generator=torch.Generator().manual_seed(83),
                             dtype=torch.int32).numpy()
     scfg = serve.ServeConfig(max_new_tokens=32, cache_len=256)
-    serve.serve_batch(model, prompts, scfg)               # warm-up
+    n_steps = prompts.shape[1] - 1 + scfg.max_new_tokens
+    serve_bound = lm_bounds(cfg, 8, (n_steps + 1) // 2, 1)  # mean rows
+    serve.serve_batch(model, prompts[:, :2], dataclasses.replace(
+        scfg, max_new_tokens=1))                          # warm-up, 2 steps
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     out = serve.serve_batch(model, prompts, scfg)
     wall = time.perf_counter() - t0
-    n_steps = prompts.shape[1] - 1 + scfg.max_new_tokens
-    want = L * n_steps
-    counts = check_counts("phase 8 serve_batch", {"flash_attention": want})
+    counts = check_counts(f"{label} serve_batch",
+                          {"flash_attention": L * n_steps})
+    peak = torch.cuda.max_memory_allocated() - base
     check(out.shape == (8, 96) and (out[:, :64] == prompts).all()
           and ((out >= 0) & (out < cfg.vocab)).all(),
           f"serve_batch output {out.shape}")
@@ -2051,20 +2204,22 @@ def phase_lm(torch, args):
                                 cfg.hd), dtype=cfg.dtype, device=dev)
                    for _ in range(2))
     tok8 = torch.from_numpy(out[:, 64:65]).to(dev)
-    profile_round(torch, "phase 8: profiled serve_batch decode step "
+    profile_round(torch, f"{label}: profiled serve_batch decode step "
                   "(B=8, cache 256, position 80)",
                   lambda: steps.lm_serve_fn(model, tok8, *caches, 80),
                   top=8, host_top=8)
     del caches
-    print(f"phase 8: serve_batch 8 x 64 prompts, 32 new tokens, cache 256, "
-          f"greedy: {wall!r} s, {wall / n_steps * 1e3!r} ms a step, "
-          f"{8 * scfg.max_new_tokens / wall!r} new tokens/s, "
-          f"{8 * n_steps / wall!r} tokens/s through the decode step; "
-          f"flash_attention launches {served} = {L} x ({prompts.shape[1] - 1}"
-          f" + {scfg.max_new_tokens})", flush=True)
+    print(f"{label}: serve_batch 8 x 64 prompts, 32 new tokens, cache 256, "
+          f"greedy: {wall!r} s, {wall / n_steps * 1e3!r} ms a step (bound "
+          f"{serve_bound['decode_ms']!r}: weights {serve_bound['weights_ms']!r}"
+          f" + cache), {8 * scfg.max_new_tokens / wall!r} new tokens/s, "
+          f"{8 * n_steps / wall!r} tokens/s through the decode step; peak "
+          f"{peak} B above the {base} B held; flash_attention launches "
+          f"{served} = {L} x ({prompts.shape[1] - 1} + "
+          f"{scfg.max_new_tokens})", flush=True)
 
     # --- main path 2: prefill_32k at batch 1 (cut from 32) ----------------
-    s = LM_SHAPES["prefill_32k"]["seq_len"]
+    bound = lm_bounds(cfg, dec_batch, smax, s)
     tok = torch.randint(0, cfg.vocab, (1, s), device=dev, dtype=torch.int32,
                         generator=torch.Generator(device=dev).manual_seed(84))
     steps.prefill_fn(model, tok)                          # warm-up
@@ -2076,26 +2231,30 @@ def phase_lm(torch, args):
     last, caches = steps.prefill_fn(model, tok)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    check_counts("phase 8 prefill_32k", {"flash_attention": L})
+    check_counts(f"{label} prefill_32k", {"flash_attention": L})
     peak = torch.cuda.max_memory_allocated() - base
     check(last.shape == (1, cfg.vocab) and bool(last.isfinite().all())
           and caches[0].shape == (L, 1, s, cfg.n_kv_heads, cfg.hd),
           "prefill_32k outputs")
-    print(f"phase 8: prefill_32k batch 1 (cut from 32): {wall!r} s, "
-          f"{s / wall!r} tokens/s, peak {peak} B above the {base} B held; "
+    parts = ", ".join(f"{k[:-3]} {bound[k]!r}" for k in (
+        "experts_ms" if cfg.moe is not None else "ffn_ms", "attention_ms",
+        "projections_ms", "router_ms") if bound.get(k))
+    print(f"{label}: prefill_32k batch 1 (cut from 32): {wall!r} s, "
+          f"{s / wall!r} tokens/s (bound {bound['prefill_ms']!r} ms: "
+          f"{parts}); peak {peak} B above the {base} B held; "
           f"flash_attention launches {L}", flush=True)
     del last, caches
-    profile_round(torch, "phase 8: profiled prefill_32k",
+    profile_round(torch, f"{label}: profiled prefill_32k",
                   lambda: steps.prefill_fn(model, tok), top=8)
+    del tok
+    torch.cuda.empty_cache()
 
-    # --- main path 3: one decode step at decode_32k, batch 32 (cut from 128)
-    smax = LM_SHAPES["decode_32k"]["seq_len"]
-    b = 32
+    # --- main path 3: one decode step at decode_32k (batch cut from 128) --
     g = torch.Generator(device=dev).manual_seed(85)
-    shape = (L, b, smax, cfg.n_kv_heads, cfg.hd)
+    shape = (L, dec_batch, smax, cfg.n_kv_heads, cfg.hd)
     kc = torch.randn(shape, generator=g, device=dev, dtype=cfg.dtype)
     vc = torch.randn(shape, generator=g, device=dev, dtype=cfg.dtype)
-    token = torch.randint(0, cfg.vocab, (b, 1), device=dev,
+    token = torch.randint(0, cfg.vocab, (dec_batch, 1), device=dev,
                           dtype=torch.int32, generator=g)
     steps.lm_serve_fn(model, token, kc, vc, smax - 1)     # warm-up
     torch.cuda.synchronize()
@@ -2106,32 +2265,41 @@ def phase_lm(torch, args):
     logits, _, _, new_len = steps.lm_serve_fn(model, token, kc, vc, smax - 1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    check_counts("phase 8 decode_32k", {"flash_attention": L,
-                                        "flash_attention_combine": L})
+    check_counts(f"{label} decode_32k", {"flash_attention": L,
+                                         "flash_attention_combine": L})
     peak = torch.cuda.max_memory_allocated() - base
-    check(logits.shape == (b, 1, cfg.vocab) and new_len == smax
+    check(logits.shape == (dec_batch, 1, cfg.vocab) and new_len == smax
           and bool(logits.isfinite().all()), "decode_32k outputs")
-    print(f"phase 8: decode_32k one step, batch {b} (cut from 128), cache "
-          f"{2 * kc.numel() * kc.element_size()} B: {wall * 1e3!r} ms, "
-          f"{b / wall!r} tokens/s; peak {peak} B above the {base} B held; "
-          f"flash_attention launches {L}, flash_attention_combine "
-          f"launches {L}", flush=True)
-    profile_round(torch, "phase 8: profiled decode_32k step",
+    print(f"{label}: decode_32k one step, batch {dec_batch} (cut from 128), "
+          f"cache {2 * kc.numel() * kc.element_size()} B: {wall * 1e3!r} ms "
+          f"(bound {bound['decode_ms']!r}: weights {bound['weights_ms']!r} + "
+          f"cache {bound['cache_ms']!r}), {dec_batch / wall!r} tokens/s; "
+          f"peak {peak} B above the {base} B held; flash_attention launches "
+          f"{L}, flash_attention_combine launches {L}", flush=True)
+    profile_round(torch, f"{label}: profiled decode_32k step",
                   lambda: steps.lm_serve_fn(model, token, kc, vc, smax - 1),
                   top=8)
+    return served, (kc, vc)
 
-    # --- the kernel's times at the prefill_32k and decode_32k layers ------
-    row = {"name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
-           "replaces": REPLACES["flash_attention"], "launches": served,
-           "launches_prefill_32k": L, "launches_decode_32k": L,
-           "combine_launches_decode_32k": L,
-           "max_abs_err": worst}
+
+def flash_layer_times(torch, args, fa, faref, row, label, cfg, kc, vc):
+    """The flash kernel's times at a prefill_32k layer (batch 1, causal)
+    and at a decode_32k layer (one query a sequence against layer 0 of the
+    cache ``kc``, ``vc``) at ``cfg``'s heads, beside its bound, the plain
+    version's and ``F.scaled_dot_product_attention``'s (kv heads repeated
+    for it), each checked against plain first; fills ``row``'s keys
+    (``_decode_32k`` for the decode layer's)."""
+    from repro_torch.configs.shapes import LM_SHAPES
+
+    dev = torch.device("cuda")
+    s = LM_SHAPES["prefill_32k"]["seq_len"]
+    h, hk, d, b = cfg.n_heads, cfg.n_kv_heads, cfg.hd, kc.shape[1]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device=dev).manual_seed(86)
-    q = torch.randn((1, s, 9, 64), generator=gen, device=dev, dtype=cfg.dtype)
-    k = torch.randn((1, s, 3, 64), generator=gen, device=dev, dtype=cfg.dtype)
-    v = torch.randn((1, s, 3, 64), generator=gen, device=dev, dtype=cfg.dtype)
-    dq = torch.randn((b, 1, 9, 64), generator=gen, device=dev,
+    q = torch.randn((1, s, h, d), generator=gen, device=dev, dtype=cfg.dtype)
+    k = torch.randn((1, s, hk, d), generator=gen, device=dev, dtype=cfg.dtype)
+    v = torch.randn((1, s, hk, d), generator=gen, device=dev, dtype=cfg.dtype)
+    dq = torch.randn((b, 1, h, d), generator=gen, device=dev,
                      dtype=cfg.dtype)
     for tag, (qq, kk, vv, causal) in (("", (q, k, v, True)),
                                       ("_decode_32k", (dq, kc[0], vc[0],
@@ -2155,7 +2323,7 @@ def phase_lm(torch, args):
         err, ok = within(got, want, 2.0 ** -7, 1e-5)
         check(ok, f"flash_attention differs from plain at {name}: {err!r}")
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        print(f"phase 8: flash_attention == plain (bf16) at {name}: max abs "
+        print(f"{label}: flash_attention == plain (bf16) at {name}: max abs "
               f"err {err!r} (tol 1e-5 + 2^-7|plain|)", flush=True)
         # SDPA rounds its probabilities to bf16 before the product with v:
         # held to plain only as a check that it computes the same function
@@ -2178,7 +2346,7 @@ def phase_lm(torch, args):
                 torch, lambda: sdpa(qh, kh, vh, is_causal=causal),
                 args.reps)[0]})
         del qh, kh, vh
-        print(f"phase 8: flash_attention at {name} layer (B={bq}, S={sq}, "
+        print(f"{label}: flash_attention at {name} layer (B={bq}, S={sq}, "
               f"T={t}, H={h}, HK={kk.shape[2]}, D={d}): ms "
               f"{row['ms' + tag]!r}, device_ms {row['device_ms' + tag]!r}, "
               f"bound {row['bound_ms' + tag]!r} ({row['bound_by' + tag]}), "
@@ -2186,8 +2354,182 @@ def phase_lm(torch, args):
               f"{'chunked ' if causal else ''}{row['plain_ms' + tag]!r}, "
               f"SDPA {row['library_ms' + tag]!r} (device_ms "
               f"{row['library_device_ms' + tag]!r})", flush=True)
+
+
+def phase_lm(torch, args):
+    """Phase 8: smollm-135m serving at full width in bf16 (30 layers,
+    d_model 576, 9 heads over 3 kv heads, head_dim 64, d_ff 1,536, vocab
+    49,152, tied), seeded random weights.  Returns flash_attention's row
+    of the kernels line."""
+    from repro_torch.configs import smollm_135m
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as faref
+    from repro_torch.launch import steps
+    from repro_torch.models.lm.transformer import Transformer
+
+    dev = torch.device("cuda")
+    cfg = smollm_135m.CONFIG
+    no_tf32(torch, "phase 8")
+    worst = phase_lm_kernel(torch, fa, faref, dev)
+    prefill_instructions(build)
+    phase_lm_card_vs_cpu(torch, cfg, steps, dev)
+    model = Transformer(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    nparam = sum(p.numel() for p in model.parameters())
+    print(f"phase 8: {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
+          f"H={cfg.n_heads} HK={cfg.n_kv_heads} hd={cfg.hd} "
+          f"d_ff={cfg.d_ff} V={cfg.vocab}: {nparam} bf16 parameters",
+          flush=True)
+    L = cfg.n_layers
+    served, (kc, vc) = lm_serve_paths(torch, "phase 8", model, 32)
+    row = {"name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+           "replaces": REPLACES["flash_attention"], "launches": served,
+           "launches_prefill_32k": L, "launches_decode_32k": L,
+           "combine_launches_decode_32k": L,
+           "max_abs_err": worst}
+    flash_layer_times(torch, args, fa, faref, row, "phase 8", cfg, kc, vc)
     del kc, vc, model
     torch.cuda.empty_cache()
+    return row
+
+
+def phase_moe_kernel(torch, fa, faref, cfg, dev) -> float:
+    """Phase 13 (a): the flash kernel at olmoe-1b-7b's attention (D 128,
+    16 query heads over 16 kv heads, bf16) against its plain version and
+    bit for bit call to call (:func:`check_flash`): on the tensor-core
+    route at a short prefill (333 and 4,096 tokens, causal) and at one
+    32,768-token prefill_32k layer (against the chunked plain version);
+    on the split-KV route at decode_32k's shape at batch 8 (one query
+    against a 32,768-row cache) at kv_len 1 (one chunk), 1,024 (a chunk
+    boundary), 1,025 (a key past it) and 32,768 (all 32 chunks).
+    Returns the largest error."""
+    gen = torch.Generator(device=dev).manual_seed(130)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def qkv(b, s, t):
+        return tuple(torch.randn(shape, generator=gen, device=dev,
+                                 dtype=torch.bfloat16)
+                     for shape in ((b, s, h, d), (b, t, hk, d), (b, t, hk, d)))
+
+    worst = 0.0
+    for s in (333, 4096, 32768):
+        plain = faref.attention_chunked_ref if s > 4096 else None
+        err = check_flash(torch, fa, faref, f"olmoe prefill S=T={s}",
+                          *qkv(1, s, s), True, None, 0, plain)
+        worst = max(worst, err)
+        print(f"phase 13 (a): flash_attention == plain (bf16, tensor cores) "
+              f"at olmoe's prefill S=T={s}, H=HK={h}, D={d}: max abs err "
+              f"{err!r} (tol 1e-5 + 2^-7|plain|)", flush=True)
+    q, k, v = qkv(8, 1, 32768)
+    for kv_len in (1, fa.DECODE_CHUNK, fa.DECODE_CHUNK + 1, 32768):
+        chunks = fa.split_chunks(torch.bfloat16, 1, h // hk, kv_len, False)
+        err = check_flash(torch, fa, faref,
+                          f"olmoe decode B=8 T=32768 kv_len={kv_len}", q, k,
+                          v, False, kv_len, int(chunks > 1))
+        worst = max(worst, err)
+        print(f"phase 13 (a): flash_attention == plain (bf16, split-KV, "
+              f"{chunks} chunks) at olmoe's decode_32k B=8 kv_len={kv_len}: "
+              f"max abs err {err!r} (tol 1e-5 + 2^-7|plain|)", flush=True)
+    return worst
+
+
+def phase_moe_layer(torch, cfg, dev) -> None:
+    """Phase 13 (b): one MoE layer at olmoe-1b-7b's full width (d 2,048,
+    64 experts of d_expert 1,024, top-8) in float32 on the card and on the
+    CPU from the same parameters (seeded, made on the card) and the same
+    2 x 64 hidden states: capacity 20 an expert, so tokens overflow.
+    The router's choices must be equal wherever they do not tie within
+    1e-4 of a row's largest probability; where they tie the CPU takes the
+    card's (:func:`route_tape`) and the choices are named; then the
+    outputs within 1e-4 of the largest and the load-balance loss within
+    1e-4 of itself."""
+    from repro_torch.models.lm import moe
+
+    tol = 1e-4
+    mc = cfg.moe
+    gen = torch.Generator(device=dev).manual_seed(131)
+    p = {k: w[0] for k, w in moe.init_moe(gen, 1, cfg.d_model, mc,
+                                           torch.float32, dev).items()}
+    x = torch.randn((2, 64, cfg.d_model), generator=gen, device=dev)
+    tape = route_tape(torch, mc.top_k)
+    with tape:
+        y, aux = moe.moe_block(p, x, mc)
+    rep = route_tape(torch, mc.top_k, tape)
+    with rep:
+        yh, auxh = moe.moe_block({k: w.cpu() for k, w in p.items()}, x.cpu(),
+                                 mc)
+    scale = float(yh.abs().max())
+    err, ok = within(y.cpu(), yh, 0.0, tol * scale)
+    check(ok, f"phase 13 (b): the MoE layer's output on the card differs "
+          f"from the CPU's by {err!r} of a largest {scale!r}")
+    aux_err = abs(float(aux) - float(auxh))
+    check(aux_err <= tol * float(auxh),
+          f"phase 13 (b): aux {float(aux)!r} on the card, {float(auxh)!r} "
+          f"on the CPU")
+    cap = moe.capacity(128, mc)
+    print(f"phase 13 (b): one MoE layer (float32, d {cfg.d_model}, "
+          f"{mc.n_experts} experts x {mc.d_expert}, top-{mc.top_k}, 2 x 64 "
+          f"tokens, capacity {cap}): card == CPU, outputs max err / max "
+          f"{err / scale!r}, aux {float(aux)!r} (CPU {float(auxh)!r}); "
+          f"router choices equal wherever the margin is above {tol} of a "
+          f"row's largest probability (chosen probabilities within "
+          f"{rep.max_diff!r}); tied choices the CPU took from the card: "
+          f"{rep.tied or 'none'}", flush=True)
+
+
+def phase_moe(torch, args):
+    """Phase 13: olmoe-1b-7b serving at full width in bf16 (16 layers,
+    d_model 2,048, 16 heads of 128 over 16 kv heads, 64 experts of
+    d_expert 1,024, top-8, vocab 50,304, untied; 6.92 B parameters, 13.8
+    GB), seeded random weights made on the card: (a) the flash kernel at
+    its attention's shapes, (b) one MoE layer and (c) the model with 2 of
+    its 16 layers in float32, card against CPU, (d) the three serving
+    paths at full depth (:func:`lm_serve_paths`, the decode_32k step at
+    batch 8: a 34.4 GB cache) beside their bounds, and the flash kernel's
+    times at its prefill_32k and decode_32k layers.  Returns the flash
+    kernel's row for this model."""
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as faref
+    from repro_torch.launch import steps
+    from repro_torch.models.lm.transformer import Transformer
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = olmoe_1b_7b.CONFIG
+    no_tf32(torch, "phase 13")
+    worst = phase_moe_kernel(torch, fa, faref, cfg, dev)
+    phase_moe_layer(torch, cfg, dev)
+    phase_lm_card_vs_cpu(torch, dataclasses.replace(cfg, n_layers=2), steps,
+                         dev, "phase 13 (c)")
+    print(f"phase 13 (a)-(c): {time.perf_counter() - t0:.1f} s", flush=True)
+    model = Transformer(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    nparam = sum(p.numel() for p in model.parameters())
+    print(f"phase 13 (d): {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
+          f"H={cfg.n_heads} HK={cfg.n_kv_heads} hd={cfg.hd} E="
+          f"{cfg.moe.n_experts} top-{cfg.moe.top_k} d_expert="
+          f"{cfg.moe.d_expert} V={cfg.vocab}: {nparam} parameters "
+          f"({torch.cuda.memory_allocated()} B on the card)", flush=True)
+    L = cfg.n_layers
+    print(f"phase 13 (d): the model made in "
+          f"{time.perf_counter() - t0:.1f} s into the phase", flush=True)
+    served, (kc, vc) = lm_serve_paths(torch, "phase 13 (d)", model, 8)
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 13 (d): the serving paths done "
+          f"{time.perf_counter() - t0:.1f} s into the phase", flush=True)
+    row = {"name": "flash_attention", "cell": cfg.name, "route": "cuda",
+           "source": FA_SOURCE, "replaces": REPLACES["flash_attention"],
+           "launches": served, "launches_prefill_32k": L,
+           "launches_decode_32k": L, "combine_launches_decode_32k": L,
+           "max_abs_err": worst}
+    flash_layer_times(torch, args, fa, faref, row, "phase 13 (d)", cfg, kc,
+                      vc)
+    del kc, vc
+    torch.cuda.empty_cache()
+    print(f"phase 13: took {time.perf_counter() - t0:.1f} s", flush=True)
     return row
 
 
@@ -3529,7 +3871,8 @@ def train_flash_kernel(torch, fa, faref, reps) -> dict:
     return row
 
 
-def forced_steps(torch, np, label, fn, p0, batches, n: int, dev):
+def forced_steps(torch, np, label, fn, p0, batches, n: int, dev,
+                 route_k: int = 0):
     """``n`` train steps of ``fn`` on the CPU from parameters ``p0`` and a
     fresh AdamW state, and the same steps on the card, each taken from the
     CPU's parameters and state before it (teacher-forced: AdamW's early
@@ -3542,8 +3885,10 @@ def forced_steps(torch, np, label, fn, p0, batches, n: int, dev):
     under 1e-4 of its leaf's largest (there the sign may flip: at most
     ~2 lr).  The CPU replays the card's ReLU decisions (``relu_tape``, as
     phase 6 does): a unit within a rounding of 0 takes either side, and
-    one such flip moves a whole row's gradient.  ``batches(i, device)``
-    gives step i's inputs.  Returns (the CPU's losses, the largest checked
+    one such flip moves a whole row's gradient.  With ``route_k`` (an MoE
+    model's top-k) it replays the card's router choices where they tie
+    too (``route_tape``).  ``batches(i, device)`` gives step i's inputs.
+    Returns (the CPU's losses, the largest checked
     parameter difference, the entries let off, the ReLU units that
     flipped)."""
     from repro_torch.launch.steps import OPT_CFG
@@ -3553,12 +3898,12 @@ def forced_steps(torch, np, label, fn, p0, batches, n: int, dev):
     params, state = p0, opt.init(p0, OPT_CFG)
     losses, worst, let_off, flips = [], 0.0, 0, 0
     for i in range(n):
-        tape = relu_tape(torch)
-        with tape:
+        tape, routes = relu_tape(torch), route_tape(torch, route_k)
+        with tape, routes:
             card = fn(tree_map(lambda t: t.to(dev), params),
                       tree_map(lambda t: t.to(dev), state), *batches(i, dev))
         replay = relu_tape(torch, tape.inputs)
-        with replay:
+        with replay, route_tape(torch, route_k, routes):
             host = fn(params, state, *batches(i, "cpu"))
         flips += sum(int(((a > 0) != (b > 0)).sum())
                      for a, b in zip(tape.inputs, replay.inputs))
@@ -4044,13 +4389,13 @@ def smoke_batch(np, spec, cfg, args, seed):
 
 
 def phase_train_archs(torch, np) -> None:
-    """Phase 12 (e): one smoke ``make_step`` train step of every ported
-    arch (the LMs at train_4k, the GNNs at full_graph_sm, DeepFM at
+    """Phase 12 (e): one smoke ``make_step`` train step of every arch (the
+    LMs at train_4k, the MoE ones too, the GNNs at full_graph_sm, DeepFM at
     train_batch) on the card against the CPU from the same parameters and
     batch, as :func:`forced_steps` holds them.  PNA runs in float64, as
     in phase 11 (d): in float32 its max, min and std's clamp decide near
     ties by a rounding."""
-    from repro_torch.configs.registry import PORTED_ARCH_IDS, get_arch
+    from repro_torch.configs.registry import ARCH_IDS, get_arch
     from repro_torch.launch import steps
     from repro_torch.tree import tree_map, tree_to_numpy
 
@@ -4059,7 +4404,7 @@ def phase_train_archs(torch, np) -> None:
     shape_of = {"lm": "train_4k", "gnn": "full_graph_sm",
                 "recsys": "train_batch"}
     done = []
-    for arch in PORTED_ARCH_IDS:
+    for arch in ARCH_IDS:
         spec = get_arch(arch)
         bundle = steps.make_step(spec, shape_of[spec.family], smoke=True)
         cfg = bundle.model.cfg
@@ -4076,9 +4421,10 @@ def phase_train_archs(torch, np) -> None:
                 torch.from_numpy(np.asarray(a)).to(d)), x) for x in data]
 
         reset_counts()
+        moe = getattr(cfg, "moe", None)
         losses, worst, let_off, flips = forced_steps(
             torch, np, f"phase 12 (e) {arch}", bundle.fn, p0, batches, 1,
-            dev)
+            dev, moe.top_k if moe is not None else 0)
         counts = {k: v for k, v in all_counts().items() if v}
         done.append(f"{arch} ({'float64; ' if f64 else ''}loss "
                     f"{losses[0]!r}, parameters within {worst!r}, {let_off} "
@@ -4202,25 +4548,29 @@ def main() -> None:
     print(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
           flush=True)
+    # the kernels build (nvcc processes, waited on in a thread) while this
+    # thread makes the main path's graph on the host: RMAT, Graph500
+    # (a, b, c, d), seed 1; neither needs the other
     t0 = time.perf_counter()
-    build.load(*build.FAMILIES)
+    with ThreadPoolExecutor(1) as builder:
+        building = builder.submit(timed_build, build)
+        edges = rmat_edges(args.scale, EDGE_FACTOR, seed=1)
+        g = from_edges(edges, num_vertices=1 << args.scale, device=dev)
+        del edges
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        build_s = building.result()
     print(f"phase 1: built {', '.join(build.FAMILIES)} (one nvcc each, "
-          f"together) in {time.perf_counter() - t0:.2f} s", flush=True)
+          f"together, beside the graph's generation) in {build_s:.2f} s",
+          flush=True)
     for fam in build.FAMILIES:
         for line in build.build_logs.get(fam, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {fam}: {line.strip()}", file=sys.stderr)
-
-    # the main path's graph: RMAT, Graph500 (a, b, c, d), seed 1
-    t0 = time.perf_counter()
-    edges = rmat_edges(args.scale, EDGE_FACTOR, seed=1)
-    g = from_edges(edges, num_vertices=1 << args.scale, device=dev)
-    del edges
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
     n, m = g.num_vertices, g.num_edges
     print(f"phase 1: RMAT scale {args.scale} EF {EDGE_FACTOR}: "
-          f"N={n} M={m} (host generation + CSR + copy {gen_s:.2f} s)",
+          f"N={n} M={m} (host generation + CSR + copy {gen_s:.2f} s; "
+          f"build and graph together {time.perf_counter() - t0:.2f} s)",
           flush=True)
 
     cfg = tp.NEConfig(num_partitions=PARTITIONS).clamped(n)
@@ -4380,6 +4730,11 @@ def main() -> None:
     flash_row = phase_lm(torch, args)
     print(f"phases 7-8: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # --- phase 13: olmoe-1b-7b serving (MoE), beside phase 8 ----------------
+    mark("13")
+    torch.cuda.empty_cache()
+    moe_row = phase_moe(torch, args)
+
     import multiprocessing
     import shutil
     import tempfile
@@ -4441,8 +4796,8 @@ def main() -> None:
         flush=True)
     print(f"the script: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": rows + bit_rows + [spmm_row, bag_row,
-                                                   flash_row] + stream
-                      + train_rows}), flush=True)
+                                                   flash_row, moe_row]
+                      + stream + train_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,5 @@
 """Architecture registry: ``--arch <id>`` → config + family + shapes (the
-reference's ``configs/registry.py`` over the port's configs).
-
-The two MoE LMs keep their ids but have no port yet: :func:`get_arch`
-raises for them, and :func:`all_cells` lists the cells of the other
-archs.
-"""
+reference's ``configs/registry.py`` over the port's configs)."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,10 +20,8 @@ _MODULES = {
     "egnn": "egnn",
     "deepfm": "deepfm",
 }
-_MOE = ("olmoe-1b-7b", "kimi-k2-1t-a32b")
 
 ARCH_IDS = tuple(_MODULES)
-PORTED_ARCH_IDS = tuple(a for a in ARCH_IDS if a not in _MOE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,10 +38,6 @@ class ArchSpec:
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id in _MOE:
-        raise NotImplementedError(
-            f"{arch_id}: MoE layers are not ported yet (ROADMAP.md §1 "
-            f"item 5, the MoE LMs)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return ArchSpec(arch_id=arch_id, family=mod.FAMILY, config=mod.CONFIG,
                     smoke_config=mod.SMOKE,
@@ -56,10 +45,9 @@ def get_arch(arch_id: str) -> ArchSpec:
 
 
 def all_cells() -> list[tuple[str, str]]:
-    """The (arch × shape) cells of every ported arch (32 of the
-    reference's 40: the MoE LMs' 8 wait)."""
+    """All 40 (arch × shape) cells, in the reference's order."""
     out = []
-    for a in PORTED_ARCH_IDS:
+    for a in ARCH_IDS:
         spec = get_arch(a)
         out.extend((a, s) for s in spec.shape_ids)
     return out

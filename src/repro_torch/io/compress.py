@@ -60,12 +60,20 @@ def varint_encode(values: np.ndarray) -> np.ndarray:
     u = np.asarray(values, np.uint64)
     if u.size == 0:
         return np.zeros(0, np.uint8)
+    # a value's bytes: 1 + the 7-bit thresholds it reaches, counted only up
+    # to the largest value present (deltas are small: 2-4 passes, not 9)
+    top = int(u.max())
     nb = np.ones(u.shape, np.int64)
     for k in range(1, _MAX_VARINT):
-        nb += (u >= (np.uint64(1) << np.uint64(7 * k))).astype(np.int64)
+        if top < 1 << (7 * k):
+            break
+        nb += u >= np.uint64(1 << (7 * k))
     starts = np.cumsum(nb) - nb
     out = np.zeros(int(starts[-1] + nb[-1]), np.uint8)
-    for k in range(_MAX_VARINT):
+    # byte 0 of every value, with no mask to gather through
+    out[starts] = ((u & np.uint64(0x7F)).astype(np.uint8)
+                   | ((nb > 1).astype(np.uint8) << 7))
+    for k in range(1, _MAX_VARINT):
         mask = nb > k
         if not mask.any():
             break
@@ -91,8 +99,8 @@ def varint_decode(buf: np.ndarray, count: int) -> np.ndarray:
     lens = ends - starts + 1
     if int(lens.max()) > _MAX_VARINT:
         raise ValueError("corrupt varint stream: value wider than 64 bits")
-    out = np.zeros(count, np.uint64)
-    for k in range(int(lens.max())):
+    out = (buf[starts] & 0x7F).astype(np.uint64)      # byte 0 of every value
+    for k in range(1, int(lens.max())):
         mask = lens > k
         out[mask] |= ((buf[starts[mask] + k].astype(np.uint64)
                        & np.uint64(0x7F)) << np.uint64(7 * k))

@@ -140,12 +140,22 @@ def lm_model_flops(cfg, shape: dict) -> float:
     return 2.0 * n_act * t + 2.0 * 2.0 * l * h * hd * t * s
 
 
+def lm_opt_config(cfg) -> opt.OptConfig:
+    """The LM train step's optimizer: bf16 moments for models over 1e11
+    parameters (their float32 state alone outgrows a pod), as the
+    reference's ``make_lm_step``."""
+    if cfg.param_count() > 1e11:
+        return dataclasses.replace(OPT_CFG, state_dtype=torch.bfloat16)
+    return OPT_CFG
+
+
 def make_lm_step(cfg, shape: dict, mesh=None,
                  mb_override: int | None = None,
                  remat_override: str | None = None) -> StepBundle:
-    """The LM cell's step: train (with ``mb`` microbatches, gradients
-    summed in float32 in microbatch order, then loss and gradients divided
-    by ``mb``), prefill or decode."""
+    """The LM cell's step: train (with ``mb`` microbatches, 4 above 2e10
+    parameters; gradients summed in microbatch order in float32, in bf16
+    above 1e11 parameters, then loss and gradients divided by ``mb``;
+    the optimizer of :func:`lm_opt_config`), prefill or decode."""
     from repro_torch.models.lm import transformer as tf
 
     _no_mesh(mesh)
@@ -157,15 +167,14 @@ def make_lm_step(cfg, shape: dict, mesh=None,
     meta = dict(params=cfg.param_count(), active=cfg.active_param_count())
 
     if kind == "train":
-        if cfg.param_count() > 1e11:
-            raise NotImplementedError(
-                f"{cfg.name}: bf16 optimizer states and accumulators "
-                f"(models over 1e11 parameters) wait for the MoE LMs")
-        pspecs, ospecs = _specs(model, OPT_CFG)
+        ocfg = lm_opt_config(cfg)
+        pspecs, ospecs = _specs(model, ocfg)
         tok = _meta((b, s + 1), torch.int32)
         mb = 4 if (cfg.param_count() > 2e10 and b % 4 == 0) else 1
         if mb_override is not None:
             mb = mb_override
+        acc_dt = torch.bfloat16 if cfg.param_count() > 1e11 \
+            else torch.float32
         value_and_grad = bind(model, tf.loss_fn, grad=True)
 
         def train_fn(params, opt_state, tokens):
@@ -174,15 +183,15 @@ def make_lm_step(cfg, shape: dict, mesh=None,
             else:
                 value = torch.zeros((), device=tokens.device)
                 grads = tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=torch.float32, device=p.device), params)
+                    p.shape, dtype=acc_dt, device=p.device), params)
                 for tok_mb in tokens.reshape(mb, b // mb, s + 1):
                     v, g = value_and_grad(params, tok_mb)
                     value = value + v
-                    grads = tree_map(lambda a, x: a + x.float(), grads, g)
+                    grads = tree_map(lambda a, x: a + x.to(acc_dt), grads, g)
                 value = value / mb
                 grads = tree_map(lambda g: g / mb, grads)
             params, opt_state, stats = opt.update(grads, opt_state, params,
-                                                  OPT_CFG)
+                                                  ocfg)
             return params, opt_state, value, stats["grad_norm"]
 
         return StepBundle(train_fn, (pspecs, ospecs, tok),

@@ -1,4 +1,4 @@
-"""Training launcher for the LM archs.
+"""Training launcher for the LM archs, dense and MoE.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
       --steps 20 [--ckpt-dir ckpts] [--ckpt-every 50] [--no-resume] \
@@ -25,7 +25,7 @@ import torch
 from repro_torch.configs.registry import ARCH_IDS, get_arch
 from repro_torch.configs.shapes import LM_SHAPES, SMOKE_SHAPES
 from repro_torch.core.graph import resolve_device
-from repro_torch.launch.steps import OPT_CFG, make_lm_step
+from repro_torch.launch.steps import lm_opt_config, make_lm_step
 from repro_torch.train import optimizer as opt
 from repro_torch.train.trainer import TrainLoopConfig, run_training
 from repro_torch.tree import tree_map
@@ -71,7 +71,7 @@ def train(arch: str, steps: int, ckpt_dir: str = "checkpoints",
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = tree_map(lambda p: p.detach(),
                       Transformer(cfg, gen, device=dev).param_tree())
-    state = opt.init(params, OPT_CFG)
+    state = opt.init(params, lm_opt_config(cfg))
 
     def batches(start: int):
         step = start

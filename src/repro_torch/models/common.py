@@ -9,11 +9,10 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.tree import tree_map, tree_to_numpy
+from repro_torch.tree import to_tensor, tree_map, tree_to_numpy
 
 
 def _meta(device) -> bool:
@@ -108,10 +107,12 @@ def params_to_numpy(model: nn.Module) -> dict:
 
 @torch.no_grad()
 def params_from_numpy(model: nn.Module, tree) -> nn.Module:
-    """Copy a pytree of arrays (the reference's layout) into the model's
-    parameters, in place; shapes must match."""
+    """Copy a pytree of arrays (the reference's layout, bfloat16 ones
+    included) into the model's parameters, in place, each cast to its
+    parameter's type (an MoE router stays float32 in a bf16 model);
+    shapes must match."""
     def put(p, a):
-        a = torch.tensor(np.asarray(a), dtype=p.dtype)
+        a = to_tensor(a, p.dtype)
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(f"shape {tuple(a.shape)} for a parameter of "
                              f"shape {tuple(p.shape)}")

@@ -1,2 +1,2 @@
-"""Language models: the dense decoder-only transformer and its serving
-loop."""
+"""Language models: the decoder-only transformer (dense or MoE) and its
+serving loop."""

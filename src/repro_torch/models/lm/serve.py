@@ -7,7 +7,8 @@ temperature, by ``random.categorical`` on JAX's threefry bits.  The cache
 is written in place (the reference donates it through its jitted step),
 so memory stays constant across steps; the position stays a host int and
 the tokens stay on the device until the end, so no step waits on the
-card.
+card.  An MoE model routes each step's B tokens together (capacity
+ceil(B · K / E · 1.25) a step), as the reference's decode step does.
 """
 from __future__ import annotations
 

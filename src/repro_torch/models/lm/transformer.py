@@ -1,5 +1,6 @@
-"""LM-family transformer, dense, on one device: GQA + RoPE + optional
-qk-norm + SwiGLU, with the reference's stacked (L, ...) parameters.
+"""LM-family transformer on one device: GQA + RoPE + optional qk-norm +
+SwiGLU or MoE (``models.lm.moe``), with the reference's stacked (L, ...)
+parameters.
 
 Two lowerings, as the reference's serve cells use them: ``forward`` (the
 full sequence, with ``return_cache=True`` the prefill that builds the KV
@@ -11,7 +12,9 @@ cache_len + 1 cache rows; on the CPU they run ``full_attention`` /
 ``chunked_attention`` / ``decode_attention``, the reference's plain
 versions.  The card's kernel keeps the probabilities in float32 where the
 reference's short-sequence and decode branches round them to the model's
-type before the product with v.  MoE layers wait for a later slice.
+type before the product with v.  An MoE layer adds the reference's
+load-balance loss: ``forward`` returns its sum over the layers, which
+``loss_fn`` weighs in; decode ignores it, as the reference does.
 
 Training: ``loss_fn`` is the next-token cross-entropy; with gradients on,
 each layer of ``forward`` runs under ``cfg.remat`` as the reference's
@@ -20,7 +23,10 @@ recomputes the layer in the backward (``torch.utils.checkpoint``), and
 ``"dots"`` saves only the products without batch dimensions (the
 projections, einsum's ``bmm`` with a batch of 1, and ``mm``) and
 recomputes the rest, the attention included, as
-``dots_with_no_batch_dims_saveable`` does.  Remat changes memory, not
+``dots_with_no_batch_dims_saveable`` does: an MoE layer's router product
+is an ``mm`` and saved, its per-expert products are ``bmm`` over E > 1
+experts and recomputed, as JAX's policy treats the einsums' expert
+dimension as a batch dimension.  Remat changes memory, not
 values: the three give the same gradients bit for bit.  On the card the
 prefill attention then carries a gradient through the flash kernel's
 backward (``FlashAttentionFn``).
@@ -43,6 +49,7 @@ from repro_torch.models.common import (cross_entropy, embed_init,
                                       normal_init,
                                       params_from_numpy,  # noqa: F401
                                       params_to_numpy, rms_norm)
+from repro_torch.models.lm.moe import MoEConfig, init_moe, moe_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,16 +65,13 @@ class LMConfig:
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     tie_embeddings: bool = True
-    moe: Any = None              # MoE waits for a later slice: must be None
+    moe: MoEConfig | None = None
     dtype: Any = torch.bfloat16
     remat: str = "dots"          # none | dots | full
     attn_chunk: int = 2048       # kv-block size for chunked attention
     use_chunked_attn_from: int = 8192  # seq length threshold
 
     def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                f"{self.name}: MoE layers are not ported yet")
         if self.remat not in ("none", "dots", "full"):
             raise ValueError(f"remat {self.remat!r}: none, dots or full")
 
@@ -79,12 +83,21 @@ class LMConfig:
         d, v, hd = self.d_model, self.vocab, self.hd
         attn = d * (self.n_heads + 2 * self.n_kv_heads) * hd \
             + self.n_heads * hd * d
-        ffn = 3 * d * self.d_ff
+        if self.moe is not None:
+            ffn = self.moe.n_experts * 3 * d * self.moe.d_expert
+        else:
+            ffn = 3 * d * self.d_ff
         emb = v * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * (attn + ffn) + emb
 
     def active_param_count(self) -> int:
-        return self.param_count()
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        dense = self.param_count() \
+            - self.n_layers * self.moe.n_experts * 3 * d * self.moe.d_expert
+        return dense + self.n_layers * self.moe.top_k * 3 * d \
+            * self.moe.d_expert
 
 
 # --------------------------------------------------------------------------
@@ -220,11 +233,15 @@ def _attn_block(p: dict, x, positions, cfg: LMConfig, kv_cache=None,
 
 
 def _ffn_block(p: dict, x, cfg: LMConfig):
+    """Returns (out, aux): the MoE layer's load-balance loss, or None in a
+    dense layer (the reference's constant 0, left out of the sum)."""
     h = rms_norm(x, p["ln2"])
+    if cfg.moe is not None:
+        return moe_block(p["moe"], h, cfg.moe)
     gate = torch.einsum("btd,df->btf", h, p["wg"])
     up = torch.einsum("btd,df->btf", h, p["wi"])
     return torch.einsum("btf,fd->btd", nn.functional.silu(gate) * up,
-                        p["wo_ffn"])
+                        p["wo_ffn"]), None
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -258,10 +275,12 @@ class Transformer(nn.Module):
     """The reference's parameters: ``embed`` (V, d), ``layers`` (each
     leaf stacked over the L layers: ``ln1``, ``ln2`` (L, d); ``wq``
     (L, d, H, hd); ``wk``, ``wv`` (L, d, HK, hd); ``wo`` (L, H, hd, d);
-    ``wi``, ``wg`` (L, d, d_ff); ``wo_ffn`` (L, d_ff, d); with qk-norm
-    ``qnorm``, ``knorm`` (L, hd)), ``final_norm`` (d,) and, untied,
-    ``lm_head`` (V, d), in ``cfg.dtype``.  Drawn from ``gen`` (by default
-    seed 0 on the model's device)."""
+    ``wi``, ``wg`` (L, d, d_ff); ``wo_ffn`` (L, d_ff, d), or in an MoE
+    model ``moe`` (``router`` (L, d, E) in float32, ``wi``, ``wg``
+    (L, E, d, f), ``wo`` (L, E, f, d)); with qk-norm ``qnorm``, ``knorm``
+    (L, hd)), ``final_norm`` (d,) and, untied, ``lm_head`` (V, d), in
+    ``cfg.dtype`` but the router.  Drawn from ``gen`` (by default seed 0
+    on the model's device)."""
 
     def __init__(self, cfg: LMConfig, gen: torch.Generator | None = None,
                  device=None):
@@ -280,15 +299,20 @@ class Transformer(nn.Module):
             "wk": _stacked(gen, n, d, hk * hd, dev, dt).reshape(n, d, hk, hd),
             "wv": _stacked(gen, n, d, hk * hd, dev, dt).reshape(n, d, hk, hd),
             "wo": _stacked(gen, n, h * hd, d, dev, dt).reshape(n, h, hd, d),
-            "wi": _stacked(gen, n, d, cfg.d_ff, dev, dt),
-            "wg": _stacked(gen, n, d, cfg.d_ff, dev, dt),
-            "wo_ffn": _stacked(gen, n, cfg.d_ff, d, dev, dt),
         }
+        if cfg.moe is None:
+            layers["wi"] = _stacked(gen, n, d, cfg.d_ff, dev, dt)
+            layers["wg"] = _stacked(gen, n, d, cfg.d_ff, dev, dt)
+            layers["wo_ffn"] = _stacked(gen, n, cfg.d_ff, d, dev, dt)
         if cfg.qk_norm:
             layers["qnorm"] = torch.ones((n, hd), device=dev, dtype=dt)
             layers["knorm"] = torch.ones((n, hd), device=dev, dtype=dt)
         self.layers = nn.ParameterDict(
             {k: nn.Parameter(w) for k, w in layers.items()})
+        if cfg.moe is not None:
+            self.moe = nn.ParameterDict(
+                {k: nn.Parameter(w) for k, w in init_moe(
+                    gen, n, d, cfg.moe, dt, dev).items()})
         self.final_norm = nn.Parameter(torch.ones(d, device=dev, dtype=dt))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
@@ -297,19 +321,26 @@ class Transformer(nn.Module):
     def param_tree(self) -> dict:
         tree = {"embed": self.embed, "layers": dict(self.layers),
                 "final_norm": self.final_norm}
+        if self.cfg.moe is not None:
+            tree["layers"]["moe"] = dict(self.moe)
         if not self.cfg.tie_embeddings:
             tree["lm_head"] = self.lm_head
         return tree
 
     def _layer(self, i: int, x, positions, kv_cache=None, cache_len=None):
+        """Returns (x, new_kv, aux)."""
         p = {k: w[i] for k, w in self.layers.items()}
+        if self.cfg.moe is not None:
+            p["moe"] = {k: w[i] for k, w in self.moe.items()}
         a, new_kv = _attn_block(p, x, positions, self.cfg, kv_cache,
                                 cache_len)
         x = x + a
-        return x + _ffn_block(p, x, self.cfg), new_kv
+        f, aux = _ffn_block(p, x, self.cfg)
+        return x + f, new_kv, aux
 
     def _layer_out(self, i: int, x, positions):
-        return self._layer(i, x, positions)[0]
+        x, _, aux = self._layer(i, x, positions)
+        return x, aux
 
     def _logits(self, x):
         x = rms_norm(x, self.final_norm)
@@ -329,15 +360,17 @@ class Transformer(nn.Module):
             shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.hd)
             caches = (torch.empty(shape, dtype=cfg.dtype, device=x.device),
                       torch.empty(shape, dtype=cfg.dtype, device=x.device))
+        aux = torch.zeros((), device=x.device)
         for i in range(cfg.n_layers):
             if return_cache:
-                x, (k, v) = self._layer(i, x, positions)
+                x, (k, v), a = self._layer(i, x, positions)
                 caches[0][i] = k
                 caches[1][i] = v
             else:
-                x = _remat(cfg.remat, self._layer_out, i, x, positions)
+                x, a = _remat(cfg.remat, self._layer_out, i, x, positions)
+            if a is not None:
+                aux = aux + a
         logits = self._logits(x)
-        aux = torch.zeros((), device=x.device)
         return (logits, caches, aux) if return_cache else (logits, aux)
 
     def decode(self, token: torch.Tensor, kv_caches, cache_len: int):
@@ -350,14 +383,17 @@ class Transformer(nn.Module):
         positions = torch.full((b, 1), cache_len, device=x.device)
         k_all, v_all = kv_caches
         for i in range(self.cfg.n_layers):
-            x, _ = self._layer(i, x, positions, (k_all[i], v_all[i]),
-                               cache_len)
+            x, _, _ = self._layer(i, x, positions, (k_all[i], v_all[i]),
+                                  cache_len)
         return self._logits(x), kv_caches, cache_len + 1
 
 
 def loss_fn(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     """Next-token cross-entropy (float32) of tokens (B, S + 1): the model
-    reads tokens[:, :-1] and predicts tokens[:, 1:] (a dense model has no
-    auxiliary loss)."""
-    logits, _ = model(tokens[:, :-1])
-    return cross_entropy(logits, tokens[:, 1:])
+    reads tokens[:, :-1] and predicts tokens[:, 1:]; an MoE model adds
+    ``aux_weight`` times its load-balance loss."""
+    logits, aux = model(tokens[:, :-1])
+    ce = cross_entropy(logits, tokens[:, 1:])
+    if model.cfg.moe is not None:
+        return ce + model.cfg.moe.aux_weight * aux
+    return ce

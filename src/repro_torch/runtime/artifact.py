@@ -180,8 +180,12 @@ def save_artifact(dirpath: str | os.PathLike, result,
     tmp.mkdir(parents=True)
 
     # one stable sort gives every partition's (ascending) eid list — not
-    # P full scans of the M-element assignment array
-    order = np.argsort(edge_part, kind="stable")
+    # P full scans of the M-element assignment array; the ids in the
+    # narrowest unsigned type that holds them: numpy's stable sort of 8- and
+    # 16-bit keys is a radix sort (~6x its merge sort of int32 at 64 M
+    # edges), and the order is the same
+    keys = edge_part.astype(np.min_scalar_type(max(p_num - 1, 0)))
+    order = np.argsort(keys, kind="stable")
     bounds = np.searchsorted(edge_part[order],
                              np.arange(p_num + 1, dtype=np.int64))
     parts_meta = []

@@ -5,14 +5,17 @@ Functions of trees of tensors (``repro_torch.tree``) with the reference's
 arithmetic, step by step in the same order and in float32; not
 ``torch.optim``.  The state is a tree too: ``{"m", "v", "step"}`` for
 AdamW, ``{"step"}`` for SGD; ``state_to_numpy`` / ``state_from_numpy``
-carry it to and from the reference's layout (float32 ``m`` and ``v``
-trees, an int32 ``step``), so that a step of either package can start
-from the other's state.
+carry it to and from the reference's layout (``m`` and ``v`` trees in
+``state_dtype``, an int32 ``step``), so that a step of either package
+can start from the other's state.  ``state_dtype`` bfloat16 halves the
+moments' memory (the trillion-parameter models): they are stored in it
+and widened to float32 for each update's arithmetic.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 
@@ -32,6 +35,7 @@ class OptConfig:
     total_steps: int = 10_000
     min_lr_frac: float = 0.1
     kind: str = "adamw"          # adamw | sgd
+    state_dtype: Any = torch.float32     # bf16 halves m/v (trillion-param)
 
 
 def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
@@ -50,7 +54,8 @@ def init(params, cfg: OptConfig):
     if cfg.kind == "sgd":
         return {"step": step}
     zeros = tree_map(lambda p: torch.zeros_like(p.detach(),
-                                                dtype=torch.float32), params)
+                                                dtype=cfg.state_dtype),
+                     params)
     return {"m": zeros, "v": tree_map(torch.clone, zeros), "step": step}
 
 
@@ -60,9 +65,13 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def clip_by_global_norm(grads, max_norm: float):
+    """Gradients times min(1, max_norm / |g|), in the type JAX promotes a
+    gradient and the float32 scale to (a bfloat16 gradient's product is
+    float32, not rounded back), and the global norm."""
     gn = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, grads), gn
+    return tree_map(lambda g: g.to(torch.promote_types(g.dtype, scale.dtype))
+                    * scale, grads), gn
 
 
 @torch.no_grad()
@@ -80,16 +89,17 @@ def update(grads, state, params, cfg: OptConfig):
             params, grads)
         return new_params, {"step": step}, {"lr": lr, "grad_norm": gn}
 
-    b1, b2 = cfg.b1, cfg.b2
-    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(), state["m"],
-                 grads)
-    v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(g.float()),
+    b1, b2, sd = cfg.b1, cfg.b2, cfg.state_dtype
+    m = tree_map(lambda m_, g: (b1 * m_.float() + (1 - b1) * g.float()
+                                ).to(sd), state["m"], grads)
+    v = tree_map(lambda v_, g: (b2 * v_.float() + (1 - b2)
+                                * torch.square(g.float())).to(sd),
                  state["v"], grads)
     c1 = 1 - b1 ** step.float()
     c2 = 1 - b2 ** step.float()
 
     def upd(p, m_, v_):
-        u = (m_ / c1) / (torch.sqrt(v_ / c2) + cfg.eps)
+        u = (m_.float() / c1) / (torch.sqrt(v_.float() / c2) + cfg.eps)
         u = u + cfg.weight_decay * p.float()
         return (p.float() - lr * u).to(p.dtype)
 
@@ -105,9 +115,9 @@ def state_to_numpy(state) -> dict:
 
 def state_from_numpy(tree, params, cfg: OptConfig, device=None):
     """The reference's optimizer state (numpy arrays) as the port's, for
-    ``params`` (a tensor tree; meta tensors give shapes only): float32
-    ``m`` and ``v`` in params' layout, an int32 ``step``, on ``device``
-    (default: params', the CPU for meta params)."""
+    ``params`` (a tensor tree; meta tensors give shapes only): ``m`` and
+    ``v`` in params' layout and ``cfg.state_dtype``, an int32 ``step``, on
+    ``device`` (default: params', the CPU for meta params)."""
     dev = torch.device(device) if device is not None else \
         tree_leaves(params)[0].device
     like = init(tree_map(lambda p: p.detach().to("meta"), params), cfg)

@@ -44,6 +44,19 @@ def tree_unflatten(tree, leaves):
     return build(tree)
 
 
+def to_tensor(a, dtype, device=None):
+    """Array ``a`` as a tensor of ``dtype``; a bfloat16 numpy array (the
+    reference's, an ml_dtypes type numpy and torch do not know) is read
+    through its 16-bit words, exactly."""
+    import torch
+
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+        return t.to(device=device, dtype=dtype)
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
 def tree_from_numpy(tree, like, device=None):
     """A pytree of arrays (the reference's layout) as tensors with the
     dtypes of the matching leaves of ``like`` (a tensor tree of the same
@@ -54,7 +67,7 @@ def tree_from_numpy(tree, like, device=None):
     def put(a, t):
         dev = device if device is not None else (
             "cpu" if t.device.type == "meta" else t.device)
-        return torch.tensor(np.asarray(a), dtype=t.dtype, device=dev)
+        return to_tensor(a, t.dtype, dev)
 
     return tree_map(put, tree, like)
 

@@ -148,6 +148,32 @@ def test_categorical_draws_jax_samples(seed, shape, axis):
             jax.random.PRNGKey(seed), shape)), rtol=1e-6, atol=1e-6)
 
 
-def test_moe_config_raises():
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(tcfg.SMOKE, moe=object())
+def test_moe_model_has_the_reference_layout():
+    """An MoE config builds (on the meta device) olmoe-1b-7b's full
+    parameter tree, leaf for leaf the reference's shapes and types: the
+    experts stacked over the layers in bf16, the router in float32, no
+    dense FFN; its parameter counts are the reference's (which leave out
+    the norms and routers)."""
+    from repro.configs import olmoe_1b_7b as jolmoe
+    from repro_torch.configs import olmoe_1b_7b as tolmoe
+    from repro_torch.tree import tree_leaves
+
+    want = jax.eval_shape(functools.partial(jtf.init_params,
+                                            cfg=jolmoe.CONFIG),
+                          jax.random.PRNGKey(0))
+    model = ttf.Transformer(tolmoe.CONFIG, device="meta")
+    tree = model.param_tree()
+    assert "wi" not in tree["layers"] and "wo_ffn" not in tree["layers"]
+    assert sorted(tree["layers"]["moe"]) == sorted(want["layers"]["moe"])
+    got = tree_leaves(tree)
+    assert len(got) == len(jax.tree.leaves(want))
+    for t, j in zip(got, jax.tree.leaves(want)):
+        assert tuple(t.shape) == tuple(j.shape)
+        assert str(t.dtype).split(".")[-1] == jnp.dtype(j.dtype).name
+    c = tolmoe.CONFIG
+    uncounted = c.n_layers * (2 * c.d_model + c.d_model * c.moe.n_experts) \
+        + c.d_model                      # norms and routers: not in the count
+    assert sum(p.numel() for p in model.parameters()) - uncounted == \
+        c.param_count() == jolmoe.CONFIG.param_count()
+    assert tolmoe.CONFIG.active_param_count() == \
+        jolmoe.CONFIG.active_param_count()

@@ -228,6 +228,8 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.configs.deepseek_67b, repro_torch.launch.train\n"
         "import repro_torch.train.trainer, repro_torch.train.compression\n"
         "import repro_torch.graphs.sampler, repro_torch.tree\n"
+        "import repro_torch.models.lm.moe, repro_torch.configs.olmoe_1b_7b\n"
+        "import repro_torch.configs.kimi_k2_1t_a32b\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -267,7 +269,9 @@ def test_port_sources_name_no_jax_and_no_repro():
                 "models/gnn/egnn.py", "models/gnn/wigner.py",
                 "models/gnn/equiformer_v2.py", "configs/pna.py",
                 "configs/egnn.py", "configs/equiformer_v2.py",
-                "tools/step_time.py", "tools/bag_backward_profile.py"):
+                "tools/step_time.py", "tools/bag_backward_profile.py",
+                "models/lm/moe.py", "configs/olmoe_1b_7b.py",
+                "configs/kimi_k2_1t_a32b.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_spmd_ranks.py"]
     assert len(files) > 25

@@ -1,7 +1,7 @@
 """One train step of the port against the reference's jitted step, per cell.
 
 For every train cell of the port's registry (smollm-135m, qwen3-0.6b,
-deepseek-67b at ``train_4k``; gin-tu, pna, egnn and equiformer-v2 at each
+deepseek-67b, olmoe-1b-7b and kimi-k2-1t-a32b at ``train_4k``; gin-tu, pna, egnn and equiformer-v2 at each
 of their four shapes; deepfm at ``train_batch``),
 ``repro_torch.launch.steps.make_step(spec, shape, smoke=True).fn`` takes
 one step from the reference's initial parameters and AdamW state (carried
@@ -24,8 +24,10 @@ and the loss, grad_norm, every updated parameter and the new ``m`` and
 
 The LM step is also held to the reference at ``mb_override=2`` (two
 microbatches), and the three ``remat`` modes give equal results bit for
-bit.  The GNN cells run in ``test_torch_train_gnn_steps.py`` on these
-helpers.
+bit.  The bf16 optimizer state of the models over 1e11 parameters is
+held to the reference's update, and kimi-k2's full train step to the
+reference's shapes and types on the meta device.  The GNN cells run in
+``test_torch_train_gnn_steps.py`` on these helpers.
 """
 import dataclasses
 
@@ -43,7 +45,8 @@ from repro_torch.launch import steps
 from repro_torch.train import optimizer as opt
 from repro_torch.tree import tree_from_numpy, tree_leaves, tree_to_numpy
 
-LM_ARCHS = ("smollm-135m", "qwen3-0.6b", "deepseek-67b")
+LM_ARCHS = ("smollm-135m", "qwen3-0.6b", "deepseek-67b", "olmoe-1b-7b",
+            "kimi-k2-1t-a32b")
 
 
 def _j_params(spec, cfg):
@@ -153,10 +156,8 @@ def test_lm_microbatches_match_reference():
                                 mb_override=2))
 
 
-def test_remat_modes_equal_bit_for_bit():
-    """none, dots and full give the same step bit for bit (qwen3's smoke
-    config: qk-norm; none is held to the reference above)."""
-    spec = treg.get_arch("qwen3-0.6b")
+def _remat_steps_equal(arch):
+    spec = treg.get_arch(arch)
     from repro_torch.configs.shapes import SMOKE_SHAPES
     shape = dict(SMOKE_SHAPES["lm"]["train"])
     outs = []
@@ -173,16 +174,26 @@ def test_remat_modes_equal_bit_for_bit():
         assert all(torch.equal(a, b) for a, b in zip(outs[0], other))
 
 
+def test_remat_modes_equal_bit_for_bit():
+    """none, dots and full give the same step bit for bit (qwen3's smoke
+    config: qk-norm; none is held to the reference above)."""
+    _remat_steps_equal("qwen3-0.6b")
+
+
+def test_moe_remat_modes_equal_bit_for_bit():
+    """The same for olmoe's smoke config: the MoE layer's scatter, its
+    per-expert products (recomputed under dots) and the aux loss."""
+    _remat_steps_equal("olmoe-1b-7b")
+
+
 def test_registry_matches_reference():
-    """The port's registry has the reference's ids and shapes; the MoE
-    LMs raise, and all_cells lists the other archs' cells."""
+    """The port's registry has the reference's ids, shapes and all 40
+    cells, and every config field (the MoE configs' too) equals the
+    reference's."""
     assert treg.ARCH_IDS == jreg.ARCH_IDS
-    for a in ("olmoe-1b-7b", "kimi-k2-1t-a32b"):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            treg.get_arch(a)
-    want = [c for c in jreg.all_cells() if c[0] in treg.PORTED_ARCH_IDS]
-    assert treg.all_cells() == want and len(want) == 32
-    for a in treg.PORTED_ARCH_IDS:
+    assert treg.all_cells() == jreg.all_cells()
+    assert len(treg.all_cells()) == 40
+    for a in treg.ARCH_IDS:
         t, j = treg.get_arch(a), jreg.get_arch(a)
         assert t.family == j.family and t.shape_ids == j.shape_ids
         assert t.model_module == j.model_module
@@ -196,6 +207,17 @@ def test_registry_matches_reference():
             if hasattr(jc, "dtype"):
                 assert str(tc.dtype).split(".")[-1] == jnp.dtype(
                     jc.dtype).name
+            if getattr(jc, "moe", None) is not None:
+                for f in dataclasses.fields(jc.moe):
+                    want, got = getattr(jc.moe, f.name), getattr(tc.moe,
+                                                                 f.name)
+                    if f.name == "router_dtype":
+                        assert str(got).split(".")[-1] == jnp.dtype(
+                            want).name
+                    else:
+                        assert got == want, (a, f.name)
+            else:
+                assert getattr(tc, "moe", None) is None
 
 
 def test_flops_and_step_meta_match_reference():
@@ -249,3 +271,71 @@ def test_optimizer_state_round_trip():
                               cfg)
     for a, b in zip(tree_leaves(tree_to_numpy(p2)), jax.tree.leaves(jp2)):
         np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6, atol=1e-7)
+
+
+def test_kimi_train_step_on_the_meta_device():
+    """kimi-k2's full train_4k step (1.04 T parameters) built on the meta
+    device: bf16 moments, 4 microbatches, and every argument's shape and
+    type equal to the reference's ``eval_shape``."""
+    jb = jsteps.make_step(jreg.get_arch("kimi-k2-1t-a32b"), "train_4k")
+    tb = steps.make_step(treg.get_arch("kimi-k2-1t-a32b"), "train_4k")
+    assert tb.loop_scale == jb.loop_scale == 61 * 4
+    assert tb.meta == jb.meta and tb.meta["params"] > 1e12
+    assert steps.lm_opt_config(tb.model.cfg).state_dtype == torch.bfloat16
+    ospecs = tb.args[1]
+    assert {t.dtype for t in tree_leaves(ospecs["m"])} == {torch.bfloat16}
+    assert {t.dtype for t in tree_leaves(ospecs["v"])} == {torch.bfloat16}
+    assert ospecs["step"].dtype == torch.int32
+    assert tb.model.moe["router"].dtype == torch.float32
+    jl = jax.tree.leaves(jb.args)
+    tl = tree_leaves(tb.args)
+    assert len(tl) == len(jl)
+    for t, j in zip(tl, jl):
+        assert t.device.type == "meta"
+        assert tuple(t.shape) == tuple(j.shape)
+        assert str(t.dtype).split(".")[-1] == jnp.dtype(j.dtype).name
+
+
+def test_bf16_state_update_matches_reference():
+    """AdamW with ``state_dtype`` bfloat16 against the reference's update
+    under the same config, two steps: bf16 and float32 parameters, bf16
+    gradients (clipped: the norm is over 1), the moments stored in bf16
+    after float32 arithmetic, equal bit for bit; the state keeps
+    its type through ``init``, ``state_from_numpy`` and a checkpoint."""
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    rng = np.random.default_rng(4)
+    params = {"w": rng.normal(size=(6, 5)).astype(jnp.bfloat16),
+              "r": [rng.normal(size=(5,)).astype(np.float32)]}
+    grads = [jax.tree.map(lambda p, i=i: (rng.normal(size=p.shape) * (i + 2)
+                                          ).astype(p.dtype), params)
+             for i in range(2)]
+    jcfg = jopt.OptConfig(warmup_steps=2, state_dtype=jnp.bfloat16)
+    tcfg = opt.OptConfig(warmup_steps=2, state_dtype=torch.bfloat16)
+    like = {"w": torch.zeros((6, 5), dtype=torch.bfloat16),
+            "r": [torch.zeros(5)]}
+    tp = tree_from_numpy(params, like)
+    ts = opt.init(tp, tcfg)
+    assert {t.dtype for t in tree_leaves(ts["m"])} == {torch.bfloat16}
+    jp, js = params, jopt.init(params, jcfg)
+    for g in grads:
+        jp, js, jst = jopt.update(g, js, jp, jcfg)
+        tp, ts, tst = opt.update(tree_from_numpy(g, like), ts, tp, tcfg)
+        assert float(jst["grad_norm"]) > 1
+        np.testing.assert_allclose(float(tst["grad_norm"]),
+                                   float(jst["grad_norm"]), rtol=1e-6)
+        for a, b in zip(tree_leaves(tree_to_numpy((tp, ts))),
+                        jax.tree.leaves((jp, js))):
+            b = np.asarray(b).astype(np.float32) if b.dtype.name == \
+                "bfloat16" else np.asarray(b)
+            np.testing.assert_array_equal(a, b)
+    back = opt.state_from_numpy(jax.tree.map(np.asarray, js), tp, tcfg)
+    assert {t.dtype for t in tree_leaves(back["m"])} == {torch.bfloat16}
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        mgr.save(2, (tp, ts))
+        (rp, rs), step = mgr.restore((tp, opt.init(tp, tcfg)))
+    assert step == 2
+    for a, b in zip(tree_leaves((rp, rs)), tree_leaves((tp, ts))):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -179,6 +179,20 @@ def test_launcher_trains_and_resumes(tmp_path):
         tlaunch.train("deepfm", 1, str(tmp_path / "c"), device="cpu")
 
 
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "kimi-k2-1t-a32b"])
+def test_launcher_trains_the_moe_lms(tmp_path, arch):
+    """The MoE LMs' smoke configs train through ``launch.train`` (loss =
+    cross-entropy + the load-balance loss) and resume bit for bit."""
+    kw = dict(device="cpu", log=_quiet, ckpt_every=2)
+    tlaunch.train(arch, 2, str(tmp_path / "a"), **kw)
+    p1, s1, h1, b = tlaunch.train(arch, 4, str(tmp_path / "a"), **kw)
+    p2, _, h2, _ = tlaunch.train(arch, 4, str(tmp_path / "b"), **kw)
+    assert b.model.cfg.moe is not None and int(s1["step"]) == 4
+    assert all(np.isfinite(h["loss"]) for h in h1 + h2)
+    assert all(torch.equal(a, c) for a, c in zip(tree_leaves(p1),
+                                                  tree_leaves(p2)))
+
+
 # --------------------------------------------------------------------------
 # compression
 # --------------------------------------------------------------------------
