@@ -8,7 +8,9 @@ Phases, each printing its lines; any failed check exits non-zero:
 
 1. the device (name and power limit from nvidia-smi) and the time to
    build the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (their
-   nvcc processes run while the host makes the main path's RMAT graph);
+   nvcc processes run while the host draws the main path's RMAT edges;
+   ``core.graph.from_edges`` builds the canonical form and the CSR on
+   the card);
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes (RMAT scale-22 graph, P = 64, K = 256; ``select_chunk``
    over all 64 rows of the map, as the main path calls it, with restart
@@ -32,7 +34,8 @@ Phases, each printing its lines; any failed check exits non-zero:
    world-1 NCCL group on the card, with the counts set to 0 just before
    and read just after; it must equal phase 3's result bit for bit, and
    each kernel's launches must match the round count's formula;
-4. ``partition`` at RMAT scale 14 on the card and on the CPU (plain
+4. the scale-14 Graph built on the card equal to the host build, then
+   ``partition`` at RMAT scale 14 on the card and on the CPU (plain
    versions), and ``partition_spmd`` at that scale on the card (NCCL)
    and on the CPU (gloo), all four bit-identical;
 5. one round of each path under torch.profiler (device time by kernel,
@@ -93,18 +96,29 @@ Phases, each printing its lines; any failed check exits non-zero:
    time) at the prefill_32k and decode_32k layers beside its bound, the
    plain version's and ``F.scaled_dot_product_attention``'s.  Rows 7, 8
    and 9 join the line;
-9. the driver from the store: phase 3's canonical edge list written as
-   an EdgeFile; ``PartitionDriver`` in spmd mode from it, in a world-1
-   NCCL group in a child process (a CUDA context of its own), with a
-   snapshot every rounds / 8 rounds, killed by SIGKILL right after the
-   fourth is published; resumed in this process from the newest snapshot
-   with the launch counts set to 0 just before and read just after (each
-   NE row of the line gets them as ``launches_driver``); the resumed run
-   must equal phase 3's result bit for bit (at scale 22: 448 rounds, RF
-   1.7922852039337158, EB 1.10000089317367) with launches matching the
-   resumed rounds; its time a round beside phase 3b's, the ingest,
-   snapshot save and restore times (the driver's obs spans) and peak
-   memory; then the result saved as an artifact, loaded back and equal;
+9. multi-controller runs from the store: phase 3's canonical edge list
+   written as an EdgeFile; (a) ``python -m
+   repro_torch.tools.launch_multihost`` with one worker on the card (a
+   world-1 NCCL group): each rank's block range ingested through an
+   exchange dir, a multi-writer snapshot every rounds / 8 rounds, traced
+   and with the live bus, the worker killed (exit 17) after the fourth
+   snapshot; the launcher must return 17 and ``monitor_run --once`` on
+   its bus 4 (STALLED); (b) the gang resumed from the newest snapshot to
+   the fixed point with ``REPRO_FORBID_EDGE_PART_MATERIALIZE`` set and
+   ``--artifact-out`` (the sharded finalize, the multi-writer artifact):
+   the bus's done line must give phase 3's RF and EB, the artifact's
+   manifest its rounds, the trace's launch counts the resumed rounds'
+   (``launches_mh`` in the JSON rows 1-6); its round p50/p90/p99, the
+   exchange ingest, snapshot, restore, finalize and artifact spans and
+   peak memory from its trace (``obs.report``); (c) the single-writer
+   spmd driver in this process (its ingest beside (b)) resumes from (b)'s
+   seventh snapshot with the launch counts set to 0 just before and read
+   just after (``launches_driver``): it must equal phase 3's result bit
+   for bit (at scale 22: 448 rounds, RF 1.7922852039337158, EB
+   1.10000089317367), its single-writer snapshots (as often as (b)'s:
+   round 448 at scale 22) must have the bytes of (b)'s multi-writer step
+   dirs, and its artifact must have (b)'s bytes, which are loaded back
+   and must equal the run's result;
 10. baselines and hybrid: (a) what the quality matrix does not reach:
    the stream kernels ``hdrf_scan`` and ``oblivious_scan`` against their
    plain versions (run on the CPU in a pool process beside phase 9) bit
@@ -273,9 +287,10 @@ ER_DEGREE = 6.5                    # |E| after dedup 10,545 (10,556 - 0.1 %)
 GNN_STEPS = 20                     # examples/train_gnn_partitioned.py:
 GNN_OPT = dict(lr=3e-3, weight_decay=0.0, warmup_steps=20)   # its OptConfig
 CHECK_STEPS = 3                    # card against CPU
-# phase 9: a snapshot every (phase 3's rounds) / 8 rounds, the child killed
-# after the fourth (rounds 56-224 of 448 at scale 22); the resumed run must
-# give the main path's rounds, RF and EB at scale 22 (PERF.md §5)
+# phase 9: a snapshot every (phase 3's rounds) / 8 rounds, the gang killed
+# after the fourth (rounds 56-224 of 448 at scale 22), resumed to the end,
+# and the single-writer driver resumed from the seventh (round 392); both
+# must give the main path's rounds, RF and EB at scale 22 (PERF.md §5)
 DRIVER_SNAPSHOTS_BEFORE_KILL = 4
 SCALE22_RESULT = (448, 1.7922852039337158, 1.10000089317367)
 CHILD_TIMEOUT_S = 600
@@ -2558,39 +2573,18 @@ def spmd_rounds(torch, sm, g, cfg, limit, rounds):
     return state, u, v, mask
 
 
-def child_trace(snap_dir: str) -> str:
-    """The killed child's obs log, beside its snapshot dir."""
-    return snap_dir + ".trace.jsonl"
+def same_files(a: str, b: str) -> bool:
+    """The two directory trees hold the same files with the same bytes."""
+    def tree(root):
+        out = {}
+        for d, _, files in os.walk(root):
+            for f in files:
+                path = os.path.join(d, f)
+                with open(path, "rb") as fh:
+                    out[os.path.relpath(path, root)] = fh.read()
+        return out
 
-
-def driver_child(ef_path: str, snap_dir: str, every: int, kill_at: int,
-                 device: str) -> None:
-    """Phase 9's killed run, in a process (and CUDA context) of its own:
-    ``PartitionDriver`` in spmd mode on the EdgeFile at ``ef_path`` in a
-    world-1 group, a snapshot every ``every`` rounds, the process killed
-    by SIGKILL right after the step that publishes round ``kill_at``'s
-    snapshot.  Its spans go to :func:`child_trace`, flushed first."""
-    import signal
-
-    import torch
-    from repro_torch.core import partitioner as tp
-    from repro_torch.dist import compat
-    from repro_torch.io import EdgeFile
-    from repro_torch.obs import trace as obs
-    from repro_torch.runtime import PartitionDriver
-
-    dev = torch.device(device)
-    obs.configure(path=child_trace(snap_dir))
-    cfg = tp.NEConfig(num_partitions=PARTITIONS)
-    with compat.world1("nccl" if dev.type == "cuda" else "gloo"):
-        drv = PartitionDriver(EdgeFile(ef_path), cfg, snapshot_dir=snap_dir,
-                              snapshot_every=every,
-                              keep=DRIVER_SNAPSHOTS_BEFORE_KILL, device=dev)
-        while not drv.done:
-            if drv.step() == kill_at:
-                obs.flush()
-                os.kill(os.getpid(), signal.SIGKILL)
-    fail(f"phase 9: the run reached its fixed point before round {kill_at}")
+    return tree(a) == tree(b)
 
 
 def span_seconds(events, name: str) -> list:
@@ -2599,33 +2593,79 @@ def span_seconds(events, name: str) -> list:
             if e["ev"] == "span" and e["name"] == name]
 
 
+def launch_gang(tag: str, base: list, extra: list):
+    """One ``python -m repro_torch.tools.launch_multihost`` run (one worker
+    on the card) to its end; returns (exit code, seconds, stderr)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.tools.launch_multihost", *base,
+         "--timeout", str(CHILD_TIMEOUT_S), *extra],
+        capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": SRC}, timeout=CHILD_TIMEOUT_S + 60)
+    print(f"phase 9 ({tag}): the launcher exited {proc.returncode} after "
+          f"{time.perf_counter() - t0!r} s", flush=True)
+    return proc.returncode, time.perf_counter() - t0, proc.stderr
+
+
+def rounds_line(rep: dict) -> str:
+    r = rep["rounds"]
+    return (f"{r['count']} rounds, p50 {r['p50_s'] * 1e3!r} ms, p90 "
+            f"{r['p90_s'] * 1e3!r} ms, p99 {r['p99_s'] * 1e3!r} ms")
+
+
+def spans_line(rep: dict, names) -> str:
+    ph = rep["phases"]
+    return ", ".join(f"{n} {ph[n]['total_s']!r} s" for n in names
+                     if n in ph)
+
+
+def card_peak(rep: dict):
+    """The worker's peak card memory, a counter of its trace."""
+    return rep["counters"].get("cuda_peak_bytes", {}).get("last")
+
+
 def phase_driver(torch, np, edges, res, per_round_3b: float, chunks: int,
                  dev, scale: int, tmp: str):
-    """Phase 9: the driver from the store.  Phase 3's edge list goes into
-    a canonical EdgeFile in ``tmp``; a child process runs
-    ``PartitionDriver`` in spmd mode from it with snapshots and is killed
-    by SIGKILL; this process resumes from the newest snapshot (launch
-    counts set to 0 just before), runs to the fixed point and must equal
-    phase 3's result bit for bit; then the result goes through an
-    artifact and back.  Returns the resumed run's launch counts and the
-    EdgeFile (phase 10 reads it)."""
+    """Phase 9: the multi-controller run from the store, killed, resumed
+    and finished, then the single-writer driver.
+
+    Phase 3's edge list goes into a canonical EdgeFile in ``tmp``.  (a)
+    ``launch_multihost`` runs one worker on the card through an exchange
+    dir, a multi-writer snapshot every rounds / 8 rounds, traced and with
+    the live bus, and kills it (exit 17) after the fourth snapshot; the
+    monitor must call its bus STALLED (4).  (b) The gang resumes from the
+    newest snapshot to the fixed point with edge_part's materialization
+    forbidden and writes the multi-writer artifact: the bus's done line
+    must give phase 3's RF and EB, the artifact phase 3's rounds.  (c)
+    This process's single-writer spmd driver resumes from (b)'s seventh
+    snapshot (launch counts set to 0 just before) and must equal phase 3
+    bit for bit; on the way it writes single-writer snapshots as often as
+    (b) did into a store of its own, each with the bytes of (b)'s step
+    dir, and its artifact must have (b)'s bytes; that artifact is loaded
+    back and must equal the run's result.  Returns (c)'s launch counts,
+    (b)'s (from its trace) and the EdgeFile (phase 10 reads it).
+    """
     import shutil
-    import signal
 
     from repro_torch.core import partitioner as tp
     from repro_torch.dist import compat
     from repro_torch.io import FLAG_CANONICAL, write_edgefile
     from repro_torch.kernels.ne_round import ops
+    from repro_torch.obs import live, report
     from repro_torch.obs import trace as obs
     from repro_torch.runtime import PartitionDriver, load_artifact
+    from repro_torch.runtime.snapshot import RunSnapshot
 
     t_phase = time.perf_counter()
     every = max(res.rounds // (2 * DRIVER_SNAPSHOTS_BEFORE_KILL), 1)
     kill_at = DRIVER_SNAPSHOTS_BEFORE_KILL * every
+    resume_c = 7 * every
     cfg = tp.NEConfig(num_partitions=PARTITIONS)
     ef_path = os.path.join(tmp, "main.edges")
-    snap = os.path.join(tmp, "snap")
-    art_dir = os.path.join(tmp, "artifact")
+    run = os.path.join(tmp, "mh")
+    snap = os.path.join(run, "snap")
+    art_b, art_c = os.path.join(run, "art_b"), os.path.join(run, "art_c")
+    snap_c = os.path.join(run, "snap_c")
     try:
         t0 = time.perf_counter()
         ef = write_edgefile(ef_path, edges, num_vertices=1 << scale,
@@ -2634,56 +2674,137 @@ def phase_driver(torch, np, edges, res, per_round_3b: float, chunks: int,
               f"{ef.num_edges} edges in {ef.num_blocks} blocks, "
               f"{os.path.getsize(ef_path)} B, written in "
               f"{time.perf_counter() - t0!r} s", flush=True)
-
-        # --- the killed run, in a child process ----------------------------
+        base = ["--edgefile", ef_path, "--partitions", str(PARTITIONS),
+                "--num-processes", "1", "--snapshot-dir", snap,
+                "--exchange-dir", os.path.join(run, "exchange"),
+                "--snapshot-every", str(every), "--keep", "8"]
         if dev.type == "cuda":
-            torch.cuda.empty_cache()       # room for the child's context
-        t0 = time.perf_counter()
-        child = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--driver-child",
-             ef_path, snap, str(every), str(kill_at), str(dev)],
-            capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
-        child_s = time.perf_counter() - t0
-        check(child.returncode == -signal.SIGKILL,
-              f"phase 9: the child exited {child.returncode}, not killed by "
-              f"SIGKILL: {child.stdout[-2000:]} {child.stderr[-3000:]}")
+            torch.cuda.empty_cache()       # room for the worker's context
+
+        # --- (a) the gang, killed after round kill_at -----------------------
+        rc, secs_a, err = launch_gang("a", base, [
+            "--log-dir", os.path.join(run, "logs_a"),
+            "--trace-dir", os.path.join(run, "trace_a"),
+            "--metrics-dir", os.path.join(run, "live_a"),
+            "--die-round", str(kill_at), "--die-stage", "after-round",
+            "--die-process", "0"])
+        check(rc == 17, f"phase 9 (a): the launcher exited {rc}, not 17: "
+              f"{err[-3000:]}")
         published = sorted(int(d.split("_")[1]) for d in os.listdir(snap)
                            if d.startswith("step_"))
         want_steps = [every * (i + 1)
                       for i in range(DRIVER_SNAPSHOTS_BEFORE_KILL)]
         check(published == want_steps,
-              f"phase 9: published rounds {published}, not {want_steps}")
-        with open(child_trace(snap)) as f:
-            events = [json.loads(line) for line in f]
-        rounds_s = span_seconds(events, "round")
-        saves = span_seconds(events, "snapshot")
-        snap_bytes = sum(os.path.getsize(os.path.join(snap, d, f))
-                         for d in os.listdir(snap) if d.startswith("step_")
-                         for f in os.listdir(os.path.join(snap, d)))
-        print(f"phase 9: child killed by SIGKILL after round {kill_at}, "
-              f"{child_s!r} s after its start; snapshots published at "
-              f"rounds {published} ({snap_bytes} B in all); its ingest "
-              f"{span_seconds(events, 'ingest')} s, {len(rounds_s)} rounds "
-              f"({float(np.median(rounds_s)) * 1e3!r} ms median, snapshot "
-              f"rounds included), snapshot saves {saves} s", flush=True)
+              f"phase 9 (a): published rounds {published}, not {want_steps}")
+        mon = subprocess.run(
+            [sys.executable, "-m", "repro_torch.tools.monitor_run",
+             os.path.join(run, "live_a"), "--once", "--stall-after", "0.05",
+             "--dead-after", "1e18"], capture_output=True, text=True,
+            env={**os.environ, "PYTHONPATH": SRC}, timeout=120)
+        check(mon.returncode == 4,
+              f"phase 9 (a): monitor_run --once exited {mon.returncode}, "
+              f"not 4 (STALLED): {mon.stdout[-2000:]} {mon.stderr[-2000:]}")
+        rep_a = report.summarize_run(os.path.join(run, "trace_a"))
+        print(f"phase 9 (a): killed with 17 after round {kill_at}, "
+              f"{secs_a!r} s after the launch; monitor_run --once: 4 "
+              f"(STALLED); snapshots at rounds {published}; "
+              f"{rounds_line(rep_a)}; "
+              + spans_line(rep_a, ("ingest", "exchange_write",
+                                   "exchange_assemble", "snapshot")),
+              flush=True)
 
-        # --- resume in this process: the main path of the phase -------------
+        # --- (b) the gang resumed to the fixed point, sharded finish --------
+        # (c)'s driver ingests the store in this process while (b) runs
+        proc_b = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.tools.launch_multihost",
+             *base, "--timeout", str(CHILD_TIMEOUT_S), "--resume",
+             "--log-dir", os.path.join(run, "logs_b"),
+             "--trace-dir", os.path.join(run, "trace_b"),
+             "--metrics-dir", os.path.join(run, "live_b"),
+             "--artifact-out", art_b],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+            env={**os.environ, "PYTHONPATH": SRC,
+                 "REPRO_FORBID_EDGE_PART_MATERIALIZE": "1"})
+        t_b = time.perf_counter()
         backend = "nccl" if dev.type == "cuda" else "gloo"
         tracer = obs.configure(path=None)
         try:
             with compat.world1(backend):
+                drv = PartitionDriver(ef, cfg, snapshot_dir=snap,
+                                      device=dev)
+                ingest_c = time.perf_counter() - t_b
+                _, err = proc_b.communicate(timeout=CHILD_TIMEOUT_S + 60)
+                secs_b = time.perf_counter() - t_b
+                check(proc_b.returncode == 0,
+                      f"phase 9 (b): the launcher exited "
+                      f"{proc_b.returncode}: {err[-3000:]}")
+                snaps = live.load_snapshots(
+                    live.host_metrics(os.path.join(run, "live_b"))[0])
+                done = snaps[-1]
+                rep_b = report.summarize_run(os.path.join(run, "trace_b"))
+                with open(os.path.join(art_b, "manifest.json")) as f:
+                    manifest = json.load(f)
+                launches_b = {
+                    k[len("launches_"):]: int(c["last"])
+                    for k, c in rep_b["counters"].items()
+                    if k.startswith("launches_")}
+                stepped = [x["round"] for x in snaps
+                           if x.get("phase") == "round"]
+                print(f"phase 9 (b): resumed from round {stepped[0] - 1}"
+                      f" to round {done['round']} in {secs_b!r} s (launch "
+                      f"to exit), edge_part never materialized; the bus's "
+                      f"done line RF={done['rf']!r} EB={done['eb']!r}; the "
+                      f"artifact's manifest {manifest['rounds']} rounds; "
+                      f"{rounds_line(rep_b)}; "
+                      + spans_line(rep_b, (
+                          "ingest", "exchange_write", "exchange_assemble",
+                          "restore", "snapshot", "finalize",
+                          "stage_leftovers", "apply_leftovers",
+                          "artifact_save"))
+                      + f"; peak RSS {rep_b['hosts'][0]['peak_rss_kb']} kB,"
+                      f" card peak {card_peak(rep_b)} B; launches "
+                      f"{launches_b}", flush=True)
+                check(done.get("done") and done["round"] == res.rounds,
+                      f"phase 9 (b): the bus's last line is {done}")
+                check(stepped == list(range(kill_at + 1, res.rounds + 1)),
+                      f"phase 9 (b): the bus saw rounds {stepped[:3]} ... "
+                      f"{stepped[-3:]}, not {kill_at + 1}-{res.rounds}")
+                st = res.stats
+                check((done["rf"], done["eb"])
+                      == (st.replication_factor, st.edge_balance),
+                      f"phase 9 (b): the done line's RF, EB "
+                      f"{(done['rf'], done['eb'])} are not phase 3's")
+                check(manifest["rounds"] == res.rounds,
+                      f"phase 9 (b): the artifact has {manifest['rounds']} "
+                      f"rounds, not {res.rounds}")
+                if scale == 22:
+                    check((manifest["rounds"], done["rf"], done["eb"])
+                          == SCALE22_RESULT,
+                          f"phase 9 (b): rounds, RF, EB are not "
+                          f"{SCALE22_RESULT}")
+                resumed_b = res.rounds - kill_at
+                want_b = round_launches(resumed_b, chunks, live_bus=True)
+                check(launches_b == want_b,
+                      f"phase 9 (b): launch counts {launches_b} are not "
+                      f"{want_b}")
+
+                # --- (c) the single-writer driver from (b)'s snapshot ----
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 ops.reset_launches()
                 t0 = time.perf_counter()
-                drv = PartitionDriver.resume(ef, cfg, snap, device=dev)
-                start = drv.rounds
+                start = drv.restore_snapshot(resume_c)
+                # from here on its own single-writer snapshots, as often
+                # as (b)'s: each must have the bytes of (b)'s step dir
+                drv.snapshot = RunSnapshot(snap_c, drv.cfg,
+                                           drv.snapshot.graph_fp, keep=8)
+                drv.snapshot_every = every
                 got = drv.run()
                 wall = time.perf_counter() - t0
                 launches = dict(ops.launches)
                 peak = torch.cuda.max_memory_allocated()
                 t0 = time.perf_counter()
-                drv.save_artifact(art_dir)
+                drv.save_artifact(art_c)
                 save_s = time.perf_counter() - t0
         finally:
             obs.disable()
@@ -2691,50 +2812,71 @@ def phase_driver(torch, np, edges, res, per_round_3b: float, chunks: int,
         rounds_s = span_seconds(events, "round")
         resumed = got.rounds - start
         st = got.stats
-        print(f"phase 9: resumed from round {start} in a world-1 "
-              f"{backend.upper()} group: rounds={got.rounds} leftover="
-              f"{got.leftover} RF={st.replication_factor!r} "
-              f"EB={st.edge_balance!r} wall={wall!r} s; ingest "
-              f"{span_seconds(events, 'ingest')} s, restore "
-              f"{span_seconds(events, 'restore')} s, finalize "
+        print(f"phase 9 (c): the single-writer driver resumed from (b)'s "
+              f"round-{start} snapshot in a world-1 {backend.upper()} group: "
+              f"rounds={got.rounds} leftover={got.leftover} "
+              f"RF={st.replication_factor!r} EB={st.edge_balance!r} "
+              f"wall={wall!r} s; ingest {ingest_c!r} s (beside (b)), "
+              f"restore {span_seconds(events, 'restore')} s, finalize "
               f"{span_seconds(events, 'finalize')} s; {len(rounds_s)} "
               f"rounds at {float(np.mean(rounds_s)) * 1e3!r} ms a round "
               f"(phase 3b: {per_round_3b * 1e3!r} ms); peak_mem={peak} B "
-              f"launches={launches}", flush=True)
-        check(start == kill_at,
-              f"phase 9: resumed from round {start}, not {kill_at}")
+              f"launches={launches}; artifact saved in {save_s!r} s",
+              flush=True)
+        check(start == resume_c,
+              f"phase 9 (c): resumed from round {start}, not {resume_c}")
         check(same_result(np, got, res),
-              "phase 9: the resumed run differs from phase 3's result")
-        if scale == 22:
-            check((got.rounds, st.replication_factor, st.edge_balance)
-                  == SCALE22_RESULT,
-                  f"phase 9: rounds, RF, EB are not {SCALE22_RESULT}")
-        want = {"select": resumed, "restart_draw": resumed,
-                "one_hop": resumed, "claim_scatter": resumed,
-                "pack_bits": 2 * resumed, "or_words": 2 * resumed,
-                "unpack_bits": resumed, "two_hop_best": resumed * chunks}
+              "phase 9 (c): the resumed run differs from phase 3's result")
+        want = round_launches(resumed, chunks)
         check(launches == want and resumed > 0,
-              f"phase 9: launch counts {launches} are not {want}")
+              f"phase 9 (c): launch counts {launches} are not {want}")
+        steps_c = sorted(d for d in os.listdir(snap_c)
+                         if d.startswith("step_"))
+        want_c = [f"step_{k:010d}"
+                  for k in range(start + every, got.rounds + 1, every)]
+        check(steps_c == want_c,
+              f"phase 9 (c): its snapshots are {steps_c}, not {want_c}")
+        for d in steps_c:
+            check(same_files(os.path.join(snap, d), os.path.join(snap_c, d)),
+                  f"phase 9 (c): its single-writer {d} differs from (b)'s "
+                  "multi-writer one")
+        names = sorted(os.listdir(art_b))
+        check(same_files(art_b, art_c),
+              "phase 9 (c): its artifact's bytes differ from (b)'s")
 
-        # --- the artifact and back -------------------------------------------
+        # --- the artifact (one set of bytes) loaded back ---------------------
         t0 = time.perf_counter()
-        back = load_artifact(art_dir).result()
+        back = load_artifact(art_b).result()
         load_s = time.perf_counter() - t0
-        art_bytes = sum(os.path.getsize(os.path.join(art_dir, f))
-                        for f in os.listdir(art_dir))
+        art_bytes = sum(os.path.getsize(os.path.join(art_b, f))
+                        for f in names)
         check(all(np.array_equal(getattr(back, f), getattr(got, f))
                   for f in ("edge_part", "vparts", "edges_per_part"))
               and (back.rounds, back.leftover) == (got.rounds, got.leftover),
               "phase 9: the artifact's result differs from the run's")
-        print(f"phase 9: == phase 3 bit for bit; launch counts match the "
-              f"resumed rounds {start + 1}-{got.rounds}; artifact "
-              f"{art_bytes} B in {len(os.listdir(art_dir))} files, saved in "
-              f"{save_s!r} s, loaded back in {load_s!r} s and equal; phase "
-              f"9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
-        return launches, ef
+        print(f"phase 9: (c) == phase 3 bit for bit, launch counts match its "
+              f"rounds {start + 1}-{got.rounds}; (c)'s single-writer "
+              f"{', '.join(steps_c)} byte-identical to (b)'s multi-writer "
+              f"step dirs; (b)'s and (c)'s artifacts "
+              f"byte-identical, {art_bytes} B in {len(names)} files, loaded "
+              f"back in {load_s!r} s and equal to phase 3's result; phase 9 "
+              f"took {time.perf_counter() - t_phase:.1f} s", flush=True)
+        return launches, launches_b, ef
     finally:
-        for d in (snap, art_dir):
-            shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(run, ignore_errors=True)
+
+
+def round_launches(rounds: int, chunks: int, live_bus: bool = False,
+                   ) -> dict:
+    """The NE kernels' launches over ``rounds`` SPMD rounds at world 1
+    (``chunks`` two-hop chunks a round); with the live bus on, each
+    round's gauges unpack the replica words once more
+    (``partitioner_sm.round_quality``)."""
+    return {"select": rounds, "restart_draw": rounds, "one_hop": rounds,
+            "claim_scatter": rounds, "pack_bits": 2 * rounds,
+            "or_words": 2 * rounds,
+            "unpack_bits": (2 if live_bus else 1) * rounds,
+            "two_hop_best": rounds * chunks}
 
 
 def stream_chain_ops(name: str, p: int) -> int:
@@ -4505,16 +4647,12 @@ def main() -> None:
     ap.add_argument("--time-round", type=int, default=20,
                     help="round whose inputs the kernel timings use")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--driver-child", nargs=5, help=argparse.SUPPRESS)
     ap.add_argument("--train-child", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
     sys.path.insert(0, SRC)
-    if args.driver_child:
-        ef_path, snap, every, kill_at, device = args.driver_child
-        driver_child(ef_path, snap, int(every), int(kill_at), device)
     if args.train_child:
         train_child(args.train_child)
     import numpy as np
@@ -4555,7 +4693,7 @@ def main() -> None:
     with ThreadPoolExecutor(1) as builder:
         building = builder.submit(timed_build, build)
         edges = rmat_edges(args.scale, EDGE_FACTOR, seed=1)
-        g = from_edges(edges, num_vertices=1 << args.scale, device=dev)
+        g = from_edges(edges, 1 << args.scale, device=dev)
         del edges
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
@@ -4569,7 +4707,8 @@ def main() -> None:
                 print(f"  ptxas {fam}: {line.strip()}", file=sys.stderr)
     n, m = g.num_vertices, g.num_edges
     print(f"phase 1: RMAT scale {args.scale} EF {EDGE_FACTOR}: "
-          f"N={n} M={m} (host generation + CSR + copy {gen_s:.2f} s; "
+          f"N={n} M={m} (host generation + copy, canonical form and CSR "
+          f"on the card: {gen_s:.2f} s; "
           f"build and graph together {time.perf_counter() - t0:.2f} s)",
           flush=True)
 
@@ -4663,6 +4802,11 @@ def main() -> None:
     n_small = 1 << args.check_scale
     g_gpu = from_edges(small, n_small, device=dev)
     g_cpu = from_edges(small, n_small, device="cpu")
+    check(all(torch.equal(getattr(g_gpu, f).cpu(), getattr(g_cpu, f))
+              for f in ("edges", "indptr", "adj_dst", "adj_eid", "slot_src",
+                        "degree")),
+          f"scale-{args.check_scale} Graph built on the card differs from "
+          "the host build")
     runs = {}
     t0 = time.perf_counter()
     runs["single card"] = tp.partition(g_gpu, cfg)
@@ -4675,7 +4819,8 @@ def main() -> None:
         check(same_result(np, r, runs["single card"]),
               f"scale-{args.check_scale} {name} run differs from the "
               "single-controller card run")
-    print(f"phase 4: scale {args.check_scale}: single card == single CPU == "
+    print(f"phase 4: scale {args.check_scale}: Graph on the card == host "
+          f"build; single card == single CPU == "
           f"SPMD card == SPMD CPU bit for bit (rounds="
           f"{runs['single card'].rounds}, all four in "
           f"{time.perf_counter() - t0:.2f} s)", flush=True)
@@ -4750,11 +4895,12 @@ def main() -> None:
         family_cpu = start_family_oracles(pool)
         # --- phase 9: the driver from the store, killed and resumed ---------
         mark("9")
-        launches_drv, ef = phase_driver(torch, np, main_edges, res,
-                                        wall_sm / max(rounds, 1), chunks,
-                                        dev, args.scale, work)
+        launches_drv, launches_mh, ef = phase_driver(
+            torch, np, main_edges, res, wall_sm / max(rounds, 1), chunks,
+            dev, args.scale, work)
         for r in rows + bit_rows:
             r["launches_driver"] = launches_drv[r["name"]]
+            r["launches_mh"] = launches_mh[r["name"]]
 
         # --- phase 10: baselines and hybrid ----------------------------------
         mark("10")

@@ -1,8 +1,9 @@
 """Finalize epilogue — host-side numpy, no torch.
 
-A copy of the reference package's single-host epilogue: the α-capacity
-limit, the water-fill of the ``max_rounds`` leftovers and the stitch of
-shard-order assignments back to edge order.  The expressions
+A copy of the reference package's epilogue: the α-capacity limit, the
+water-fill of the ``max_rounds`` leftovers (whole-array, and the
+per-shard half the sharded finalize of ``runtime.finalize`` applies) and
+the stitch of shard-order assignments back to edge order.  The expressions
 are kept exactly, since bit-identity with the reference depends on them.
 """
 from __future__ import annotations
@@ -65,6 +66,29 @@ def leftover_targets(take: np.ndarray, ranks: np.ndarray) -> np.ndarray:
     bounds = np.cumsum(np.asarray(take, np.int64))
     return np.searchsorted(bounds, np.asarray(ranks, np.int64),
                            side="right").astype(np.int32)
+
+
+def finalize_local(ep_slice: np.ndarray, u_slice: np.ndarray,
+                   v_slice: np.ndarray, ranks: np.ndarray,
+                   take: np.ndarray, vparts: np.ndarray) -> int:
+    """Per-shard half of the sharded finalize: fill this slice's leftover
+    slots from the agreed water-fill ``take`` and mark the new replicas
+    in the local ``vparts`` copy, in place.
+
+    ``ep_slice`` / ``u_slice`` / ``v_slice`` are the shard's valid prefix
+    (no padding); ``ranks`` are the global eid-order ranks of its
+    leftover edges, in slot order (slot order within a shard is eid
+    order).  Returns the number of edges assigned; every array touched
+    is O(slice), never O(M).
+    """
+    rem = np.flatnonzero(ep_slice < 0)
+    if rem.size == 0:
+        return 0
+    tgt = leftover_targets(take, ranks)
+    ep_slice[rem] = tgt
+    vparts[u_slice[rem], tgt] = True
+    vparts[v_slice[rem], tgt] = True
+    return int(rem.size)
 
 
 def cleanup_leftovers(edge_part: np.ndarray, vparts: np.ndarray,

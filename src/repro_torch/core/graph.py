@@ -4,7 +4,9 @@ The same canonical representation as the reference package: an undirected
 edge list expanded into 2M directed slots sorted by source vertex, with an
 ``adj_eid`` column mapping each directed slot back to its undirected edge.
 The arrays are built on the host (``repro_torch.io``: in memory, or
-streamed from the store) and moved to the device once.
+streamed from the store) and moved to the device once; an in-memory edge
+list bound for the card is copied there once and built there
+(:func:`from_edges`).
 
 The import between this module and ``repro_torch.io`` goes both ways on
 purpose, as in the reference: ``as_graph`` takes the store's handles, and
@@ -75,9 +77,18 @@ class Graph:
 
 def from_edges(edges: np.ndarray, num_vertices: int | None = None,
                device=None, dedup: bool = True) -> Graph:
-    """Build a Graph from an undirected edge list (host-side numpy), then
-    move it to ``device`` (``None`` means the card)."""
+    """Build a Graph from an undirected edge list (host-side numpy) on
+    ``device`` (``None`` means the card).
+
+    For the CPU the canonical form and the CSR are built on the host
+    (``io.csr``); for the card the edge list is copied once and the same
+    integer steps run there (:func:`graph_from_edges_tensor`), which
+    gives the same Graph bit for bit."""
     dev = resolve_device(device)
+    if dev.type != "cpu":
+        e = torch.from_numpy(np.ascontiguousarray(edges)).to(dev)
+        return graph_from_edges_tensor(e.reshape(-1, 2), num_vertices,
+                                       dedup)
     if dedup:
         edges, n = canonicalize_host(edges, num_vertices)
     else:
@@ -85,6 +96,46 @@ def from_edges(edges: np.ndarray, num_vertices: int | None = None,
         n = int(num_vertices if num_vertices is not None
                 else (edges.max() + 1 if edges.size else 0))
     return graph_from_csr(csr_from_canonical(edges, n), dev)
+
+
+def graph_from_edges_tensor(edges: torch.Tensor,
+                            num_vertices: int | None = None,
+                            dedup: bool = True) -> Graph:
+    """:func:`from_edges` on the device that holds ``edges`` ((M, 2), any
+    integer type), with torch ops: u < v, loops dropped, the sorted unique
+    u·n + v keys (``dedup``), then the directed slots stably sorted by
+    source, as ``io.csr.canonicalize_host`` + ``csr_from_canonical`` do
+    on the host.  Vertex ids must lie in [0, n)."""
+    dev = edges.device
+    e = edges.to(torch.int64)
+    if dedup:
+        u = torch.minimum(e[:, 0], e[:, 1])
+        v = torch.maximum(e[:, 0], e[:, 1])
+        keep = u != v
+        u, v = u[keep], v[keep]
+    else:
+        u, v = e[:, 0], e[:, 1]
+    del e
+    n = (int(num_vertices) if num_vertices is not None
+         else (int(torch.maximum(u.max(), v.max())) + 1 if u.numel()
+               else 0))
+    if u.numel() and (int(torch.minimum(u.min(), v.min())) < 0
+                      or int(torch.maximum(u.max(), v.max())) >= n):
+        raise ValueError(f"vertex ids outside [0, {n})")
+    if dedup:
+        key = torch.unique(u * n + v)                        # sorted
+        u, v = key // n, key % n
+        del key
+    u, v = u.to(torch.int32), v.to(torch.int32)
+    src, dst = torch.cat([u, v]), torch.cat([v, u])
+    eid = torch.arange(u.numel(), dtype=torch.int32, device=dev).repeat(2)
+    slot_src, order = torch.sort(src, stable=True)
+    degree = torch.bincount(src, minlength=n).to(torch.int32)
+    indptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    indptr[1:] = torch.cumsum(degree, 0, dtype=torch.int32)
+    return Graph(edges=torch.stack([u, v], dim=1), indptr=indptr,
+                 adj_dst=dst[order], adj_eid=eid[order], slot_src=slot_src,
+                 degree=degree)
 
 
 def to_device(a: np.ndarray, device=None) -> torch.Tensor:

@@ -83,19 +83,35 @@ class PartitionResult:
     bool replica sets, ``edges_per_part`` (P,) int32, ``rounds``,
     ``leftover`` (edges assigned by the cleanup pass) and ``stats``
     (:class:`repro_torch.core.metrics.PartitionStats`).
+
+    ``edge_part`` may be a zero-argument callable: the sharded
+    multi-controller finalize hands back a *lazy* assignment, so that no
+    rank holds the O(M) global array unless a consumer asks for it.  It
+    is materialized once, on first read.
     """
 
-    __slots__ = ("edge_part", "vparts", "edges_per_part", "rounds",
+    __slots__ = ("_edge_part", "vparts", "edges_per_part", "rounds",
                  "leftover", "stats")
 
     def __init__(self, edge_part, vparts, edges_per_part, rounds, leftover,
                  stats=None):
-        self.edge_part = edge_part
+        self._edge_part = edge_part
         self.vparts = vparts
         self.edges_per_part = edges_per_part
         self.rounds = rounds
         self.leftover = leftover
         self.stats = stats
+
+    @property
+    def edge_part(self) -> np.ndarray:
+        if callable(self._edge_part):
+            self._edge_part = self._edge_part()
+        return self._edge_part
+
+    @property
+    def edge_part_materialized(self) -> bool:
+        """False while a lazy assignment has not been forced yet."""
+        return not callable(self._edge_part)
 
 
 # one copy of the claim rule, shared with the kernels' plain versions
@@ -279,7 +295,8 @@ def state_from_numpy(arrays: dict, device=None) -> NEState:
 
     def t(name, dtype):
         a = np.asarray(arrays[name])
-        return torch.from_numpy(np.ascontiguousarray(a).astype(dtype)).to(dev)
+        # np.array, not ascontiguousarray: that makes a 0-d round count 1-d
+        return torch.from_numpy(np.array(a, dtype=dtype, order="C")).to(dev)
 
     return NEState(
         edge_part=t("edge_part", np.int32),

@@ -6,6 +6,10 @@
 * :func:`all_gather_rows` — the all-gather of one tensor per rank;
 * :func:`all_to_all_rows` and :func:`all_reduce_sum` — the vertex-cut
   engine's mirror/master exchange and its loss sums, differentiable;
+* :func:`barrier`, :func:`all_processes_min`, :func:`all_processes_sum`
+  and :func:`all_processes_any` — the host-side collectives of a
+  multi-controller run (snapshot and artifact protocols, resume, the
+  sharded finalize), each a no-op at world 1;
 * :func:`world1` and :func:`spawn` — open a group: a world-1 group in this
   process, or ``world_size`` new processes, one rank each.
 
@@ -23,10 +27,12 @@ import tempfile
 import time
 import traceback
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.kernels.ne_round import ops as ne_ops
+from repro_torch.kernels.ne_round import ref as ne_ref
 
 SPAWN_TIMEOUT_S = 900.0
 _CALL = "call.pkl"       # spawn's (fn, args), beside the group's store
@@ -133,8 +139,93 @@ def or_all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     return out
 
 
-def _init_group(backend: str, rank: int, world_size: int,
-                store_dir: str) -> None:
+def _world(group=None) -> int:
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    return dist.get_world_size(group)
+
+
+def _host_device(group=None) -> torch.device:
+    """Where a host value goes for a collective: the card for NCCL (it
+    takes CUDA tensors only), the CPU for gloo."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def barrier(name: str, group=None) -> None:
+    """Cross-process sync point; a no-op at world 1.
+
+    A collective, so it doubles as a liveness check: if a peer died, it
+    fails instead of going on with a torn gang.  ``name`` says which
+    sync point of the protocol this is; every rank passes the same names
+    in the same order.
+    """
+    del name
+    if _world(group) > 1:
+        dist.barrier(group=group)
+
+
+def _reduce_int(value: int, op, group) -> int:
+    t = torch.tensor([int(value)], dtype=torch.int64,
+                     device=_host_device(group))
+    dist.all_reduce(t, op, group=group)
+    return int(t.item())
+
+
+def all_processes_min(value: int, group=None) -> int:
+    """Minimum of a host-side int over the ranks (itself at world 1).
+
+    Resume uses it to agree on the newest snapshot round that every rank
+    can read in full."""
+    if _world(group) == 1:
+        return int(value)
+    return _reduce_int(value, dist.ReduceOp.MIN, group)
+
+
+def all_processes_sum(value: int, group=None) -> int:
+    """Sum of a host-side int over the ranks (itself at world 1): the
+    sharded finalize's global leftover count from per-rank partials."""
+    if _world(group) == 1:
+        return int(value)
+    return _reduce_int(value, dist.ReduceOp.SUM, group)
+
+
+# bytes of packed words a chunk of all_processes_any sends: the OR
+# all-reduce holds two such buffers, whatever the world size
+_ANY_CHUNK_BYTES = 64 << 20
+
+
+def all_processes_any(mask: np.ndarray, group=None) -> np.ndarray:
+    """Element-wise OR of a host-side (N, P) bool map over the ranks
+    (itself at world 1): the sharded finalize's replica-map combine.
+
+    The map goes as packed words (``ne_ops.pack_bits``, 1/8 of the bool
+    bytes) through :func:`or_all_reduce` (NCCL has no bitwise
+    reduction), in chunks of ``_ANY_CHUNK_BYTES`` of words; every rank
+    holds a map of the same shape, so all iterate the same boundaries and
+    the chunks stay one valid sequence of collectives.
+    """
+    mask = np.asarray(mask, bool)
+    if _world(group) == 1:
+        return mask
+    n, p = mask.shape
+    dev = _host_device(group)
+    rows = max(1, _ANY_CHUNK_BYTES // (4 * ne_ref.replica_words(p)))
+    out = np.empty_like(mask)
+    for s in range(0, n, rows):
+        words = ne_ops.pack_bits(torch.from_numpy(
+            np.ascontiguousarray(mask[s:s + rows])).to(dev))
+        words = or_all_reduce(words, group)
+        out[s:s + rows] = ne_ops.unpack_bits(words, p).cpu().numpy()
+    return out
+
+
+def init_group(backend: str, rank: int, world_size: int,
+               store_dir: str) -> None:
+    """Join rank ``rank`` of a ``world_size`` group whose ``file://``
+    store lives in ``store_dir`` (fresh for each group); an NCCL rank
+    takes the card ``rank % count``."""
     kw = {}
     if backend == "nccl":
         card = torch.device("cuda", rank % torch.cuda.device_count())
@@ -148,7 +239,7 @@ def _init_group(backend: str, rank: int, world_size: int,
 def world1(backend: str):
     """A world-1 group in this process for the ``with`` block, then gone."""
     with tempfile.TemporaryDirectory() as store_dir:
-        _init_group(backend, 0, 1, store_dir)
+        init_group(backend, 0, 1, store_dir)
         try:
             yield
         finally:
@@ -162,7 +253,7 @@ def _rank_main(rank, world_size, backend, store_dir, results):
     try:
         with open(os.path.join(store_dir, _CALL), "rb") as f:
             fn, args = pickle.load(f)
-        _init_group(backend, rank, world_size, store_dir)
+        init_group(backend, rank, world_size, store_dir)
         try:
             out = fn(*args)
         finally:

@@ -187,21 +187,30 @@ def spmd_init_state(shards: np.ndarray, masks: np.ndarray, n: int,
     """The initial round state of one rank, built from the host shards:
     global D_rest from the valid edges of every shard, an all-unallocated
     (C,) ``edge_part`` and empty packed replica sets."""
-    dev = resolve_device(device)
-    p_num = cfg.num_partitions
     flat = shards.reshape(-1, 2)[masks.reshape(-1)]
     degree = (np.bincount(flat[:, 0], minlength=n)
               + np.bincount(flat[:, 1], minlength=n))
+    return spmd_state0(masks.shape[1], degree, flat.shape[0], cfg,
+                       device=device)
+
+
+def spmd_state0(cap: int, degree: np.ndarray, m: int, cfg: NEConfig,
+                device=None) -> SpmdState:
+    """The initial round state of one rank from its shard capacity
+    ``cap``, the global (N,) degree and edge count ``m``: what a rank of
+    a multi-controller run builds from the ingestion exchange, which
+    never hands it the other ranks' shards."""
+    dev = resolve_device(device)
+    p_num = cfg.num_partitions
     return SpmdState(
-        edge_part=torch.full((masks.shape[1],), -1, dtype=torch.int32,
-                             device=dev),
-        vparts=torch.zeros((n, ne_ref.replica_words(p_num)),
+        edge_part=torch.full((cap,), -1, dtype=torch.int32, device=dev),
+        vparts=torch.zeros((degree.shape[0], ne_ref.replica_words(p_num)),
                            dtype=torch.int32, device=dev),
         degree_rest=torch.from_numpy(degree.astype(np.int32)).to(dev),
         edges_per_part=torch.zeros(p_num, dtype=torch.int32, device=dev),
         key=trandom.PRNGKey(cfg.seed, device=dev),
         rounds=torch.zeros((), dtype=torch.int32, device=dev),
-        remaining=torch.tensor(flat.shape[0], dtype=torch.int32, device=dev),
+        remaining=torch.tensor(m, dtype=torch.int32, device=dev),
     )
 
 
@@ -360,17 +369,19 @@ def spmd_state_from_numpy(arrays: dict, device=None,
     """This rank's SpmdState on ``device`` from the reference's state as
     numpy arrays (a dict with the SpmdState field names): ``edge_part``
     is row ``rank`` (this process's rank in ``group``, 0 without a group)
-    of the reference's (D, C), the uint32 ``vparts`` words become their
-    int32 bit patterns, the uint32 ``key`` words int64."""
+    of the reference's (D, C), or of a ``{rank: row}`` dict, the uint32
+    ``vparts`` words become their int32 bit patterns, the uint32 ``key``
+    words int64."""
     dev = resolve_device(device)
     rank = dist.get_rank(group) if dist.is_initialized() else 0
 
     def t(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a).astype(dtype)).to(dev)
+        # np.array, not ascontiguousarray: that makes a 0-d round count 1-d
+        return torch.from_numpy(np.array(a, dtype=dtype, order="C")).to(dev)
 
     words = np.ascontiguousarray(arrays["vparts"], dtype=np.uint32)
     return SpmdState(
-        edge_part=t(np.asarray(arrays["edge_part"])[rank], np.int32),
+        edge_part=t(arrays["edge_part"][rank], np.int32),
         vparts=torch.from_numpy(words.view(np.int32).copy()).to(dev),
         degree_rest=t(arrays["degree_rest"], np.int32),
         edges_per_part=t(arrays["edges_per_part"], np.int32),

@@ -5,14 +5,16 @@ package's ``repro.runtime``: a round-level state machine that can
 pause/snapshot/resume a run bit-identically (``driver``), crash-safe
 sharded snapshots with config/graph fingerprints (``snapshot``), durable
 partition artifacts that feed the GAS / GNN consumers without
-re-partitioning (``artifact``), and range-planned EdgeFile ingestion
+re-partitioning (``artifact``), range-planned EdgeFile ingestion
 where each host-range reader streams only its slice of the store
-(``cluster``).
+(``cluster``), the sharded finalize of a multi-controller run
+(``finalize``) and the process layer that launches and runs one
+(``multihost``).
 
-Re-exports resolve lazily (PEP 562): ``cluster``, ``artifact`` and
-``snapshot`` import without torch, which is what keeps the
-``processes=True`` spawn workers of ``cluster.ingest_edgefile``
-lightweight — unpickling ``cluster._ingest_worker`` must not drag the
+Re-exports resolve lazily (PEP 562): ``cluster``, ``artifact``,
+``snapshot``, ``finalize`` and ``multihost`` import without torch, which
+keeps the ``processes=True`` spawn workers of ``cluster.ingest_edgefile``
+and the launcher's parent process lightweight — unpickling ``cluster._ingest_worker`` must not drag the
 driver's torch import into every worker process.
 """
 from __future__ import annotations
@@ -40,7 +42,14 @@ _EXPORTS = {
     "reshard_assemble": "repro_torch.runtime.cluster",
     "reshard_write": "repro_torch.runtime.cluster",
     "shard_eids": "repro_torch.runtime.cluster",
+    "apply_leftovers": "repro_torch.runtime.finalize",
+    "leftover_assignments": "repro_torch.runtime.finalize",
+    "partition_contribs": "repro_torch.runtime.finalize",
+    "stage_leftovers": "repro_torch.runtime.finalize",
     "PartitionDriver": "repro_torch.runtime.driver",
+    "initialize_distributed": "repro_torch.runtime.multihost",
+    "launch_local": "repro_torch.runtime.multihost",
+    "worker_main": "repro_torch.runtime.multihost",
     "RunSnapshot": "repro_torch.runtime.snapshot",
     "ShardedCheckpointManager": "repro_torch.runtime.snapshot",
     "SnapshotMismatch": "repro_torch.runtime.snapshot",

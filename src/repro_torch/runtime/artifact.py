@@ -70,6 +70,7 @@ import hashlib
 import json
 import os
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -80,6 +81,17 @@ from repro_torch.io.compress import (varint_decode, varint_encode,
 
 ARTIFACT_VERSION = 1
 MANIFEST = "manifest.json"
+# partitions encode and decode independently, in threads (numpy releases
+# the GIL in the varint passes); the bytes do not depend on the count
+_MAX_THREADS = 8
+_THREADS = min(_MAX_THREADS, os.cpu_count() or 1)
+
+
+def _each_part(fn, parts, threads: int = _THREADS) -> list:
+    """``[fn(p) for p in parts]``, the calls spread over ``threads``
+    threads."""
+    with ThreadPoolExecutor(threads) as pool:
+        return list(pool.map(fn, parts))
 
 
 def _delta(x: np.ndarray) -> np.ndarray:
@@ -188,13 +200,15 @@ def save_artifact(dirpath: str | os.PathLike, result,
     order = np.argsort(keys, kind="stable")
     bounds = np.searchsorted(edge_part[order],
                              np.arange(p_num + 1, dtype=np.int64))
-    parts_meta = []
-    for p in range(p_num):
+
+    def write_part(p: int) -> dict:
         eids = order[bounds[p]:bounds[p + 1]]
         e = edges[eids]
         raw, meta = _encode_partition(e[:, 0], e[:, 1], eids)
         _fsync_write(tmp / f"part_{p:05d}.bin", raw)
-        parts_meta.append(meta)
+        return meta
+
+    parts_meta = _each_part(write_part, range(p_num))
 
     rep_raw = np.packbits(vparts, axis=None).tobytes()
     _fsync_write(tmp / "replicas.bin", rep_raw)
@@ -265,23 +279,34 @@ def _read_contrib(tmp: Path, host: int, p: int,
 
 
 def encode_shared_parts(dirpath: str | os.PathLike, host: int,
-                        parts: list, num_hosts: int) -> dict:
+                        parts: list, num_hosts: int,
+                        threads: int | None = None) -> dict:
     """Any host, after every contribution staged: merge all hosts' spills
     for the partitions it owns, encode the ``part_<p>.bin`` shards, and
-    stage a per-host meta manifest.  Peak memory O(max |E_p|)."""
+    stage a per-host meta manifest.  The partitions encode ``threads`` at
+    a time (at most 8; the default is 8 or the host's core count), so the
+    peak memory is O(threads · max |E_p|)."""
+    threads = (_THREADS if threads is None
+               else max(1, min(threads, _MAX_THREADS)))
     tmp = _shared_tmp(dirpath)
-    metas: dict[str, dict] = {}
-    for p in parts:
+
+    def encode_part(p: int) -> dict:
         cols = [_read_contrib(tmp, h, p) for h in range(num_hosts)]
         eids = np.concatenate([c[0] for c in cols])
         u = np.concatenate([c[1] for c in cols])
         v = np.concatenate([c[2] for c in cols])
         # hosts own interleaved eid ranges; merge back to the ascending
-        # eid order the single-writer path produces
-        order = np.argsort(eids, kind="stable")
-        raw, meta = _encode_partition(u[order], v[order], eids[order])
+        # eid order the single-writer path produces (one host's
+        # contribution already has it)
+        if eids.size > 1 and not bool((eids[1:] > eids[:-1]).all()):
+            order = np.argsort(eids, kind="stable")
+            eids, u, v = eids[order], u[order], v[order]
+        raw, meta = _encode_partition(u, v, eids)
         _fsync_write(tmp / f"part_{p:05d}.bin", raw)
-        metas[str(p)] = meta
+        return meta
+
+    metas = {str(p): meta for p, meta in zip(
+        parts, _each_part(encode_part, parts, threads))}
     _fsync_write(tmp / f".artmeta_h{host:03d}.json",
                  json.dumps(metas).encode())
     return metas
@@ -391,11 +416,16 @@ class PartitionArtifact:
             return
         part = np.full(self.num_edges, -1, np.int32)
         edges = np.empty((self.num_edges, 2), np.int32)
-        for p in range(self.num_partitions):
+
+        def fill(p: int) -> None:
+            # partitions hold disjoint eids, so the threads' writes never
+            # meet
             u, v, eids = self._part_blobs(p)
             part[eids] = p
             edges[eids, 0] = u
             edges[eids, 1] = v
+
+        _each_part(fill, range(self.num_partitions))
         if not (part >= 0).all():
             # a real integrity check, not an assert — it must survive -O:
             # uncovered eids would surface as -1 assignments plus

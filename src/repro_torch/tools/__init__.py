@@ -1,1 +1,2 @@
-"""Host-side analyses whose results the documentation quotes."""
+"""Command-line tools: the multi-controller launcher, its monitor and
+report, and host-side analyses whose results the documentation quotes."""

@@ -70,6 +70,49 @@ def test_from_edges_equal(n, m, seed):
     assert tgraph.as_graph(got) is got
 
 
+_GRAPH_FIELDS = ("edges", "indptr", "adj_dst", "adj_eid", "slot_src",
+                 "degree")
+
+
+def _edge_case(kind):
+    """(edges, num_vertices) of one input shape for the graph builders."""
+    rng = np.random.default_rng(7)
+    if kind == "rmat":
+        return rmat_edges(10, 8, 3), 1 << 10
+    if kind == "random":         # loops and duplicates included
+        return rng.integers(0, 300, size=(5000, 2)), 300
+    if kind == "random_int32_n_inferred":
+        return rng.integers(0, 50, size=(400, 2)).astype(np.int32), None
+    if kind == "isolated_tail":  # vertices past the last id
+        return rng.integers(0, 40, size=(200, 2)), 64
+    if kind == "loops_only":
+        return np.array([[3, 3], [5, 5]]), None
+    return np.zeros((0, 2), np.int64), 16          # empty
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("kind", ["rmat", "random",
+                                  "random_int32_n_inferred", "isolated_tail",
+                                  "loops_only", "empty"])
+def test_tensor_graph_build_equal(kind, dedup):
+    """``graph_from_edges_tensor`` (what ``from_edges`` runs for the card)
+    gives the host build's Graph and the reference's, bit for bit."""
+    e, n = _edge_case(kind)
+    got = tgraph.graph_from_edges_tensor(torch.from_numpy(e), n, dedup)
+    host = tgraph.from_edges(e, n, device="cpu", dedup=dedup)
+    want = jgraph.from_edges(e, n, dedup=dedup)
+    for f in _GRAPH_FIELDS:
+        t = getattr(got, f)
+        assert t.dtype == torch.int32 and t.device.type == "cpu", f
+        np.testing.assert_array_equal(t.numpy(), getattr(host, f).numpy(),
+                                      err_msg=f)
+        np.testing.assert_array_equal(t.numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    assert (got.num_vertices, got.num_edges) == (want.num_vertices,
+                                                 want.num_edges)
+
+
 def test_exclusive_rank_equal():
     rng = np.random.default_rng(0)
     cand = rng.integers(-1, 7, 3000).astype(np.int32)
@@ -113,7 +156,7 @@ def test_round_from_carried_state(k):
     tstate = tp.state_from_numpy(arrays, device="cpu")
     for f, a in tp.state_to_numpy(tstate).items():      # the carry is exact
         np.testing.assert_array_equal(a, arrays[f], err_msg=f)
-        assert a.dtype == arrays[f].dtype, f
+        assert (a.dtype, a.shape) == (arrays[f].dtype, arrays[f].shape), f
     got = tp.state_to_numpy(tp.ne_round_step(tg, tcfg, limit, tstate))
     for f in jp.NEState._fields:
         np.testing.assert_array_equal(got[f], want[f], err_msg=f)
@@ -230,6 +273,10 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.graphs.sampler, repro_torch.tree\n"
         "import repro_torch.models.lm.moe, repro_torch.configs.olmoe_1b_7b\n"
         "import repro_torch.configs.kimi_k2_1t_a32b\n"
+        "import repro_torch.runtime.finalize, repro_torch.runtime.multihost\n"
+        "import repro_torch.obs.export, repro_torch.obs.report\n"
+        "import repro_torch.obs.monitor, repro_torch.tools.launch_multihost\n"
+        "import repro_torch.tools.monitor_run, repro_torch.tools.report_run\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -271,7 +318,10 @@ def test_port_sources_name_no_jax_and_no_repro():
                 "configs/egnn.py", "configs/equiformer_v2.py",
                 "tools/step_time.py", "tools/bag_backward_profile.py",
                 "models/lm/moe.py", "configs/olmoe_1b_7b.py",
-                "configs/kimi_k2_1t_a32b.py"):
+                "configs/kimi_k2_1t_a32b.py", "runtime/finalize.py",
+                "runtime/multihost.py", "obs/export.py", "obs/report.py",
+                "obs/monitor.py", "tools/launch_multihost.py",
+                "tools/monitor_run.py", "tools/report_run.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_spmd_ranks.py"]
     assert len(files) > 25

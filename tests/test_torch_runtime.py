@@ -1,8 +1,9 @@
 """The port's checkpointable runtime (``repro_torch.runtime``) against the
 reference package's ``repro.runtime``.
 
-Mirrors tests/test_runtime.py, without its tests of the reference's
-``runtime/{multihost,finalize}.py`` (not ported yet).  The driver in
+Mirrors tests/test_runtime.py, but for its tests of the reference's
+``runtime/finalize.py`` (tests/test_torch_finalize.py mirrors those; the
+multi-controller launches are tests/test_torch_multihost_{2,4}.py).  The driver in
 single and spmd mode equals ``partition`` / ``partition_spmd`` and the
 reference's driver bit for bit; a run killed after round k and resumed
 from its snapshot equals the uninterrupted run; snapshot directories and
@@ -265,6 +266,34 @@ def test_resume_single_mode(tmp_path):
                                  device="cpu")
     assert drv.rounds > 0
     _same(drv.run(), full)
+
+
+@pytest.mark.parametrize("mode", ["spmd", "single"])
+def test_resumed_driver_writes_the_unbroken_runs_snapshots(graph, tmp_path,
+                                                           mode):
+    """A driver resumed at round k writes every later step dir with the
+    bytes of the uninterrupted run's: restoring keeps the 0-d round
+    counters 0-d."""
+    with compat.world1("gloo"):
+        full = PartitionDriver(graph, CFG, mode=mode,
+                               snapshot_dir=tmp_path / "full",
+                               snapshot_every=2, keep=KEEP_ALL, device="cpu")
+        res = full.run()
+        k = 2 * (res.rounds // 4)
+        assert k > 0
+        drv = PartitionDriver.resume(graph, CFG, tmp_path / "full",
+                                     round_k=k, mode=mode, device="cpu")
+        drv.snapshot = RunSnapshot(tmp_path / "resumed", drv.cfg,
+                                   drv.snapshot.graph_fp, keep=KEEP_ALL)
+        drv.snapshot_every = 2
+        _same(drv.run(), res)
+    steps = sorted(p.name for p in (tmp_path / "resumed").glob("step_*"))
+    assert steps == [f"step_{r:010d}"
+                     for r in range(k + 2, res.rounds + 1, 2)] and steps
+    for step in steps:
+        assert _same_tree(tmp_path / "resumed" / step,
+                          tmp_path / "full" / step) == (
+            3 if mode == "spmd" else 2)       # + the edge_part shard
 
 
 @pytest.mark.parametrize("direction", ["port_from_reference",
@@ -770,8 +799,6 @@ def test_driver_traces_spans_and_publishes_live(graph, tmp_path):
 
 
 def test_driver_modes_not_in_this_slice_raise(graph, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 2"):
-        PartitionDriver(graph, CFG, exchange_dir=tmp_path, device="cpu")
     with pytest.raises(ValueError, match="unknown mode"):
         PartitionDriver(graph, CFG, mode="nope", device="cpu")
     with pytest.raises(RuntimeError, match="torch.distributed group"):
@@ -779,6 +806,25 @@ def test_driver_modes_not_in_this_slice_raise(graph, tmp_path):
     with compat.world1("gloo"):
         with pytest.raises(ValueError, match="num_devices=2"):
             PartitionDriver(graph, CFG, num_devices=2, device="cpu")
+
+
+def test_driver_exchange_dir_takes_an_edgefile(graph, tmp_path):
+    """A multi-controller run ingests a canonical EdgeFile a block range
+    a rank; any other source raises the reference's TypeError."""
+    with compat.world1("gloo"):
+        with pytest.raises(TypeError, match="canonical EdgeFile"):
+            PartitionDriver(graph, CFG, exchange_dir=tmp_path, device="cpu")
+    with pytest.raises(TypeError, match="canonical EdgeFile"):
+        JDriver(j_rmat(*GRAPH), JCFG, exchange_dir=tmp_path)._init_multihost(
+            j_rmat(*GRAPH), JCFG, None, None, tmp_path)
+
+
+@pytest.mark.parametrize("mode", ["single", "hybrid"])
+def test_driver_exchange_dir_needs_spmd_mode(store, tmp_path, mode):
+    cfg = HybridConfig(**KW) if mode == "hybrid" else CFG
+    with pytest.raises(ValueError, match="multi-controller"):
+        PartitionDriver(store, cfg, mode=mode, exchange_dir=tmp_path,
+                        device="cpu")
 
 
 def test_driver_hybrid_mode_takes_a_hybrid_config(graph):

@@ -1,6 +1,7 @@
 """Rank bodies for tests/test_torch_spmd.py, tests/test_torch_gnn_engine.py,
-tests/test_torch_runtime.py, tests/test_torch_apps.py and
-tests/test_torch_gnn_families.py.
+tests/test_torch_runtime.py, tests/test_torch_apps.py,
+tests/test_torch_gnn_families.py, tests/test_torch_finalize.py and the
+multi-controller matrix (tests/torch_multihost_matrix.py).
 
 ``repro_torch.dist.compat.spawn`` runs them in gloo processes, one per
 rank.  This module imports nothing of jax or ``repro``, so a rank starts
@@ -64,6 +65,26 @@ def driver_checks(ef_path, cfg, snap_dir, art_dir, resume_round):
                                    device="cpu")
     start = again.rounds
     return {"result": res, "resumed": again.run(), "resumed_from": start}
+
+
+def partition_spmd_file(ef_path, cfg):
+    """``partition_spmd`` of a canonical EdgeFile on this rank, as a dict
+    of host arrays."""
+    res = sm.partition_spmd(EdgeFile(ef_path), cfg, device="cpu")
+    return {f: np.asarray(getattr(res, f)) for f in
+            ("edge_part", "vparts", "edges_per_part", "rounds", "leftover")}
+
+
+def host_collectives(masks, values, chunk_bytes):
+    """On this rank: ``barrier`` and ``all_processes_{min,sum,any}`` of
+    row ``rank`` of ``values`` (D,) and ``masks`` (D, N, P), the OR in
+    chunks of ``chunk_bytes`` bytes of packed words."""
+    rank = compat.process_env()[0]
+    compat._ANY_CHUNK_BYTES = chunk_bytes
+    compat.barrier("host-collectives")
+    return (compat.all_processes_min(int(values[rank])),
+            compat.all_processes_sum(int(values[rank])),
+            compat.all_processes_any(masks[rank]))
 
 
 def hybrid_driver_error(edges, cfg):
