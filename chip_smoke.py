@@ -231,7 +231,29 @@ Phases, each printing its lines; any failed check exits non-zero:
    beside its bound, the plain version's and SDPA's, a row of its own
    in the kernels line.  It runs right after phase 8: late in a full run
    torch.profiler returned no device events for whole windows of the
-   flash kernel's and SDPA's calls.
+   flash kernel's and SDPA's calls;
+14. the partition-serving layer (``repro_torch.serve``, numpy and the
+   standard library: no kernel, no device) over phase 9 (b)'s artifact,
+   with ``benchmarks/bench_serve.py``'s traffic (Zipf a 1.3, seed 1,
+   over the non-isolated vertices).  Right after phase 9 a 2-member
+   HTTP gang (``launch_serving_gang``, cache 256, batch 0, the live bus
+   on) and a pool process's single-process ``ShardStore`` over all 64
+   partitions (64 rows a shard) build beside phases 10-11; the mean
+   replica count equals the artifact's and phase 3's RF, and phase 3's
+   edge list gives the oracle of 512 distinct Zipf targets and 512
+   boundary vertices (seed 2).  After phase 11: (a) 20,000 queries in
+   the single process, cache on and off (mean, p50, p99, hit ratio,
+   decodes; the cache-on p99 below the cache-off p99); (b) the gang's
+   time to ready and 2,000 queries through ``GangClient`` (QPS, p50,
+   p99, the fan-out histogram beside the replica counts).  Each checked
+   vertex's neighbors and degree, in the single process and through the
+   gang, equal the oracle; fan-out equals the replica count in the full
+   store and is at most it through the gang; features through the gang
+   are ``vertex_features``' bytes; the 2-hop set and ppr (eps 1e-3) of 4
+   boundary vertices of degree <= 8 through the gang equal the single
+   process's (``==``); ``/health``, ``/metrics``, the live bus's serve
+   rows, a terminated member found by ``poll_dead()``, and no member
+   left after ``close()``.
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU
 fallback: without a CUDA device the script exits non-zero.
@@ -387,6 +409,20 @@ RESUME_MODELS = ("deepfm", "lm")
 RESUME_ROWS = 65536                # (d)'s DeepFM: rows a field
 RESUME_BATCH = 4096
 RESUME_LM = (2, 512, 2)            # (d)'s LM: layers, S, B (bf16)
+# phase 14: serving phase 9's artifact, benchmarks/bench_serve.py's traffic
+SERVE_QUERIES = 20000              # (a)'s Zipf stream (bench_serve.py:88)
+SERVE_GANG_QUERIES = 2000          # (b): its first 2,000 (bench_serve.py:171)
+SERVE_ZIPF = (1.3, 1)              # Zipf a, seed (bench_serve.py:33, :102)
+SERVE_ROWS = 64                    # (a)'s rows a shard (bench_serve.py:105)
+SERVE_CACHE = 256                  # decoded shards kept (bench_serve.py:104)
+SERVE_GROUPS = 2                   # the gang's members (bench_serve.py:166)
+SERVE_PROBE = (512, 2)             # checked Zipf heads and boundary draws;
+#                                    the draw's seed (bench_serve.py:115)
+SERVE_WALKS = (4, 8, 8192)         # traversals: boundary vertices of degree
+#                                    <= 8, the first of 8,192 drawn
+SERVE_PPR_EPS = 1e-3               # bench_serve.py:156
+SERVE_READY_S = 600                # the gang's builds run beside phases 10-11
+SERVE_CHECK_THREADS = 4            # clients checking the gang against oracle
 
 
 def timed_build(build) -> float:
@@ -2643,7 +2679,8 @@ def phase_driver(torch, np, edges, res, per_round_3b: float, chunks: int,
     (b) did into a store of its own, each with the bytes of (b)'s step
     dir, and its artifact must have (b)'s bytes; that artifact is loaded
     back and must equal the run's result.  Returns (c)'s launch counts,
-    (b)'s (from its trace) and the EdgeFile (phase 10 reads it).
+    (b)'s (from its trace), the EdgeFile (phase 10 reads it) and (b)'s
+    artifact, moved into ``tmp`` (phase 14 serves it).
     """
     import shutil
 
@@ -2861,7 +2898,9 @@ def phase_driver(torch, np, edges, res, per_round_3b: float, chunks: int,
               f"byte-identical, {art_bytes} B in {len(names)} files, loaded "
               f"back in {load_s!r} s and equal to phase 3's result; phase 9 "
               f"took {time.perf_counter() - t_phase:.1f} s", flush=True)
-        return launches, launches_b, ef
+        kept = os.path.join(tmp, "artifact")
+        shutil.move(art_b, kept)
+        return launches, launches_b, ef, kept
     finally:
         shutil.rmtree(run, ignore_errors=True)
 
@@ -4637,6 +4676,317 @@ def phase_train(torch, np, args) -> list:
     print(f"phase 12: took {time.perf_counter() - t0:.1f} s", flush=True)
     return [bag_row, flash_row]
 
+def serve_oracle(np, edges, n: int, vs) -> dict:
+    """{v: sorted unique neighbors of v over both columns of the edge
+    list} for each v of ``vs``, from the edge list alone."""
+    sel = np.zeros(n, bool)
+    sel[vs] = True
+    keys = []
+    for a, b in ((0, 1), (1, 0)):
+        hit = sel[edges[:, a]]
+        keys.append(edges[hit, a].astype(np.int64) * n + edges[hit, b])
+    keys = np.unique(np.concatenate(keys))
+    owner, starts = np.unique(keys // n, return_index=True)
+    rows = dict(zip(owner.tolist(), np.split(keys % n, starts[1:])))
+    return {v: rows.get(v, np.zeros(0, np.int64))
+            for v in map(int, vs)}
+
+
+def serve_single(art_dir: str, targets, probe, walks,
+                 submitted: float) -> dict:
+    """Phase 14 (a), in a pool process beside phases 10-11: the
+    single-process configuration, a ``ShardStore`` over every partition
+    of ``art_dir`` (``SERVE_ROWS`` rows a shard), then
+    ``bench_serve.py``'s storm, the ``targets``' neighbor queries with
+    ``batch=0``, once with the LRU at ``SERVE_CACHE`` entries and once
+    with it off.  Then, cache on, each ``probe`` vertex's neighbors,
+    degree and fan-out, and each ``walks`` vertex's 2-hop set and ppr
+    (eps 1e-3) with the neighbor calls each made."""
+    sys.path.insert(0, SRC)
+    import numpy as np
+
+    from repro_torch.runtime.artifact import load_artifact
+    from repro_torch.serve import LRUCache, PartitionService, ShardStore
+
+    waited = time.time() - submitted
+    t_job = time.perf_counter()
+    art = load_artifact(art_dir)
+    t0 = time.perf_counter()
+    store = ShardStore(art, rows_per_shard=SERVE_ROWS,
+                       cache_entries=SERVE_CACHE)
+    build_s = time.perf_counter() - t0
+    arms = {}
+    for label, cache in (("cache on", SERVE_CACHE), ("cache off", 0)):
+        store.cache, store.decodes = LRUCache(cache), 0
+        svc = PartitionService(store, batch=0)
+        lats = np.empty(len(targets))
+        for i, v in enumerate(targets):
+            t0 = time.perf_counter()
+            svc.neighbors(v)
+            lats[i] = (time.perf_counter() - t0) * 1e6
+        p50, p99 = (float(x) for x in np.percentile(lats, [50, 99]))
+        arms[label] = {"mean_us": float(lats.mean()), "p50_us": p50,
+                       "p99_us": p99,
+                       "hit_ratio": store.cache.hit_ratio(),
+                       "decodes": store.decodes}
+        svc.close()
+    store.cache = LRUCache(SERVE_CACHE)
+    svc = PartitionService(store, batch=0)
+    answers = {}
+    for v in map(int, probe):
+        nbrs = svc.neighbors(v)
+        answers[v] = (nbrs, svc.degree(v), svc._fanout[-1])
+    walked = {}
+    for v in map(int, walks):
+        s0 = svc.served
+        hop = svc.k_hop(v, 2)
+        s1 = svc.served
+        mass = svc.ppr(v, eps=SERVE_PPR_EPS)
+        walked[v] = (hop, s1 - s0, mass, svc.served - s1)
+    st = store.stats()
+    return {"waited_s": waited, "build_s": build_s,
+            "bytes": st["compressed_bytes"],
+            "shards": sum(ps.num_shards for ps in store._parts.values()),
+            "arms": arms, "answers": answers, "walks": walked,
+            "job_s": time.perf_counter() - t_job}
+
+
+def start_serving(np, pool, art_dir: str, edges, rf: float, work: str):
+    """Phase 14's start, right after phase 9 (``art_dir`` is (b)'s
+    artifact, ``edges`` phase 3's edge list and ``rf`` its RF): the
+    checked vertices and their oracle from the edge list, then a
+    ``SERVE_GROUPS``-member gang launched in a thread and the
+    single-process job submitted to ``pool`` (their stores build beside
+    phases 10-11).  Returns what ``phase_serve`` reads."""
+    from repro_torch.runtime.artifact import load_artifact
+    from repro_torch.serve import launch_serving_gang
+
+    t0 = time.perf_counter()
+    art = load_artifact(art_dir)
+    reps = art.replica_counts()
+    # the artifact's non-isolated and boundary vertices, as
+    # vparts.any(axis=1) and boundary_vertices() give them
+    verts, boundary = np.flatnonzero(reps > 0), np.flatnonzero(reps > 1)
+    rf_mean = float(reps.mean())
+    print(f"phase 14: the artifact's replica counts: mean over all "
+          f"{reps.size} vertices {rf_mean!r}, over the {verts.size} "
+          f"non-isolated {float(reps[verts].mean())!r}; the manifest's RF "
+          f"{art.replication_factor!r}, phase 3's {rf!r}", flush=True)
+    check(rf_mean == art.replication_factor == rf,
+          f"phase 14: the mean replica count {rf_mean!r}, the artifact's "
+          f"RF {art.replication_factor!r} and phase 3's {rf!r} differ")
+    # bench_serve.py's stream: Zipf ranks over the non-isolated vertices,
+    # rank r asking verts[min(r - 1, n - 1)]; checked: its first distinct
+    # targets and a draw of boundary vertices
+    a, seed = SERVE_ZIPF
+    ranks = np.random.default_rng(seed).zipf(a, size=SERVE_QUERIES)
+    targets = verts[np.minimum(ranks - 1, verts.size - 1)]
+    count, seed = SERVE_PROBE
+    _, first = np.unique(targets, return_index=True)
+    head = targets[np.sort(first)][:count]
+    drawn = np.random.default_rng(seed).choice(
+        boundary, size=min(count, boundary.size), replace=False)
+    # the traversals start from boundary vertices of low degree (a hub's
+    # 2-hop set is millions of vertices, an HTTP call each): the first
+    # ones of a larger draw, since few of the 512 drawn qualify
+    t1 = time.perf_counter()
+    count, bound, pool_size = SERVE_WALKS
+    cand = np.random.default_rng(SERVE_PROBE[1]).choice(
+        boundary, size=min(pool_size, boundary.size), replace=False)
+    found = serve_oracle(np, edges, art.num_vertices,
+                         np.unique(np.concatenate([head, drawn, cand])))
+    walks = [v for v in map(int, cand) if found[v].size <= bound][:count]
+    check(len(walks) == count,
+          f"phase 14: {len(walks)} of {cand.size} drawn boundary vertices "
+          f"have degree <= {bound}, not {count}")
+    probe = np.unique(np.concatenate([head, drawn, walks]))
+    oracle = {v: found[v] for v in probe.tolist()}
+    oracle_s = time.perf_counter() - t1
+    bus = os.path.join(work, "serve_live")
+    launcher = ThreadPoolExecutor(1)
+
+    def launch():
+        t = time.perf_counter()
+        gang = launch_serving_gang(
+            art_dir, SERVE_GROUPS, log_dir=os.path.join(work, "serve_logs"),
+            cache=SERVE_CACHE, batch=0, timeout_s=SERVE_READY_S,
+            extra_env={"PYTHONPATH": SRC, "REPRO_LIVE_METRICS": bus})
+        return gang, time.perf_counter() - t
+
+    gang = launcher.submit(launch)
+    launcher.shutdown(wait=False)
+    job = pool.submit(serve_single, art_dir, targets, probe, walks,
+                      time.time())
+    print(f"phase 14: started the {SERVE_GROUPS}-member gang and the "
+          f"single-process job; {probe.size} checked vertices ({head.size} "
+          f"Zipf heads, {drawn.size} boundary draws, {count} traversal "
+          f"starts of degree <= {bound} from {cand.size} more), their "
+          f"oracle from phase 3's edge list, in "
+          f"{oracle_s:.2f} s; traversals from {walks}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return {"art": art, "reps": reps, "targets": targets, "oracle": oracle,
+            "walks": walks, "gang": gang, "job": job, "bus": bus}
+
+
+def stop_serving(serving) -> None:
+    """Closes phase 14's gang, whatever phase 14 reached."""
+    if serving is not None:
+        try:
+            serving["gang"].result(timeout=SERVE_READY_S)[0].close()
+        except Exception:  # noqa: BLE001 — its launch failed: nothing up
+            pass
+
+
+def phase_serve(np, serving) -> None:
+    """Phase 14: phase 9's artifact served.  (a) the single-process job's
+    storms (cache on, cache off) and store; (b) the gang: time to ready,
+    ``SERVE_GANG_QUERIES`` Zipf queries in sequence through
+    ``GangClient`` (QPS, p50, p99, the fan-out histogram beside the
+    queried vertices' mean replica count).  Checks: each checked vertex's
+    neighbors in the single process and through the gang equal the
+    oracle and its degree their length; the full store's fan-out equals
+    the replica count, the gang's is at most it (the client raises
+    otherwise); features through the gang are ``vertex_features``'
+    bytes; each traversal through the gang equals the single process's
+    (``ppr`` dicts by ``==``); ``/health`` lists each member's
+    round-robin group, ``/metrics`` carries
+    ``repro_serve_requests_total``, the live bus shows both members
+    serving with a qps; member 1 terminated is ``poll_dead() == [1]``;
+    after ``close()`` no member is left."""
+    import urllib.request
+
+    from repro_torch.obs.monitor import BusMonitor
+    from repro_torch.serve import (GangClient, group_partitions,
+                                   vertex_features)
+
+    t_phase = time.perf_counter()
+    art, reps, oracle = serving["art"], serving["reps"], serving["oracle"]
+    one = serving["job"].result()
+    arms = one["arms"]
+    print(f"phase 14 (a): the single-process store (every partition, "
+          f"{SERVE_ROWS} rows a shard) built in {one['build_s']!r} s "
+          f"beside phases 10-11, {one['bytes']} compressed B in "
+          f"{one['shards']} shards; the job waited {one['waited_s']:.1f} s"
+          f" and took {one['job_s']:.1f} s; {SERVE_QUERIES} Zipf queries, "
+          f"batch 0: " + "; ".join(
+              f"{k}: mean {a['mean_us']!r} us, p50 {a['p50_us']!r} us, "
+              f"p99 {a['p99_us']!r} us, hit ratio {a['hit_ratio']!r}, "
+              f"{a['decodes']} decodes" for k, a in arms.items()),
+          flush=True)
+    check(arms["cache on"]["p99_us"] < arms["cache off"]["p99_us"],
+          "phase 14 (a): the cache-on p99 is not below the cache-off p99")
+    for v, want in oracle.items():
+        nbrs, deg, fanout = one["answers"][v]
+        check(np.array_equal(nbrs, want) and deg == want.size,
+              f"phase 14 (a): vertex {v}'s neighbors or degree differ "
+              f"from phase 3's edge list")
+        check(fanout == reps[v],
+              f"phase 14 (a): vertex {v} fanned out to {fanout} "
+              f"partitions, not its {reps[v]} replicas")
+
+    gang, ready_s = serving["gang"].result(timeout=SERVE_READY_S)
+    cli = GangClient(art, gang.ports)
+    queried = serving["targets"][:SERVE_GANG_QUERIES]
+    lats = np.empty(queried.size)
+    t0 = time.perf_counter()
+    for i, v in enumerate(queried.tolist()):
+        t = time.perf_counter()
+        cli.neighbors(v)
+        lats[i] = (time.perf_counter() - t) * 1e3
+    storm_s = time.perf_counter() - t0
+    cst = cli.stats()
+    p50, p99 = (float(x) for x in np.percentile(lats, [50, 99]))
+    rep_mean = float(reps[queried].mean())
+    print(f"phase 14 (b): the gang ready {ready_s!r} s after its launch; "
+          f"{queried.size} Zipf queries in sequence through GangClient: "
+          f"{queried.size / storm_s!r} QPS, p50 {p50!r} ms, p99 {p99!r} "
+          f"ms; fan-out {cst['fanout_hist']}, mean "
+          f"{cst['fanout_mean']!r} beside the queried vertices' mean "
+          f"replica count {rep_mean!r}", flush=True)
+    check(max(cst["fanout_hist"]) <= SERVE_GROUPS
+          and cst["fanout_mean"] <= rep_mean,
+          f"phase 14 (b): fan-out {cst['fanout_hist']} exceeds the "
+          "replica counts")
+
+    t0 = time.perf_counter()
+
+    def differ(items):
+        # a client a thread: GangClient counts without a lock
+        c = GangClient(art, gang.ports)
+        return [v for v, want in items
+                if not (np.array_equal(c.neighbors(v), want)
+                        and c.degree(v) == want.size)]
+
+    items = list(oracle.items())
+    with ThreadPoolExecutor(SERVE_CHECK_THREADS) as ex:
+        bad = sum(ex.map(differ, [items[i::SERVE_CHECK_THREADS]
+                                  for i in range(SERVE_CHECK_THREADS)]), [])
+    check(not bad, f"phase 14 (b): vertices {bad[:8]}' neighbors or degrees "
+          "through the gang differ from phase 3's edge list")
+    feats = list(oracle)[:64]
+    check(all(cli.feature(v).tobytes()
+              == vertex_features(np.asarray([v]))[0].tobytes()
+              for v in feats),
+          "phase 14 (b): features through the gang differ from "
+          "vertex_features'")
+    walked = []
+    for v in serving["walks"]:
+        hop1, calls1, mass1, pcalls1 = one["walks"][v]
+        s0 = cli.served
+        hop = cli.k_hop(v, 2)
+        s1 = cli.served
+        mass = cli.ppr(v, eps=SERVE_PPR_EPS)
+        check(np.array_equal(hop, hop1) and mass == mass1,
+              f"phase 14 (b): vertex {v}'s 2-hop set or ppr through the "
+              "gang differ from the single process's")
+        walked.append(f"{v}: 2-hop {hop.size} vertices, {s1 - s0} "
+                      f"(single {calls1}) calls; ppr {len(mass)} vertices, "
+                      f"{cli.served - s1} (single {pcalls1}) calls")
+    print(f"phase 14 (b): {len(oracle)} vertices' neighbors and degrees "
+          f"through the gang == phase 3's edge list == the single "
+          f"process's, fan-out == the replica count in the full store; "
+          f"{len(feats)} features == vertex_features' bytes; traversals "
+          f"== the single process's ({'; '.join(walked)}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    for g, h in enumerate(cli.health()):
+        check(h["partitions"] == group_partitions(art.num_partitions, g,
+                                                  SERVE_GROUPS),
+              f"phase 14: member {g} serves {h['partitions']}")
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{gang.ports[g]}/metrics") as resp:
+            check("repro_serve_requests_total" in resp.read().decode(),
+                  f"phase 14: member {g}'s /metrics lacks "
+                  "repro_serve_requests_total")
+    served = [s["served"] for s in cli.gang_stats()]
+    deadline = time.monotonic() + 15
+    while True:
+        mon = BusMonitor(serving["bus"])
+        mon.poll()
+        rows = mon.assess()["hosts"]
+        if (len(rows) == SERVE_GROUPS
+                and all(r["phase"] == "serve" and r["qps"] is not None
+                        for r in rows.values())):
+            break
+        check(time.monotonic() < deadline,
+              f"phase 14: the live bus shows {rows}, not both members "
+              "serving")
+        time.sleep(0.25)
+    gang.procs[1].terminate()
+    gang.procs[1].wait(timeout=30)
+    dead = gang.poll_dead()
+    gang.close()
+    check(dead == [1], f"phase 14: poll_dead() is {dead}, not [1]")
+    check(all(p.poll() is not None for p in gang.procs),
+          "phase 14: a gang member outlived close()")
+    print(f"phase 14: /health lists each member's round-robin group, "
+          f"/metrics carries repro_serve_requests_total, the live bus "
+          f"shows {len(rows)} members serving (qps "
+          f"{[r['qps'] for r in rows.values()]}); served {served}; member "
+          f"1 terminated: poll_dead() == [1]; no member left after "
+          f"close(); phase 14 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4888,6 +5238,10 @@ def main() -> None:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
         "spawn"))
+    # phase 14's single-process job, in a process of its own beside 10-11
+    serve_pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    serving = None
     try:
         oracles = start_app_oracles(np, pool, main_edges, 1 << args.scale,
                                     work)
@@ -4895,12 +5249,17 @@ def main() -> None:
         family_cpu = start_family_oracles(pool)
         # --- phase 9: the driver from the store, killed and resumed ---------
         mark("9")
-        launches_drv, launches_mh, ef = phase_driver(
+        launches_drv, launches_mh, ef, art_dir = phase_driver(
             torch, np, main_edges, res, wall_sm / max(rounds, 1), chunks,
             dev, args.scale, work)
         for r in rows + bit_rows:
             r["launches_driver"] = launches_drv[r["name"]]
             r["launches_mh"] = launches_mh[r["name"]]
+
+        # --- phase 14's start: its gang and store builds beside 10-11 --------
+        mark("14a")
+        serving = start_serving(np, serve_pool, art_dir, main_edges,
+                                res.stats.replication_factor, work)
 
         # --- phase 10: baselines and hybrid ----------------------------------
         mark("10")
@@ -4928,7 +5287,13 @@ def main() -> None:
         del main_edges, res
         phase_families(torch, np, dev, family_cpu)
         print(f"phase 11: took {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # --- phase 14: phase 9's artifact served ------------------------------
+        mark("14")
+        phase_serve(np, serving)
     finally:
+        stop_serving(serving)
+        serve_pool.shutdown(cancel_futures=True)
         pool.shutdown(cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
 

@@ -277,8 +277,32 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.obs.export, repro_torch.obs.report\n"
         "import repro_torch.obs.monitor, repro_torch.tools.launch_multihost\n"
         "import repro_torch.tools.monitor_run, repro_torch.tools.report_run\n"
+        "import repro_torch.serve, repro_torch.serve.cache\n"
+        "import repro_torch.serve.batch, repro_torch.serve.store\n"
+        "import repro_torch.serve.service, repro_torch.serve.server\n"
+        "import repro_torch.serve.gang\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print('CLEAN')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "CLEAN" in proc.stdout
+
+
+def test_serving_host_imports_no_torch_no_jax_no_repro():
+    """A gang member starts without torch: ``repro_torch.serve.server``
+    and ``repro_torch.serve.gang`` load numpy and the standard library,
+    never torch, jax or anything of ``repro``."""
+    code = (
+        "import sys\n"
+        "import repro_torch.serve.server, repro_torch.serve.gang\n"
+        "import repro_torch.serve\n"
+        "repro_torch.serve.GangClient, repro_torch.serve.ShardStore\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'repro')]\n"
         "assert not bad, bad\n"
         "print('CLEAN')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -321,7 +345,10 @@ def test_port_sources_name_no_jax_and_no_repro():
                 "configs/kimi_k2_1t_a32b.py", "runtime/finalize.py",
                 "runtime/multihost.py", "obs/export.py", "obs/report.py",
                 "obs/monitor.py", "tools/launch_multihost.py",
-                "tools/monitor_run.py", "tools/report_run.py"):
+                "tools/monitor_run.py", "tools/report_run.py",
+                "serve/__init__.py", "serve/cache.py", "serve/batch.py",
+                "serve/store.py", "serve/service.py", "serve/server.py",
+                "serve/gang.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_spmd_ranks.py"]
     assert len(files) > 25
