@@ -253,7 +253,38 @@ Phases, each printing its lines; any failed check exits non-zero:
    boundary vertices of degree <= 8 through the gang equal the single
    process's (``==``); ``/health``, ``/metrics``, the live bus's serve
    rows, a terminated member found by ``poll_dead()``, and no member
-   left after ``close()``.
+   left after ``close()``;
+15. the device mesh and the sharded steps (``launch.mesh.make_host_mesh(1)``:
+   a world-1 NCCL group, mesh (1, 1) over ("data", "model")), each against
+   its mesh-free step bit for bit: (a) olmoe-1b-7b train_4k at full width
+   with 4 of its 16 layers (bf16, S 4,096, B 4, cut from 8: at 8 the step ran out of the 80 GB; 1.89 B
+   parameters), 5
+   steps through the mesh step (expert parallelism and data parallelism
+   under ``mesh_context``) with the counts set to 0 just before and read
+   just after (2L forward and L backward flash launches a step), loss,
+   grad norm, parameters, m and v equal to the mesh-free steps', ms a
+   step (the median of the steps after the first, each way), tokens/s
+   and peak memory; one card-against-CPU step through the mesh step in
+   float32 with 2 layers (the CPU replaying the card's tied router
+   choices; its CPU step runs in a thread beside (b), (c) and phase 9,
+   and is compared after phase 9); (b) split-KV across ranks at olmoe's
+   decode_32k layer (B 8, 16 kv heads, D 128, 32,768 rows): the cache
+   cut into 1, 2 and 4 slices, each slice's partial (float32 rows and
+   LSE) by the flash kernel against its plain version, merged by
+   ``merge_kernel``, kv_len inside the last slice, at a slice boundary
+   and inside the first (later slices empty), and with one quarter's
+   keys doubled (slices of clearly different LSEs): the merge against its
+   plain version and against the whole-cache call (bit for bit at one
+   slice), and merges with wrong weights must miss the whole-cache call;
+   its times beside its bound, a row in the kernels line; then olmoe's
+   decode_32k step (4 layers, B 8) through the mesh (its rules cut no
+   sequence at world 1: the single-card attention) and through
+   ``Transformer.decode`` with the cache's sequence over ("data",
+   "model") (split-KV, one slice: one partial and one merge a layer,
+   counted), each against the mesh-free step; (c) DeepFM train_batch at
+   full width and GIN full_graph_sm through the mesh against their
+   mesh-free steps (the embedding_bag kernels and block_spmm on the
+   sharded path, their launches equal).
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU
 fallback: without a CUDA device the script exits non-zero.
@@ -338,6 +369,9 @@ REPLACES = {
     # lax.scan loops, not Pallas kernels: XLA runs them one edge a step
     "hdrf_scan": "src/repro/core/baselines.py:56",
     "oblivious_scan": "src/repro/core/baselines.py:100",
+    # no TPU kernel: GSPMD splits the reference's decode softmax over a
+    # sequence-sharded cache; the merge of the ranks' partials is its step
+    "flash_attention_merge": "src/repro/models/lm/transformer.py:237",
 }
 BIT_KERNELS = ("pack_bits", "unpack_bits", "or_words")
 # phase 10: the baselines' stream kernels, the quality matrix, the hybrid
@@ -423,6 +457,14 @@ SERVE_WALKS = (4, 8, 8192)         # traversals: boundary vertices of degree
 SERVE_PPR_EPS = 1e-3               # bench_serve.py:156
 SERVE_READY_S = 600                # the gang's builds run beside phases 10-11
 SERVE_CHECK_THREADS = 4            # clients checking the gang against oracle
+MESH_LAYERS = 4                    # phase 15 (a): olmoe's layers (of 16)
+MESH_BATCH = 4                     # (a): train_4k's S 4,096, FULL_BATCH cut to 4
+MESH_STEPS = 5                     # (a) and (c): steps each way, the
+#                                    median of the last 4 timed
+MESH_CHECK = (2, 64, 1)            # (a)'s card-vs-CPU step: layers, S, B
+MESH_CHECK_THREADS = 4             # its CPU step's threads, beside phase 9
+SPLIT_RANKS = (1, 2, 4)            # (b): slices of the decode_32k cache
+SPLIT_DECODE_LEN = 20000           # (b): the decode step's cache_len
 
 
 def timed_build(build) -> float:
@@ -4988,6 +5030,612 @@ def phase_serve(np, serving) -> None:
           flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 15: the device mesh and the sharded steps, world 1 on the card
+# --------------------------------------------------------------------------
+
+def tree_equal(torch, got, want) -> bool:
+    """Two tensor trees (in tree_leaves order) equal bit for bit; ``want``
+    may lie on the host (each leaf is compared on ``got``'s device)."""
+    from repro_torch.tree import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x, y.to(x.device)) for x, y in zip(a, b))
+
+
+def step_ms(secs) -> float:
+    """ms a step: the median of the steps after the first (the first
+    builds the caches and the allocator's pool)."""
+    import statistics
+
+    return statistics.median(secs[1:]) * 1e3
+
+
+def mesh_steps(torch, fn, start: list, batches) -> tuple:
+    """Train steps of ``fn`` from ``start`` = [params, state], which it
+    empties (so that each step's inputs are freed as the next is made),
+    one a batch, each timed on the host clock to its synchronise:
+    (params, state, losses, grad norms, seconds a step)."""
+    params, state = start
+    start.clear()
+    losses, norms, secs = [], [], []
+    for tok in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss, gn = fn(params, state, *tok)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        norms.append(float(gn))
+    return params, state, losses, norms, secs
+
+
+def mesh_train_olmoe(torch, np, mesh, card: str) -> None:
+    """Phase 15 (a): olmoe-1b-7b train_4k at full width with MESH_LAYERS of
+    its 16 layers (bf16, remat "dots", S 4,096, B MESH_BATCH), MESH_STEPS
+    steps through ``make_step(..., mesh=make_host_mesh(1))`` (EP and DP
+    under ``mesh_context``) with the counts set to 0 just before and read
+    just after, against the same steps mesh-free from the same seeded
+    parameters and batches: loss, grad norm, parameters, m and v bit for
+    bit.  ms a step (:func:`step_ms`, each way), tokens/s and peak memory
+    of the mesh run."""
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.dist import compat
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.lm.transformer import Transformer
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(olmoe_1b_7b.CONFIG, n_layers=MESH_LAYERS)
+    shape = dict(kind="train", seq_len=4096, global_batch=MESH_BATCH)
+    ocfg = steps.lm_opt_config(cfg)
+    batches = [(tlaunch.synthetic_batch(cfg, shape, i, tlaunch.SEED, dev),)
+               for i in range(MESH_STEPS)]
+
+    def init():
+        gen = torch.Generator(device=dev).manual_seed(tlaunch.SEED)
+        p = tree_map(lambda t: t.detach(),
+                     Transformer(cfg, gen, device=dev).param_tree())
+        return p, opt.init(p, ocfg)
+
+    t0 = time.perf_counter()
+    free = steps.make_lm_step(cfg, shape)
+    start = list(init())
+    nparam = sum(t.numel() for t in tree_leaves(start[0]))
+    out = mesh_steps(torch, free.fn, start, batches)
+    f_loss, f_norm, f_secs = out[2:]
+    t_free = time.perf_counter() - t0
+    want = tree_map(lambda t: t.cpu(), out[:2])    # 19 GB: both do not fit
+    del out
+    torch.cuda.empty_cache()
+    t_copy = time.perf_counter() - t0 - t_free
+
+    meshed = steps.make_lm_step(cfg, shape, mesh)     # make_step's LM path
+    start = [compat.shard_tree(x, lay, mesh)
+             for x, lay in zip(init(), meshed.layout[:2])]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    params, state, m_loss, m_norm, m_secs = mesh_steps(
+        torch, meshed.fn, start, batches)
+    L = cfg.n_layers
+    counts = check_counts("phase 15 (a)", {
+        "flash_attention": 2 * L * MESH_STEPS,
+        "flash_attention_backward": L * MESH_STEPS})
+    peak = torch.cuda.max_memory_allocated()
+    check(m_loss == f_loss and m_norm == f_norm,
+          f"phase 15 (a): mesh losses {m_loss} norms {m_norm}, mesh-free "
+          f"{f_loss} {f_norm}")
+    check(all(np.isfinite(m_loss)), f"phase 15 (a): losses {m_loss}")
+    t1 = time.perf_counter()
+    check(tree_equal(torch, (params, state), want),
+          "phase 15 (a): the mesh step's parameters or optimizer state "
+          "differ from the mesh-free step's")
+    t_cmp = time.perf_counter() - t1
+    tokens = MESH_BATCH * 4096
+    m_ms, f_ms = step_ms(m_secs), step_ms(f_secs)
+    print(f"phase 15 (a): {cfg.name} train_4k at full width, {L} of 16 "
+          f"layers ({nparam} parameters, bf16, remat {cfg.remat}), S 4096, "
+          f"B {MESH_BATCH}, {MESH_STEPS} steps through make_step(mesh="
+          f"make_host_mesh(1)) (world-1 NCCL, mesh (1, 1); replicated "
+          f"rules {meshed.meta['replicated']}) == mesh-free bit for bit: "
+          f"losses {m_loss}, grad norms {m_norm}, parameters, m and v; "
+          f"{m_ms!r} ms a step (the median of steps 2-{MESH_STEPS}; "
+          f"mesh-free {f_ms!r}; each step's ms, mesh "
+          f"{[x * 1e3 for x in m_secs]}, mesh-free "
+          f"{[x * 1e3 for x in f_secs]}), "
+          f"{tokens / m_ms * 1e3!r} tokens/s, peak {peak / 1e9:.3f} GB "
+          f"({peak} B; {base} B held before) on {card}; launches {counts}; "
+          f"mesh-free init and steps {t_free:.1f} s, its state to the host "
+          f"{t_copy:.1f} s, compared on the card {t_cmp:.1f} s", flush=True)
+    del params, state, want
+    torch.cuda.empty_cache()
+
+
+def start_mesh_check(torch, mesh):
+    """Phase 15 (a)'s card-against-CPU step: olmoe-1b-7b at full width in
+    float32 with MESH_CHECK's layers, S and B, one step through the mesh
+    step on the card from seeded parameters and a fresh AdamW state
+    (recording the router's order, :func:`route_tape`), then the same
+    step on the CPU in a thread of MESH_CHECK_THREADS intra-op threads
+    (the CPU replaying the card's tied router choices) while the card
+    goes on with (b), (c) and phase 9.  Returns what
+    :func:`finish_mesh_check` compares."""
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.lm.transformer import Transformer
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    layers, s, b = MESH_CHECK
+    # remat "none": the tape numbers the router's calls, and a recompute
+    # would call it again (remat moves memory, not values: tests hold the
+    # three modes bit for bit)
+    ccfg = dataclasses.replace(olmoe_1b_7b.CONFIG, n_layers=layers,
+                               dtype=torch.float32, remat="none")
+    shape = dict(kind="train", seq_len=s, global_batch=b)
+    fn = steps.make_lm_step(ccfg, shape, mesh).fn
+    # drawn on the card (the host's draw of 1 B values took ~8 s), the
+    # CPU's copy of the same values
+    pc = tree_map(lambda p: p.detach(), Transformer(
+        ccfg, torch.Generator(device=dev).manual_seed(15),
+        device=dev).param_tree())
+    p0 = tree_map(lambda p: p.cpu(), pc)
+    s0 = opt.init(p0, steps.OPT_CFG)
+    t_init = time.perf_counter() - t0
+    tape = route_tape(torch, ccfg.moe.top_k)
+    with tape:
+        card = fn(pc, opt.init(pc, steps.OPT_CFG),
+                  tlaunch.synthetic_batch(ccfg, shape, 0, 15, dev))
+    del pc
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0 - t_init
+
+    def host_step():
+        t1 = time.perf_counter()
+        torch.set_num_threads(MESH_CHECK_THREADS)     # this thread's own
+        rep = route_tape(torch, ccfg.moe.top_k, tape)
+        with rep:
+            host = fn(p0, s0, tlaunch.synthetic_batch(ccfg, shape, 0, 15,
+                                                      "cpu"))
+        return host, rep, time.perf_counter() - t1
+
+    pool = ThreadPoolExecutor(1)
+    return dict(card=card, host=pool.submit(host_step), pool=pool, t0=t0,
+                t_init=t_init, t_card=t_card, shape=(layers, s, b))
+
+
+def finish_mesh_check(torch, check_state) -> None:
+    """Phase 15 (a)'s check, compared on the card: loss and grad_norm
+    within 1e-5 relative, m within 1e-4 and v within 1e-3 of each leaf's
+    largest, parameters within 1e-5 + 1e-6 |p| except where the step's
+    gradient is under 1e-4 of its leaf's largest (:func:`forced_steps`'s
+    rules for one step from a zero state)."""
+    from repro_torch.launch.steps import OPT_CFG
+    from repro_torch.tree import tree_leaves
+
+    c = check_state
+    t_wait = time.perf_counter()
+    host, rep, t_host = c["host"].result()
+    c["pool"].shutdown()
+    t1 = time.perf_counter()
+    t_wait = t1 - t_wait
+    (gp, gs, gl, gn), (wp, ws, wl, wn) = c["card"], host
+    gl, gn, wl, wn = (float(x) for x in (gl, gn, wl, wn))
+    check(abs(gl - wl) <= 1e-5 * abs(wl) and abs(gn - wn) <= 1e-5 * abs(wn),
+          f"phase 15 (a) card vs CPU: loss {gl!r} gnorm {gn!r}, CPU {wl!r} "
+          f"{wn!r}")
+    for key, tol in (("m", 1e-4), ("v", 1e-3)):
+        for j, (a, w) in enumerate(zip(tree_leaves(gs[key]),
+                                       tree_leaves(ws[key]))):
+            w = w.to(a.device)
+            e, top = float((a - w).abs().max()), float(w.abs().max())
+            check(e <= tol * top, f"phase 15 (a) card vs CPU: {key} leaf "
+                  f"{j} {tuple(a.shape)} differs by {e!r}, its largest "
+                  f"{top!r}")
+    worst, let_off = 0.0, 0
+    for a, w, m_new in zip(tree_leaves(gp), tree_leaves(wp),
+                           tree_leaves(ws["m"])):
+        w, m_new = w.to(a.device), m_new.to(a.device)
+        g = m_new.abs()                      # (1 - b1) |g| from a zero m
+        near = g <= 1e-4 * float(g.max())
+        d = (a - w).abs()
+        far = d > 1e-5 + 1e-6 * w.abs()
+        check(not bool((far & ~near).any()),
+              f"phase 15 (a) card vs CPU: parameters differ by "
+              f"{float(d[~near].max())!r} where the gradient is not near 0")
+        if bool((~near).any()):
+            worst = max(worst, float(d[~near].max()))
+        let_off += int((far & near).sum())
+    layers, s, b = c["shape"]
+    print(f"phase 15 (a): card vs CPU through the mesh step (float32, "
+          f"remat none, olmoe's full width, {layers} layers, S {s}, B {b}, "
+          f"one step from the same seeded state; the CPU replays the "
+          f"card's tied router choices, chosen probabilities within "
+          f"{rep.max_diff!r}, tied: {rep.tied or 'none'}): loss {wl!r}, "
+          f"grad_norm, m and v equal within tolerance, parameters within "
+          f"{worst!r} (tol 1e-5 + 1e-6|p|; {let_off} entries with a "
+          f"gradient near 0 let off); init {c['t_init']:.1f} s, card step "
+          f"{c['t_card']:.1f} s, CPU step {t_host:.1f} s (in a thread of "
+          f"{MESH_CHECK_THREADS} beside (b), (c) and phase 9; waited "
+          f"{t_wait:.1f} s for it), compare {time.perf_counter() - t1:.1f} "
+          f"s; "
+          f"{time.perf_counter() - c['t0']:.1f} s from its start",
+          flush=True)
+
+
+def split_slices(torch, fa, q, k, v, kv_len: int, r: int, faref=None):
+    """R ranks' partials of one decode layer, the cache's rows cut into R
+    equal slices as R ranks would hold them: each slice with a kept row
+    through the kernel (``flash_attention_partials``), an empty one as
+    o = 0, lse = -inf; stacked (R, ...).  With ``faref``, each kernel
+    partial is held against ``faref.attention_partials_ref`` on the same
+    slice (o and lse within 2e-5 + 2e-5 |plain|), and the largest errors
+    of o and lse come back too."""
+    b, s_, h, d = q.shape
+    t = k.shape[1] // r
+    os_, ls = [], []
+    eo = el = 0.0
+    for i in range(r):
+        n = min(max(kv_len - i * t, 0), t)
+        if n:
+            ks, vs = k[:, i * t:(i + 1) * t], v[:, i * t:(i + 1) * t]
+            o, lse = fa.flash_attention_partials(q, ks, vs, n)
+            if faref is not None:
+                wo, wl = faref.attention_partials_ref(q, ks, vs, n)
+                e1, ok1 = within(o, wo, 2e-5, 2e-5)
+                e2, ok2 = within(lse, wl, 2e-5, 2e-5)
+                check(ok1 and ok2, f"phase 15 (b): slice {i} of {r}'s "
+                      f"partial (kv_len {n}) differs from plain: o by "
+                      f"{e1!r}, lse by {e2!r}")
+                eo, el = max(eo, e1), max(el, e2)
+        else:
+            o = torch.zeros((b, s_, h, d), dtype=torch.float32,
+                            device=q.device)
+            lse = torch.full((b, h, s_), float("-inf"), device=q.device)
+        os_.append(o)
+        ls.append(lse)
+    out = torch.stack(os_), torch.stack(ls)
+    return out if faref is None else (*out, eo, el)
+
+
+def merge_bound(r: int, n: int, d: int, out_size: int):
+    """(ms, "bytes"): R·N·D float32 o and R·N float32 lse read once, N·D
+    outputs written once, against the card's memory rate."""
+    return (bound_ms(4 * r * n * d + 4 * r * n + out_size * n * d),
+            "bytes")
+
+
+def split_kv_kernels(torch, fa, faref, cfg, args) -> dict:
+    """Phase 15 (b), the kernels: at olmoe's decode_32k layer (B 8, 16 kv
+    heads of D 128, a 32,768-row cache, bf16) the cache cut into R in
+    SPLIT_RANKS slices, kv_len inside the last slice, at a slice boundary
+    (the later slices empty at R = 4) and inside the first slice, and
+    with the keys of the cache's second quarter doubled (its slices'
+    LSEs ~1 above the others', so the merge's weights are far from
+    equal); each slice's partial by the flash kernel, against its plain
+    version, merged by merge_kernel.  The merge against the whole-cache
+    call (bit for bit at R = 1, else within 1e-5 + 2^-7 |plain|) and
+    against its plain version on the same partials (float32 within 1e-6
+    relative, bf16 within one rounding).  On the doubled keys at R > 1,
+    the plain merge with wrong weights (the LSE in log2 units; all
+    weights equal) must miss the whole-cache call: the check can see a
+    wrong weight.  Returns the merge kernel's row (times at R = 4)."""
+    import math
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(150)
+    h, hk, d, t, b = cfg.n_heads, cfg.n_kv_heads, cfg.hd, 32768, 8
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((b, t, hk, d), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    k2 = k.clone()
+    k2[:, t // 4:t // 2] *= 2                    # exact in bf16
+    worst = 0.0
+    for r in SPLIT_RANKS:
+        for where, kv_len, keys in (
+                ("inside the last slice", t - 100, k),
+                ("at a slice boundary", t // 2, k),
+                ("inside the first slice", 300, k),
+                ("the second quarter's keys doubled", t - 100, k2)):
+            o, lse, eo, el = split_slices(torch, fa, q, keys, v, kv_len, r,
+                                          faref)
+            got = fa.merge_partials(o, lse, torch.bfloat16)
+            got32 = fa.merge_partials(o, lse, torch.float32)
+            whole = fa.flash_attention(q, keys, v, causal=False,
+                                       kv_len=kv_len)
+            plain32 = faref.merge_partials_ref(o, lse, torch.float32)
+            plain = faref.merge_partials_ref(o, lse, torch.bfloat16)
+            torch.cuda.synchronize()
+            e32, ok32 = within(got32, plain32, 1e-6, 1e-6)
+            check(ok32, f"phase 15 (b): merge_kernel (float32) differs from "
+                  f"plain by {e32!r} at R {r}, kv_len {kv_len}")
+            eb, okb = within(got, plain, 2.0 ** -8, 1e-6)
+            check(okb, f"phase 15 (b): merge_kernel (bf16) differs from "
+                  f"plain by {eb!r} at R {r}, kv_len {kv_len}")
+            if r == 1:
+                check(torch.equal(got, whole),
+                      f"phase 15 (b): R = 1 differs from the whole-cache "
+                      f"call at kv_len {kv_len}")
+                ew = 0.0
+            else:
+                ew, ok = within(got, whole, 2.0 ** -7, 1e-5)
+                check(ok, f"phase 15 (b): R {r} differs from the whole-"
+                      f"cache call by {ew!r} at kv_len {kv_len}")
+            wrong = ""
+            if r > 1 and keys is k2:
+                spread = float((lse.amax(0) - lse.amin(0)).mean())
+                misses = []
+                for name, bad in (("log2 LSE", lse / math.log(2)),
+                                  ("equal weights", torch.zeros_like(lse))):
+                    e_bad, ok_bad = within(faref.merge_partials_ref(
+                        o, bad, torch.bfloat16), whole, 2.0 ** -7, 1e-5)
+                    check(not ok_bad, f"phase 15 (b): a merge with "
+                          f"{name} passes the whole-cache check at R {r} "
+                          f"(err {e_bad!r}): the case cannot see a weight")
+                    misses.append(f"{name} err {e_bad!r}")
+                wrong = (f"; the slices' LSE spread {spread!r}, wrong "
+                         f"weights miss the whole-cache call ("
+                         f"{', '.join(misses)})")
+            worst = max(worst, e32, eb)
+            print(f"phase 15 (b): R {r}, kv_len {kv_len} ({where}): "
+                  f"partials by the flash kernel == plain (o err {eo!r}, "
+                  f"lse err {el!r}; tol 2e-5 + 2e-5|plain|), merged by "
+                  f"merge_kernel == plain merge (float32 err {e32!r}, bf16 "
+                  f"err {eb!r}); "
+                  f"{'== the whole-cache call bit for bit' if r == 1 else f'whole-cache err {ew!r} (tol 1e-5 + 2^-7|plain|)'}"
+                  f"{wrong}", flush=True)
+    del k2
+    r = SPLIT_RANKS[-1]
+    o, lse = split_slices(torch, fa, q, k, v, t - 100, r)
+    n = b * h
+
+    def kern():
+        return fa.merge_partials(o, lse, torch.bfloat16)
+
+    def plain():
+        return faref.merge_partials_ref(o, lse, torch.bfloat16)
+
+    row = {"name": "flash_attention_merge", "route": "cuda",
+           "source": FA_SOURCE, "replaces": REPLACES["flash_attention_merge"],
+           "max_abs_err": worst, "ms": time_ms(kern, args.reps),
+           "device_ms": device_ms(torch, kern, args.reps)[0],
+           "plain_ms": time_ms(plain, args.reps),
+           "library_ms": None, "library_device_ms": None}
+    row["bound_ms"], row["bound_by"] = merge_bound(r, n, d, 2)
+
+    def split_layer():
+        o_, l_ = split_slices(torch, fa, q, k, v, t - 100, r)
+        return fa.merge_partials(o_, l_, torch.bfloat16)
+
+    layer_ms = time_ms(split_layer, args.reps)
+    whole_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=False,
+                                                  kv_len=t - 100),
+                       args.reps)
+    print(f"phase 15 (b): merge_kernel at R {r} over a decode_32k layer's "
+          f"rows (B {b} x H {h}, D {d}): {row['ms']!r} ms (device "
+          f"{row['device_ms']!r}), plain {row['plain_ms']!r} ms, bound "
+          f"{row['bound_ms']!r} ms (bytes); the layer split in {r} "
+          f"(partials + merge, one card) {layer_ms!r} ms against the "
+          f"whole-cache call's {whole_ms!r} ms", flush=True)
+    del q, k, v, o, lse
+    return row
+
+
+def mesh_decode_olmoe(torch, mesh, row) -> None:
+    """Phase 15 (b), the path: olmoe-1b-7b's decode_32k step at full width
+    with MESH_LAYERS layers, batch 8, cache_len SPLIT_DECODE_LEN, against
+    the mesh-free decode step (logits and caches bit for bit), twice, the
+    counts set to 0 just before each and read just after: through
+    ``make_step``'s mesh decode (at world 1 the kv_cache rule cuts no
+    sequence, so each layer takes the single-card attention), and through
+    ``Transformer.decode`` with the caches' sequence over ("data",
+    "model") under ``mesh_context`` (split-KV across ranks, one slice at
+    world 1: one partial and one merge a layer)."""
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.dist import compat
+    from repro_torch.dist.context import mesh_context
+    from repro_torch.launch import steps
+    from repro_torch.models.lm.transformer import Transformer
+    from repro_torch.tree import tree_map
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(olmoe_1b_7b.CONFIG, n_layers=MESH_LAYERS)
+    shape = dict(kind="decode", seq_len=32768, global_batch=8)
+    gen = torch.Generator(device=dev).manual_seed(151)
+    params = tree_map(lambda p: p.detach(),
+                      Transformer(cfg, gen, device=dev).param_tree())
+    cache = (cfg.n_layers, 8, 32768, cfg.n_kv_heads, cfg.hd)
+    kc, vc = (torch.randn(cache, generator=gen, device=dev,
+                          dtype=cfg.dtype) for _ in range(2))
+    tok = torch.randint(0, cfg.vocab, (8, 1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    free = steps.make_lm_step(cfg, shape)
+    want = free.fn(params, tok, kc.clone(), vc.clone(), SPLIT_DECODE_LEN)
+    meshed = steps.make_lm_step(cfg, shape, mesh)
+    lay = meshed.layout
+    args = [compat.shard_tree(x, s, mesh) for x, s in
+            zip((params, tok, kc, vc), lay[:4])]
+    torch.cuda.synchronize()
+    reset_counts()
+    got = meshed.fn(*args, SPLIT_DECODE_LEN)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    counts = check_counts("phase 15 (b) decode", {
+        "flash_attention": L, "flash_attention_combine": L})
+
+    def same(out):
+        return out[3] == want[3] and all(
+            torch.equal(a, b) for a, b in zip(out[:3], want[:3]))
+
+    check(same(got), "phase 15 (b): the mesh decode step's logits or caches "
+          "differ from the mesh-free step's")
+    del got, args
+    split = steps.bind(meshed.model, steps.lm_serve_fn)
+    seq = ("data", "model")
+    torch.cuda.synchronize()
+    reset_counts()
+    with mesh_context(mesh, (), "model"):
+        got = split(params, tok, kc.clone(), vc.clone(), SPLIT_DECODE_LEN,
+                    seq)
+    torch.cuda.synchronize()
+    split_counts = check_counts("phase 15 (b) split-KV decode", {
+        "flash_attention": L, "flash_attention_combine": L,
+        "flash_attention_merge": L})
+    check(same(got), "phase 15 (b): the split-KV decode's logits or caches "
+          "differ from the mesh-free step's")
+    row["launches"] = split_counts["flash_attention_merge"]
+    print(f"phase 15 (b): {cfg.name} decode_32k at full width, {L} layers, "
+          f"B 8, cache_len {SPLIT_DECODE_LEN}: through the world-1 mesh "
+          f"(kv_cache rule {steps._lm_rules(cfg, shape, mesh)['kv_cache']!r}"
+          f": no sequence cut, the single-card attention; launches "
+          f"{ {k: n for k, n in counts.items() if n} }) and through "
+          f"Transformer.decode with the caches' sequence over {seq} "
+          f"(split-KV, one slice: a partial and a merge a layer; launches "
+          f"{ {k: n for k, n in split_counts.items() if n} }), each == "
+          f"mesh-free bit for bit (logits and caches)", flush=True)
+    del params, kc, vc, got, want
+    torch.cuda.empty_cache()
+
+
+def mesh_small_steps(torch, np, mesh) -> None:
+    """Phase 15 (c): DeepFM train_batch at full width (39 fields x 2^20
+    rows, B 65,536) and GIN full_graph_sm (phase 6's graph and model, one
+    edge part) through the world-1 mesh, MESH_STEPS steps each, against
+    their mesh-free steps (DeepFM's ``make_recsys_step`` without a mesh;
+    the engine's ``gnn_engine.train_step``): loss, grad norm, parameters
+    and state bit for bit, with equal launch counts of the embedding_bag
+    kernels and block_spmm."""
+    from repro_torch.apps import engine as eng
+    from repro_torch.configs import deepfm as deepfm_cfg
+    from repro_torch.configs import gin_tu
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.shapes import GNN_SHAPES, RECSYS_SHAPES
+    from repro_torch.dist import compat
+    from repro_torch.launch import gnn_engine as ge
+    from repro_torch.launch import steps
+    from repro_torch.models.gnn import gin
+    from repro_torch.models.recsys.deepfm import DeepFM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import tree_map
+
+    dev = torch.device("cuda")
+    cfg = deepfm_cfg.CONFIG
+    shape = dict(RECSYS_SHAPES["train_batch"])
+    gen = torch.Generator(device=dev).manual_seed(152)
+    b = shape["batch"]
+    xb = torch.randint(0, 3 * cfg.rows_per_field, (b, cfg.n_fields),
+                       generator=gen, device=dev, dtype=torch.int32)
+    yb = (torch.rand((b,), generator=gen, device=dev) < 0.3).float()
+    results = {}
+    for name, mesh_ in (("mesh-free", None), ("mesh", mesh)):
+        bundle = steps.make_recsys_step(cfg, shape, mesh_)
+        p = tree_map(lambda t: t.detach(), DeepFM(
+            cfg, torch.Generator(device=dev).manual_seed(0),
+            device=dev).param_tree())
+        st = opt.init(p, steps.OPT_CFG)
+        if mesh_ is not None:
+            p = compat.shard_tree(p, bundle.layout[0], mesh_)
+            st = compat.shard_tree(st, bundle.layout[1], mesh_)
+        reset_counts()
+        p, st, losses, norms, secs = mesh_steps(
+            torch, bundle.fn, [p, st], [(xb, yb)] * MESH_STEPS)
+        results[name] = ((p, st), losses, norms, all_counts(), secs)
+        del p, st
+    (wf, lf, nf, cf, sf), (wm, lm, nm, cm, sm_) = (results["mesh-free"],
+                                                   results["mesh"])
+    check(lf == lm and nf == nm and cf == cm and tree_equal(torch, wm, wf)
+          and cm["embedding_bag"] > 0 and cm["embedding_bag_backward"] > 0,
+          f"phase 15 (c): DeepFM through the mesh (losses {lm}, counts "
+          f"{cm}) differs from mesh-free ({lf}, {cf})")
+    print(f"phase 15 (c): DeepFM train_batch (B {b}) through the world-1 "
+          f"mesh == mesh-free bit for bit over {MESH_STEPS} steps: losses "
+          f"{lm}, grad norms {nm}; embedding_bag {cm['embedding_bag']} and "
+          f"embedding_bag_backward {cm['embedding_bag_backward']} launches "
+          f"each way; {step_ms(sm_)!r} ms a step (the median of steps "
+          f"2-{MESH_STEPS}; mesh-free {step_ms(sf)!r})", flush=True)
+    del results, xb, yb
+    torch.cuda.empty_cache()
+
+    gshape = GNN_SHAPES[GNN_SHAPE]
+    edges, feats, labels, label_mask = gnn_data(np, gshape, seed=0)
+    n = feats.shape[0]
+    gcfg = dataclasses.replace(gin_tu.CONFIG, d_feat=gshape["d_feat"],
+                               n_classes=gshape["n_classes"])
+    sg = eng.build_sharded_graph(edges, np.zeros(len(edges), np.int32), n, 1)
+    caps = ge.caps_from_sharded_graph(sg, gshape["d_feat"], gcfg.n_classes)
+    a = ge.engine_arrays(sg, feats, labels, label_mask, 0, dev)
+    model = gin.GIN(gcfg, torch.Generator().manual_seed(0)).to(dev)
+    p0 = tree_map(lambda t: t.detach().clone(), model.param_tree())
+    state = opt.init(model.param_tree(), steps.OPT_CFG)
+    reset_counts()
+    free_losses = []
+    for _ in range(MESH_STEPS):
+        loss, state = ge.train_step(model, a, caps, state, steps.OPT_CFG)
+        free_losses.append(float(loss))
+    cf = all_counts()
+    bundle = steps.make_gnn_step(get_arch("gin-tu"), gin_tu.CONFIG, gshape,
+                                 mesh, caps=caps)
+    reset_counts()
+    p, st, lm, nm, secs = mesh_steps(torch, bundle.fn,
+                                     [p0, opt.init(p0, steps.OPT_CFG)],
+                                     [(a,)] * MESH_STEPS)
+    cm = all_counts()
+    check(lm == free_losses and cf == cm and cm["block_spmm"] > 0
+          and tree_equal(torch, (p, st), (model.param_tree(), state)),
+          f"phase 15 (c): GIN's engine step through the mesh (losses {lm}, "
+          f"counts {cm}) differs from its mesh-free step ({free_losses}, "
+          f"{cf})")
+    print(f"phase 15 (c): GIN {GNN_SHAPE} (engine, one part) through "
+          f"make_gnn_step's mesh branch == gnn_engine.train_step bit for "
+          f"bit over {MESH_STEPS} steps: losses {lm}; block_spmm "
+          f"{cm['block_spmm']} launches each way", flush=True)
+
+
+def phase_mesh(torch, np, args, card: str | None = None):
+    """Phase 15: the device mesh (``launch.mesh.make_host_mesh(1)``, a
+    world-1 NCCL group, mesh (1, 1)) and the sharded steps, each against
+    its mesh-free step bit for bit: (a) olmoe-1b-7b training at full
+    width, and one card-against-CPU step; (b) split-KV across ranks: the
+    merge kernel on one card, then the decode step; (c) DeepFM and GIN.
+    Returns the merge kernel's row and (a)'s card-against-CPU check, whose
+    CPU step goes on in a thread (:func:`finish_mesh_check` ends it)."""
+    from repro_torch.dist import compat
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as faref
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    no_tf32(torch, "phase 15")
+    if card is None:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True, timeout=60).stdout.strip()
+    with compat.world1("nccl"):
+        mesh = make_host_mesh(1)
+        mesh_train_olmoe(torch, np, mesh, card)
+        print(f"phase 15 (a): {time.perf_counter() - t0:.1f} s", flush=True)
+        cpu_check = start_mesh_check(torch, mesh)
+        row = split_kv_kernels(torch, fa, faref, olmoe_1b_7b.CONFIG, args)
+        mesh_decode_olmoe(torch, mesh, row)
+        print(f"phase 15 (b): {time.perf_counter() - t0:.1f} s", flush=True)
+        mesh_small_steps(torch, np, mesh)
+        print(f"phase 15 (c): {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 15: took {time.perf_counter() - t0:.1f} s (its CPU "
+          f"check goes on beside phase 9)", flush=True)
+    return row, cpu_check
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -5230,6 +5878,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe_row = phase_moe(torch, args)
 
+    # --- phase 15: the device mesh and the sharded steps --------------------
+    mark("15")
+    torch.cuda.empty_cache()
+    merge_row, mesh_check = phase_mesh(torch, np, args, card)
+
     import multiprocessing
     import shutil
     import tempfile
@@ -5255,6 +5908,11 @@ def main() -> None:
         for r in rows + bit_rows:
             r["launches_driver"] = launches_drv[r["name"]]
             r["launches_mh"] = launches_mh[r["name"]]
+
+        # --- phase 15 (a)'s card-against-CPU check, run beside phase 9 ------
+        mark("15 check")
+        finish_mesh_check(torch, mesh_check)
+        del mesh_check
 
         # --- phase 14's start: its gang and store builds beside 10-11 --------
         mark("14a")
@@ -5308,7 +5966,7 @@ def main() -> None:
     print(f"the script: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": rows + bit_rows + [spmm_row, bag_row,
                                                    flash_row, moe_row]
-                      + stream + train_rows}), flush=True)
+                      + stream + train_rows + [merge_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,6 +6,11 @@
 * :func:`all_gather_rows` — the all-gather of one tensor per rank;
 * :func:`all_to_all_rows` and :func:`all_reduce_sum` — the vertex-cut
   engine's mirror/master exchange and its loss sums, differentiable;
+* :func:`all_gather_tiled` (backward: a reduce-scatter) and
+  :func:`copy_to_group` (backward: an all-reduce) — the expert-parallel
+  MoE's FSDP gather of expert weights and its entry into the experts;
+* :func:`shard_tree` and :func:`gather_tree` — a rank's slices of full
+  tensors by a spec tree (``dist.sharding.P`` leaves), and back;
 * :func:`barrier`, :func:`all_processes_min`, :func:`all_processes_sum`
   and :func:`all_processes_any` — the host-side collectives of a
   multi-controller run (snapshot and artifact protocols, resume, the
@@ -103,6 +108,104 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     sum of the ranks' gradients (``all_reduce`` them after the backward),
     as for a replicated input of ``shard_map``."""
     return _AllReduceSum.apply(x, group)
+
+
+class _AllGatherTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        rows = all_gather_rows(x.movedim(dim, 0), group)    # (D, n, ...)
+        return rows.reshape((-1,) + tuple(rows.shape[2:])).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        d = dist.get_world_size(ctx.group)
+        g = grad.movedim(ctx.dim, 0).contiguous()
+        out = torch.empty((g.shape[0] // d,) + tuple(g.shape[1:]),
+                          dtype=g.dtype, device=g.device)
+        if dist.get_backend(ctx.group) == "nccl":
+            dist.reduce_scatter_tensor(out, g, group=ctx.group)
+        else:   # gloo has no reduce-scatter: the sum, and this rank's tile
+            dist.all_reduce(g, group=ctx.group)
+            out.copy_(g[dist.get_rank(ctx.group) * out.shape[0]:][
+                :out.shape[0]])
+        return out.movedim(0, ctx.dim), None, None
+
+
+def all_gather_tiled(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in group-rank order
+    (``jax.lax.all_gather(..., axis=dim, tiled=True)``).  Differentiable:
+    the backward sums the gradient over the ranks and gives each rank its
+    own tile (a reduce-scatter), the gradient of a tensor that every rank
+    holds a tile of."""
+    return _AllGatherTiled.apply(x, group, dim)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself, entering a computation that each rank of ``group``
+    does a part of on the same ``x`` (Megatron's *f*): the backward sums
+    the ranks' partial gradients, so every rank gets the whole."""
+    return _CopyToGroup.apply(x, group)
+
+
+def _axes_cut(mesh, entry):
+    from repro_torch.dist.context import axes_index, axes_size
+    from repro_torch.dist.sharding import spec_axes
+
+    axes = spec_axes(entry)
+    return axes, axes_size(mesh, axes), axes_index(mesh, axes)
+
+
+def shard_tree(tree, specs, mesh):
+    """This rank's slices of the full tensors of ``tree``: dimension i
+    of a leaf cut into the product of its spec entry's axis sizes, the
+    rank taking the tile of its row-major coordinate over those axes (as
+    a ``NamedSharding`` places it).  No collective."""
+    from repro_torch.tree import tree_map
+
+    def cut(x, spec):
+        for dim, entry in enumerate(spec):
+            _, n, i = _axes_cut(mesh, entry)
+            if n > 1:
+                if x.shape[dim] % n:
+                    raise ValueError(f"dimension {dim} of {tuple(x.shape)} "
+                                     f"does not divide into {n}")
+                step = x.shape[dim] // n
+                x = x.narrow(dim, i * step, step)
+        return x.contiguous()
+
+    return tree_map(cut, tree, specs)
+
+
+def gather_tree(tree, specs, mesh):
+    """The inverse of :func:`shard_tree`: each leaf's full tensor on
+    every rank (an all-gather for each cut dimension)."""
+    from repro_torch.dist.context import axes_group
+    from repro_torch.tree import tree_map
+
+    def join(x, spec):
+        with torch.no_grad():
+            for dim in reversed(range(len(spec))):
+                axes, n, _ = _axes_cut(mesh, spec[dim])
+                if n > 1:
+                    x = all_gather_tiled(x.contiguous(),
+                                         axes_group(mesh, axes), dim)
+        return x
+
+    return tree_map(join, tree, specs)
 
 
 def or_all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -103,6 +103,12 @@ def grid_assign_host(edges: np.ndarray, num_devices: int,
     while num_devices % r:
         r -= 1
     c = num_devices // r
-    hu = hash_u32_host(edges[:, 0], salt) % np.uint32(r)
-    hv = hash_u32_host(edges[:, 1], salt + 1) % np.uint32(c)
-    return (hu.astype(np.int32) * c + hv.astype(np.int32))
+
+    def cell(col, s, k):
+        # a hash taken mod 1 is 0: a grid side of 1 needs no hash
+        if k == 1:
+            return np.zeros(edges.shape[0], np.int32)
+        return (hash_u32_host(edges[:, col], s) % np.uint32(k)).astype(
+            np.int32)
+
+    return cell(0, salt, r) * c + cell(1, salt + 1, c)

@@ -65,7 +65,10 @@
 //   online softmax; the warps merge in order at the end.  With one chunk
 //   the block writes the output; otherwise it writes its float32
 //   (m, l, acc) to scratch and combine_kernel merges a row's chunks in
-//   chunk order (no atomics: the same result every run).
+//   chunk order (no atomics: the same result every run).  Asked for a
+//   partial result (split-KV across ranks), the block always writes the
+//   scratch and combine_kernel writes each row in float32 with its
+//   log-sum-exp; merge_kernel then merges R ranks' partials.
 //
 // Plain C interface: device pointers and a cudaStream_t passed as void*;
 // launches on that stream, does not synchronise, allocates nothing, and
@@ -1088,9 +1091,13 @@ decode_kernel(Params p, long long chunk, float* part) {
 }
 
 // out[row] = Σ_c acc_c · 2^(m_c - M) / max(Σ_c l_c · 2^(m_c - M), 1e-30),
-// M = max_c m_c, summed in chunk order
+// M = max_c m_c, summed in chunk order.  With `o32` the row is written
+// unrounded there instead ((B, S, H, D) float32, contiguous), and its
+// natural-log log-sum-exp (M + log2 Σ_c l_c · 2^(m_c - M)) · ln 2 into
+// p.lse ((B, H, S)): a rank's partial result for merge_kernel.
 __global__ void __launch_bounds__(256)
-combine_kernel(const float* part, int n_chunks, int hd, Params p) {
+combine_kernel(const float* part, int n_chunks, int hd, Params p,
+               float* o32) {
   const int g = p.h / p.hk;
   const int rows = (int)(p.s * g);
   const long long b = blockIdx.x / p.hk;
@@ -1109,10 +1116,56 @@ combine_kernel(const float* part, int n_chunks, int hd, Params p) {
       l = fmaf(w[c * per + 1], f, l);
       o = fmaf(w[c * per + 2 + d], f, o);
     }
-    static_cast<bf16*>(p.out)[b * p.o_sb + (r / g) * p.o_ss +
-                              (hk * g + r % g) * p.o_sh + d] =
-        __float2bfloat16(o / fmaxf(l, 1e-30f));
+    const long long pos = r / g;
+    const int head = hk * g + r % g;
+    if (o32 == nullptr) {
+      static_cast<bf16*>(p.out)[b * p.o_sb + pos * p.o_ss + head * p.o_sh +
+                                d] = __float2bfloat16(o / fmaxf(l, 1e-30f));
+    } else {
+      o32[((b * p.s + pos) * p.h + head) * hd + d] = o / fmaxf(l, 1e-30f);
+      if (d == 0)
+        p.lse[(b * p.h + head) * p.s + pos] =
+            (mg + log2f(l)) * 0.6931471805599453f;
+    }
   }
+}
+
+// merge_kernel — R ranks' partial attention of the same rows, each over
+// its own slice of the keys, merged (split-KV across ranks).  Replaces no
+// TPU kernel: the reference lets GSPMD split the softmax's max and sum
+// over a sequence-sharded cache (repro/models/lm/transformer.py's
+// decode_attention); this is its merge step.
+//   o (R, N, D) float32, lse (R, N) float32 (natural log; -inf for a rank
+//   that kept no key) → out (N, D) in T:
+//   out[n] = Σ_r o[r, n] · e^(lse[r, n] - M) / Σ_r e^(lse[r, n] - M),
+//   M = max_r lse[r, n], summed in rank order, rounded once to T.  With
+//   R = 1 the weight is e^0 = 1 and the row is o itself.
+//   One thread an output value: the R weights of its row come from lse,
+//   which the row's D threads share through the L1.
+//   Bound: bytes, (R·N·D + R·N) · 4 read and N·D·sizeof(T) written.
+template <typename T>
+__global__ void __launch_bounds__(256)
+merge_kernel(const float* o, const float* lse, T* out, int n_ranks,
+             long long n, int hd) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n * hd) return;
+  const long long row = e / hd;
+  const float neg_inf = -__int_as_float(0x7f800000);
+  float mg = neg_inf;
+  for (int r = 0; r < n_ranks; ++r) mg = fmaxf(mg, lse[r * n + row]);
+  float l = 0.f, acc = 0.f;
+  if (mg != neg_inf) {
+    for (int r = 0; r < n_ranks; ++r) {
+      const float w = expf(lse[r * n + row] - mg);
+      l += w;
+      acc = fmaf(w, o[r * n * hd + e], acc);
+    }
+  }
+  const float x = l > 0.f ? acc / l : 0.f;
+  if constexpr (sizeof(T) == 2)
+    out[e] = __float2bfloat16(x);
+  else
+    out[e] = x;
 }
 
 }  // namespace dec
@@ -2106,7 +2159,7 @@ int launch_decode(const Params& p, long long b, long long chunk, void* part,
   if (p.causal && p.s < kv_end) kv_end = p.s;
   const long long n_chunks = (kv_end + chunk - 1) / chunk;
   if (chunk <= 0 || n_chunks > 65535 || b * p.hk > 0x7fffffffLL ||
-      (n_chunks > 1) != (part != nullptr) || p.lse != nullptr)
+      (n_chunks > 1 || p.lse != nullptr) != (part != nullptr))
     return (int)cudaErrorInvalidValue;
   const long long rows = p.s * (p.h / p.hk);     // 1 .. dec::ROWS
   if (rows <= 1) return launch_decode_rm<HD, 1>(p, b, n_chunks, chunk, part,
@@ -2158,8 +2211,10 @@ int launch_hd(const Params& p, int dtype, int hd, long long b,
 // S·(H/HK)·(hd + 2) values that flash_attention_combine then reads;
 // otherwise `part` is null and the output is written here.  `lse`
 // is null, or (B, H, S) float32 for each row's natural-log log-sum-exp of
-// its scaled, masked scores (what the backward recomputes P from); the
-// split-KV route writes none and refuses one.
+// its scaled, masked scores (what the backward recomputes P from).  On
+// the split-KV route an `lse` asks for the partial result: `part` is then
+// given at any chunk count, and flash_attention_combine writes the float32
+// rows and the LSE.
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, void* out, int dtype,
     int hd, long long b, long long s, int h, int hk, long long t,
@@ -2177,19 +2232,43 @@ extern "C" int flash_attention(
 }
 
 // The second launch of a split-KV call: merges the n_chunks partial
-// results in `part` into out (bfloat16, strides in elements).
+// results in `part` into out (bfloat16, strides in elements), or with
+// `o32` and `lse` both given into the float32 rows o32 ((B, S, H, hd),
+// contiguous) and their log-sum-exp lse ((B, H, S)); out is then unused.
 extern "C" int flash_attention_combine(
     const void* part, void* out, int hd, long long b, long long s, int h,
     int hk, long long n_chunks, long long o_sb, long long o_ss,
-    long long o_sh, void* stream) {
+    long long o_sh, float* o32, float* lse, void* stream) {
   if (h <= 0 || hk <= 0 || h % hk || s * (h / hk) > dec::ROWS ||
-      n_chunks < 1 || b * hk > 0x7fffffffLL)
+      n_chunks < 1 || b * hk > 0x7fffffffLL ||
+      (o32 == nullptr) != (lse == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p{nullptr, nullptr, nullptr, out, s, 0, 0, h, hk, 0, 0.f,
-           0, 0, 0, 0, 0, 0, 0, 0, 0, o_sb, o_ss, o_sh, nullptr};
+           0, 0, 0, 0, 0, 0, 0, 0, 0, o_sb, o_ss, o_sh, lse};
   dec::combine_kernel<<<(unsigned)(b * hk), 256, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), (int)n_chunks, hd, p);
+      static_cast<const float*>(part), (int)n_chunks, hd, p, o32);
+  return (int)cudaGetLastError();
+}
+
+// merge_kernel's launch: o (n_ranks, n, hd) and lse (n_ranks, n) float32,
+// contiguous, into out (n, hd) contiguous, dtype 0 float32 or 1 bfloat16.
+extern "C" int flash_attention_merge(const float* o, const float* lse,
+                                     void* out, int dtype, int n_ranks,
+                                     long long n, int hd, void* stream) {
+  if (n_ranks < 1 || n < 0 || hd < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const long long total = n * hd;
+  if (total == 0) return 0;
+  const long long blocks = (total + 255) / 256;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    dec::merge_kernel<bf16><<<(unsigned)blocks, 256, 0, st>>>(
+        o, lse, static_cast<bf16*>(out), n_ranks, n, hd);
+  else
+    dec::merge_kernel<float><<<(unsigned)blocks, 256, 0, st>>>(
+        o, lse, static_cast<float*>(out), n_ranks, n, hd);
   return (int)cudaGetLastError();
 }
 

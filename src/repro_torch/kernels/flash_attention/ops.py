@@ -28,8 +28,18 @@ dK/dV and dQ, P recomputed from the LSE).
 bf16 (the tensor cores, P and dS as bf16 hi + lo terms), ``"fma"`` for
 float32; the C entry refuses any other pairing.  Training takes causal
 calls with S == T and unmasked calls with kv_len == T; the split-KV route
-(bf16, S·H/HK <= 16) writes no LSE, so a training call there raises.
-Serving passes no LSE pointer.  On the CPU the function's forward and
+(bf16, S·H/HK <= 16) takes no gradient, so a training call there raises.
+Serving passes no LSE pointer.
+
+Split-KV across ranks (a sequence-sharded KV cache at decode):
+:func:`flash_attention_partials` gives a rank's partial result, each row's
+output in float32 and its log-sum-exp (the float32 kernel writes both;
+on the bf16 split-KV route ``combine_kernel`` writes them, at any chunk
+count); :func:`merge_partials` merges R ranks' partials with the
+hand-written ``merge_kernel`` (one count in
+``launches["flash_attention_merge"]`` a call), whose plain version is
+``ref.merge_partials_ref``.  One partial merged alone gives the bits of
+the single call.  On the CPU the function's forward and
 backward are the plain ``ref.attention_lse_ref`` and
 ``ref.attention_backward_ref``.
 """
@@ -43,7 +53,7 @@ import torch
 from repro_torch.kernels.flash_attention import ref
 
 launches = {"flash_attention": 0, "flash_attention_combine": 0,
-            "flash_attention_backward": 0}
+            "flash_attention_backward": 0, "flash_attention_merge": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
 DECODE_ROWS = 16        # bf16 calls with at most this many rows split KV
@@ -57,7 +67,9 @@ _BWD_ARGTYPES = ([_P] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               _LL, _LL, ctypes.c_int, ctypes.c_int, _LL,
                               ctypes.c_int, ctypes.c_float] + [_P] * 5)
 _COMBINE_ARGTYPES = [_P, _P, ctypes.c_int, _LL, _LL, ctypes.c_int,
-                     ctypes.c_int, _LL, _LL, _LL, _LL, _P]
+                     ctypes.c_int, _LL, _LL, _LL, _LL, _P, _P, _P]
+_MERGE_ARGTYPES = [_P, _P, _P, ctypes.c_int, ctypes.c_int, _LL,
+                   ctypes.c_int, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BWD_ROUTES = {"fma": 0, "mma": 1}
 
@@ -79,6 +91,8 @@ def _lib():
         lib.flash_attention_combine.restype = ctypes.c_int
         lib.flash_attention_backward.argtypes = _BWD_ARGTYPES
         lib.flash_attention_backward.restype = ctypes.c_int
+        lib.flash_attention_merge.argtypes = _MERGE_ARGTYPES
+        lib.flash_attention_merge.restype = ctypes.c_int
     return lib
 
 
@@ -136,9 +150,12 @@ def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None):
     return _forward(q, k, v, causal, kv_len, None)
 
 
-def _forward(q, k, v, causal: bool, kv_len: int, lse):
+def _forward(q, k, v, causal: bool, kv_len: int, lse, o32=None):
     """The card's launch(es): out, and each row's log-sum-exp into
-    ``lse`` (B, H, S) float32 where it is given."""
+    ``lse`` (B, H, S) float32 where it is given.  On the split-KV route
+    an ``lse`` comes with ``o32`` ((B, S, H, D) float32, contiguous),
+    which takes the rows unrounded in place of ``out`` (a partial
+    result)."""
     _check(q, k, v, kv_len)
     b, s, h, d = q.shape
     hk, t = k.shape[2], k.shape[1]
@@ -146,12 +163,12 @@ def _forward(q, k, v, causal: bool, kv_len: int, lse):
     if out.numel() == 0:
         return out
     chunks = split_chunks(q.dtype, s, h // hk, kv_len, causal)
-    if chunks and lse is not None:
+    if chunks and lse is not None and o32 is None:
         raise ValueError(f"the split-KV route (bf16, S·H/HK = "
-                         f"{s * h // hk} <= {DECODE_ROWS}) writes no LSE: "
-                         f"no gradient through it")
+                         f"{s * h // hk} <= {DECODE_ROWS}) takes no "
+                         f"gradient")
     part = None
-    if chunks > 1:
+    if chunks > 1 or (chunks and o32 is not None):
         part = torch.empty(b * hk * chunks * s * (h // hk) * (d + 2),
                            dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream().cuda_stream
@@ -169,11 +186,67 @@ def _forward(q, k, v, causal: bool, kv_len: int, lse):
     if part is not None:
         err = lib.flash_attention_combine(
             part.data_ptr(), out.data_ptr(), d, b, s, h, hk, chunks,
-            *out.stride()[:3], stream)
+            *out.stride()[:3], None if o32 is None else o32.data_ptr(),
+            None if o32 is None else lse.data_ptr(), stream)
         if err:
             raise RuntimeError(f"flash_attention_combine failed with "
                                f"cudaError_t {err}")
         launches["flash_attention_combine"] += 1
+    return out
+
+
+def flash_attention_partials(q, k, v, kv_len: int | None = None):
+    """A rank's partial result of unmasked attention over its keys
+    j < ``kv_len``: (o (B, S, H, D) float32, the rows normalised over
+    those keys; lse (B, H, S) float32, each row's natural-log
+    log-sum-exp of its scaled, kept scores).  The plain version on the
+    CPU; on the card the float32 kernel (one launch), or bf16 at
+    S·H/HK <= :data:`DECODE_ROWS` the split-KV route, whose combine
+    launch writes both (two launches).  Other bf16 calls raise."""
+    t = k.shape[1]
+    kv_len = t if kv_len is None else int(kv_len)
+    if _route(q, k, v) == "cpu":
+        return ref.attention_partials_ref(q, k, v, kv_len)
+    b, s, h, d = q.shape
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.float32:
+        return _forward(q, k, v, False, kv_len, lse), lse
+    if not split_chunks(q.dtype, s, h // k.shape[2], kv_len, False):
+        raise ValueError(f"bf16 partials need S·H/HK <= {DECODE_ROWS}, got "
+                         f"{s * h // k.shape[2]}")
+    o32 = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
+    _forward(q, k, v, False, kv_len, lse, o32)
+    return o32, lse
+
+
+def merge_partials(o, lse, dtype=torch.bfloat16):
+    """R ranks' partials of the same rows → the attention over all their
+    keys: o (R, B, S, H, D) and lse (R, B, H, S) float32 (a rank that kept
+    no key: o = 0, lse = -inf) → (B, S, H, D) in ``dtype`` (float32 or
+    bfloat16): Σ_r e^(lse_r - M)·o_r / Σ_r e^(lse_r - M), M = max_r lse_r,
+    in rank order.  The plain version on the CPU, else one launch of
+    ``merge_kernel``.  With R = 1 the result is o itself, rounded."""
+    if o.dim() != 5 or lse.shape != (o.shape[0], o.shape[1], o.shape[3],
+                                     o.shape[2]):
+        raise ValueError(f"o (R, B, S, H, D) and lse (R, B, H, S) expected, "
+                         f"got {tuple(o.shape)}, {tuple(lse.shape)}")
+    if o.dtype != torch.float32 or lse.dtype != torch.float32 \
+            or dtype not in _DTYPES:
+        raise TypeError(f"float32 o and lse into float32 or bfloat16, got "
+                        f"{o.dtype}, {lse.dtype} into {dtype}")
+    if _route(o, lse) == "cpu":
+        return ref.merge_partials_ref(o, lse, dtype)
+    r, b, s, h, d = o.shape
+    o = o.contiguous()
+    lse = lse.transpose(2, 3).contiguous()             # (R, B, S, H)
+    out = torch.empty((b, s, h, d), dtype=dtype, device=o.device)
+    err = _lib().flash_attention_merge(
+        o.data_ptr(), lse.data_ptr(), out.data_ptr(), _DTYPES[dtype], r,
+        b * s * h, d, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_merge failed with cudaError_t "
+                           f"{err}")
+    launches["flash_attention_merge"] += 1
     return out
 
 

@@ -11,6 +11,9 @@ kv_len >= 1 (no row has every key masked).  :func:`attention_lse_ref`
 adds each row's log-sum-exp, and :func:`attention_backward_ref` is the
 gradient from the formulas (P from the LSE, D = rowsum(dO ∘ O)), one
 batch row at a time so that a (H, S, T) score block is the most it holds.
+:func:`attention_partials_ref` is a rank's partial result of split-KV
+across ranks (float32 rows and their LSE over its keys) and
+:func:`merge_partials_ref` the merge of R ranks' partials.
 """
 from __future__ import annotations
 
@@ -123,3 +126,35 @@ def attention_backward_ref(q, k, v, o, lse, do, causal: bool = True):
         outs[1].append(torch.einsum("kgst,skgd->tkd", ds, qg) * scale)
         outs[2].append(torch.einsum("kgst,skgd->tkd", p, dog))
     return tuple(torch.stack(x).to(y.dtype) for x, y in zip(outs, (q, k, v)))
+
+
+def attention_partials_ref(q, k, v, kv_len: int):
+    """(o (B, S, H, D) float32, lse (B, H, S) float32): unmasked attention
+    over the keys j < kv_len (>= 1), unrounded, and each row's
+    natural-log log-sum-exp of its scaled, kept scores."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    qg = _grouped(q, k)
+    sc = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(d)
+    sc = sc.masked_fill(~_mask(s, 0, t, kv_len, False, q.device),
+                        float("-inf"))
+    lse = torch.logsumexp(sc, dim=-1)                    # (B, HK, G, S)
+    o = torch.einsum("bkgst,btkd->bskgd", torch.softmax(sc, dim=-1),
+                     v.float())
+    return o.reshape(b, s, h, d), lse.reshape(b, h, s)
+
+
+def merge_partials_ref(o, lse, dtype):
+    """o (R, B, S, H, D), lse (R, B, H, S) float32 → (B, S, H, D) in
+    ``dtype``: Σ_r w_r·o_r / Σ_r w_r with w_r = e^(lse_r - max_r lse_r),
+    summed in rank order (a row no rank kept a key of is 0)."""
+    lse = lse.transpose(2, 3)                            # (R, B, S, H)
+    m = lse.amax(0)
+    w = torch.exp(lse - torch.where(torch.isinf(m), 0.0, m))
+    acc = torch.zeros(o.shape[1:], dtype=torch.float32, device=o.device)
+    den = torch.zeros(lse.shape[1:], dtype=torch.float32, device=o.device)
+    for r in range(o.shape[0]):
+        acc = acc + w[r][..., None] * o[r]
+        den = den + w[r]
+    out = torch.where(den[..., None] > 0, acc / den[..., None], 0.0)
+    return out.to(dtype)

@@ -18,7 +18,11 @@ the reverse all-to-alls; the ranks then sum their parameter gradients.
 
 Each rank holds only its own slice of the engine arrays, on its own
 device; the ranks form a ``torch.distributed`` group (a world-1 group on
-one card).
+one card).  :func:`synth_caps` and :func:`engine_array_specs` give a
+cell's capacities from an assumed replication factor and the engine
+arrays' global shapes (the step builder's shapes, as the reference's
+dry run reads them).  The mirror↔master exchange sends values in their
+own type (float32 in every cell).
 """
 from __future__ import annotations
 
@@ -55,6 +59,50 @@ class EngineCaps:
     l_lane: int         # per-(src,dst) all-to-all lane
     feat: int
     n_classes: int
+
+
+def synth_caps(shape: dict, n_dev: int, rf: float = 4.0,
+               alpha: float = 1.1) -> EngineCaps:
+    """Capacities of a full-graph cell over ``n_dev`` ranks, from an
+    assumed replication factor ``rf`` and edge imbalance ``alpha`` (the
+    reference's own expressions)."""
+    n, e = shape["n_nodes"], shape["n_edges"]
+    o = int(np.ceil(n / n_dev))
+    r = int(np.ceil(rf * n / n_dev))
+    return EngineCaps(
+        n_dev=n_dev, n_vertices=n,
+        c_edges=int(np.ceil(alpha * e / n_dev)),
+        r_mirrors=r, o_owned=o,
+        l_lane=int(np.ceil(r / n_dev * 1.3)) + 1,
+        feat=shape["d_feat"], n_classes=shape["n_classes"])
+
+
+def engine_array_specs(caps: EngineCaps, positions: bool) -> dict:
+    """The engine arrays' global shapes and types, stacked over the ranks
+    (rank d holds row d), as meta-device tensors: the reference's
+    ``engine_array_specs``.  A rank's own arrays (:func:`engine_arrays`)
+    add its mirror block-CSR."""
+    d = caps.n_dev
+    i32, bool_, f32 = torch.int32, torch.bool, torch.float32
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    out = dict(
+        edges_ml=meta((d, caps.c_edges, 2), i32),
+        emask=meta((d, caps.c_edges), bool_),
+        send_idx=meta((d, d, caps.l_lane), i32),
+        send_mask=meta((d, d, caps.l_lane), bool_),
+        recv_owned=meta((d, d, caps.l_lane), i32),
+        owned_mask=meta((d, caps.o_owned), bool_),
+        feats=meta((d, caps.o_owned, caps.feat), f32),
+        labels=meta((d, caps.o_owned), i32),
+        label_mask=meta((d, caps.o_owned), bool_),
+        positions=meta((d, caps.o_owned, 3), f32),
+    )
+    if not positions:
+        out.pop("positions")
+    return out
 
 
 def caps_from_sharded_graph(sg: eng.ShardedGraph, d_feat: int,

@@ -2,22 +2,29 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
       --steps 20 [--ckpt-dir ckpts] [--ckpt-every 50] [--no-resume] \
-      [--full] [--device cpu]
+      [--full [--one-card | --rank R --world-size 256 --store-dir D]] \
+      [--device cpu]
 
 Without ``--full`` it trains the arch's smoke config at the smoke train
-shape; with ``--full`` the full config at ``train_4k``'s sequence length
-(4,096) with the global batch cut to :data:`FULL_BATCH` on one card.  The
-path is the production one: ``launch.steps.make_step`` → the trainer loop
+shape.  With ``--full`` the full config at ``train_4k``: as the
+reference, on the production mesh (``launch.mesh.make_production_mesh``,
+16 x 16 over a 256-rank group that each process joins as ``--rank`` of
+``--world-size`` through the ``file://`` store in ``--store-dir``; it
+raises off a 256-rank world), the global batch 256; with ``--one-card``
+on one card, mesh-free, the batch cut to :data:`FULL_BATCH`.  The path
+is the production one: ``launch.steps.make_step`` → the trainer loop
 (``train.trainer.run_training``: checkpoints every ``--ckpt-every`` steps,
-resume from the newest unless ``--no-resume``).  Batches are synthetic
-tokens drawn for each step from :data:`SEED` and the step's index, so a
-resumed run reads the batches the killed run would have read.
-:func:`train` is the loop as a function (``chip_smoke.py`` calls it in
-process).
+resume from the newest unless ``--no-resume``; on a mesh each rank keeps
+its shards under ``<ckpt-dir>/rank<R>``).  Batches are synthetic tokens
+drawn for each step from :data:`SEED` and the step's index (on a mesh
+each rank takes its rows), so a resumed run reads the batches the killed
+run would have read.  :func:`train` is the loop as a function
+(``chip_smoke.py`` calls it in process).
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -49,10 +56,13 @@ def synthetic_batch(cfg, shape: dict, step: int, seed: int, device):
 
 def train(arch: str, steps: int, ckpt_dir: str = "checkpoints",
           ckpt_every: int = 50, resume: bool = True, full: bool = False,
-          device=None, log=print, log_every: int = 10):
+          device=None, log=print, log_every: int = 10, mesh=None):
     """Train ``arch`` (an LM) for ``steps`` steps through the trainer
     loop; returns (params, optimizer state, history, the step bundle).
-    ``device=None`` is the card."""
+    ``device=None`` is the card.  With a ``mesh`` (``full``: train_4k's
+    whole global batch) the step is sharded and this rank trains its
+    shards (``bundle.layout``)."""
+    from repro_torch.dist import compat
     from repro_torch.models.lm.transformer import Transformer
 
     spec = get_arch(arch)
@@ -63,20 +73,28 @@ def train(arch: str, steps: int, ckpt_dir: str = "checkpoints",
     dev = resolve_device(device)
     if full:
         cfg = spec.config
-        shape = dict(LM_SHAPES["train_4k"], global_batch=FULL_BATCH)
+        shape = dict(LM_SHAPES["train_4k"])
+        if mesh is None:
+            shape["global_batch"] = FULL_BATCH
     else:
         cfg = spec.smoke_config
         shape = dict(SMOKE_SHAPES["lm"]["train"])
-    bundle = make_lm_step(cfg, shape)
+    bundle = make_lm_step(cfg, shape, mesh)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = tree_map(lambda p: p.detach(),
                       Transformer(cfg, gen, device=dev).param_tree())
+    if mesh is not None:
+        params = compat.shard_tree(params, bundle.layout[0], mesh)
+        ckpt_dir = os.path.join(ckpt_dir, f"rank{compat.process_env()[0]}")
     state = opt.init(params, lm_opt_config(cfg))
 
     def batches(start: int):
         step = start
         while True:
-            yield synthetic_batch(cfg, shape, step, SEED, dev)
+            tok = synthetic_batch(cfg, shape, step, SEED, dev)
+            if mesh is not None:
+                tok = compat.shard_tree(tok, bundle.layout[2], mesh)
+            yield tok
             step += 1
 
     tcfg = TrainLoopConfig(total_steps=steps, ckpt_every=ckpt_every,
@@ -94,13 +112,32 @@ def main():
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--no-resume", action="store_true")
     ap.add_argument("--full", action="store_true",
-                    help=f"full config at train_4k, batch {FULL_BATCH}")
+                    help="full config at train_4k on the production mesh")
+    ap.add_argument("--one-card", action="store_true",
+                    help=f"with --full: one card, batch {FULL_BATCH}")
+    ap.add_argument("--rank", type=int, default=0)
+    ap.add_argument("--world-size", type=int, default=1)
+    ap.add_argument("--store-dir",
+                    help="the group's file:// store directory (--full)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args()
+    mesh = None
+    if args.full and not args.one_card:
+        from repro_torch.dist import compat
+        from repro_torch.launch.mesh import make_production_mesh
+
+        if args.store_dir is None:
+            raise SystemExit("--full trains on the production mesh: give "
+                             "--store-dir, --rank and --world-size 256, or "
+                             "--one-card")
+        backend = "gloo" if args.device == "cpu" else "nccl"
+        compat.init_group(backend, args.rank, args.world_size,
+                          args.store_dir)
+        mesh = make_production_mesh()
     _, _, hist, _ = train(args.arch, args.steps, args.ckpt_dir,
                           args.ckpt_every, not args.no_resume, args.full,
-                          args.device)
+                          args.device, mesh=mesh)
     if hist:
         print(f"done: loss {hist[0]['loss']:.4f} → {hist[-1]['loss']:.4f} "
               f"over {args.steps} steps")

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN with top-k routing, on one device (the
-reference's ``models/lm/moe.py``, its dense dispatch).
+"""Mixture-of-Experts FFN with top-k routing and expert parallelism (the
+reference's ``models/lm/moe.py``).
 
 Each token picks its ``top_k`` experts by router probability; every
 expert has a capacity of C = ceil(tokens · K / E · capacity_factor) slots
@@ -10,8 +10,21 @@ product, and each token sums its experts' outputs weighted by its
 renormalised router probabilities.  Plain PyTorch on the inputs' device;
 no host sync, so a decode step never waits on the card.
 
-The reference's other branch, expert parallelism under ``shard_map``,
-waits for more than one card: a mesh raises.
+Two paths, as the reference's: without a mesh context all B · T tokens
+at once (the dense dispatch); under ``dist.context.mesh_context`` the
+expert-parallel branch.  Rank r of the model axis holds experts
+[r·E/ep, (r+1)·E/ep), their weights cut on dim 1 (d of ``wi``/``wg``, f
+of ``wo``) over the batch axes (FSDP) where the step sharded them so,
+and gathered a layer (backward: a reduce-scatter).  It routes its rows
+of the batch (the batch axes cut the batch only where they divide it),
+with the capacity of its local token count, runs the choices that fall
+on its experts and sums the partial outputs over the model axis.  The
+positions and capacity are per shard, as the reference's: where a
+capacity drops tokens the result differs from the dense dispatch by
+design.  The load-balance loss is each batch shard's own, averaged over
+the batch shards (not the dense block's loss over all tokens); its
+gradient on a rank is its own shard's, so that the mean of the ranks'
+gradients is the mean loss's.
 """
 from __future__ import annotations
 
@@ -23,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.dist.context import get_mesh_ctx
 from repro_torch.models.common import normal_init
 
 
@@ -110,15 +124,17 @@ def _expert_ffn(wi, wg, wo, buf):
 
 
 def _dispatch_compute_combine(p: dict, x2d, w, idx, pos, keep,
-                              capacity: int):
-    """Scatter the tokens into the (E, C, d) buffer, run the experts and
-    combine.  Slots are unique, so the scatter is a copy; a dropped
-    choice goes to a dump row past the buffer that is sliced away (the
-    reference's out-of-range ``mode="drop"``)."""
+                              capacity: int, e_lo: int = 0):
+    """Scatter the tokens into the (E_local, C, d) buffer of experts
+    [e_lo, e_lo + E_local) (``p``'s), run the experts and combine.
+    Slots are unique, so the scatter is a copy; a dropped choice, or one
+    for another rank's expert, goes to a dump row past the buffer that is
+    sliced away (the reference's out-of-range ``mode="drop"``)."""
     n, d = x2d.shape
     e = p["wi"].shape[0]
     dump = e * capacity
-    flat_slot = torch.where(keep, idx.long() * capacity + pos,
+    keep = keep & (idx >= e_lo) & (idx < e_lo + e)
+    flat_slot = torch.where(keep, (idx.long() - e_lo) * capacity + pos,
                             torch.full_like(pos, dump))
     buf = torch.zeros((dump + 1, d), dtype=x2d.dtype, device=x2d.device)
     for kk in range(idx.shape[1]):
@@ -140,17 +156,47 @@ def capacity(tokens: int, cfg: MoEConfig) -> int:
                        * cfg.capacity_factor))
 
 
-def moe_block(p: dict, x: torch.Tensor, cfg: MoEConfig, mesh=None):
-    """x (B, T, d) → (y (B, T, d), aux loss): the reference's
-    single-device branch over all B · T tokens at once."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert parallelism waits for more than one card (ROADMAP.md "
-            "§1 item 5)")
+def moe_block(p: dict, x: torch.Tensor, cfg: MoEConfig):
+    """x (B, T, d) → (y (B, T, d), aux loss).  Without a mesh context the
+    reference's single-device branch over all B · T tokens at once; under
+    one its expert-parallel branch on this rank's rows and experts (see
+    the module's docstring).  At a mesh of one rank both give the same
+    bits."""
+    ctx = get_mesh_ctx()
     b, t, d = x.shape
     x2d = x.reshape(b * t, d)
     w, idx, aux = _route(p["router"], x2d, cfg)
     cap = capacity(b * t, cfg)
     pos, keep = _positions(idx, cfg.n_experts, cap)
-    y = _dispatch_compute_combine(p, x2d, w, idx, pos, keep, cap)
+    if ctx is None:
+        y = _dispatch_compute_combine(p, x2d, w, idx, pos, keep, cap)
+        return y.reshape(b, t, d), aux
+
+    # --- expert parallelism ----------------------------------------------
+    ep, model = ctx.tp, (ctx.model_axis,)
+    if cfg.n_experts % ep:
+        raise ValueError(f"{cfg.n_experts} experts do not divide the EP "
+                         f"axis of {ep}")
+    e_local = cfg.n_experts // ep
+    if p["wi"].shape[0] != e_local:
+        raise ValueError(f"the rank holds {p['wi'].shape[0]} experts, "
+                         f"expert parallelism over {ep} gives it {e_local}")
+    ew = {}
+    for k, full in (("wi", d), ("wg", d), ("wo", cfg.d_expert)):
+        wk = p[k]
+        if wk.shape[1] != full:        # FSDP-cut on dim 1: gather a layer
+            if wk.shape[1] * ctx.dp != full:
+                raise ValueError(f"{k} dim 1 is {wk.shape[1]} of {full}, "
+                                 f"not cut over the batch axes' {ctx.dp}")
+            wk = ctx.all_gather(wk, ctx.batch_axes, 1)
+        ew[k] = wk
+    r = ctx.index(model)
+    y = _dispatch_compute_combine(ew, ctx.copy_to(x2d, model),
+                                  ctx.copy_to(w, model), idx, pos, keep,
+                                  cap, e_lo=r * e_local)
+    y = ctx.psum(y, model)
+    if ctx.dp > 1:
+        # the mean over the batch shards; its gradient is this shard's own
+        mean = ctx.psum(aux.detach(), ctx.batch_axes) / ctx.dp
+        aux = mean + (aux - aux.detach())
     return y.reshape(b, t, d), aux

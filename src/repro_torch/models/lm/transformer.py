@@ -1,6 +1,5 @@
-"""LM-family transformer on one device: GQA + RoPE + optional qk-norm +
-SwiGLU or MoE (``models.lm.moe``), with the reference's stacked (L, ...)
-parameters.
+"""LM-family transformer: GQA + RoPE + optional qk-norm + SwiGLU or MoE
+(``models.lm.moe``), with the reference's stacked (L, ...) parameters.
 
 Two lowerings, as the reference's serve cells use them: ``forward`` (the
 full sequence, with ``return_cache=True`` the prefill that builds the KV
@@ -30,6 +29,19 @@ dimension as a batch dimension.  Remat changes memory, not
 values: the three give the same gradients bit for bit.  On the card the
 prefill attention then carries a gradient through the flash kernel's
 backward (``FlashAttentionFn``).
+
+Sharded (under ``dist.context.mesh_context``): an MoE layer takes the
+expert-parallel branch, and ``decode(..., seq_axes=...)`` reads a
+sequence-sharded KV cache (split-KV across ranks): rank r of the
+``seq_axes`` holds cache rows [r·S/n, (r+1)·S/n), the owning rank writes
+the new token's k and v at ``cache_len``, each rank takes its rows'
+partial attention (o in float32 and each row's log-sum-exp: the flash
+kernel on the card, :func:`decode_attention_partials` on the CPU; a
+rank whose rows all lie past ``cache_len`` gives o = 0, lse = -inf), and
+the ranks' partials, gathered over ``seq_axes``, merge by the flash
+family's merge (``flash.merge_partials``).  With one rank on the axes the
+merge gives the single-device decode's bits.  ``shard_params_rules``
+gives the parameters' spec tree for a rule table (``dist.sharding``).
 """
 from __future__ import annotations
 
@@ -44,6 +56,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.graph import resolve_device
+from repro_torch.dist.context import get_mesh_ctx
+from repro_torch.dist.sharding import P, Rules
 from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.models.common import (cross_entropy, embed_init,
                                       normal_init,
@@ -98,6 +112,38 @@ class LMConfig:
             - self.n_layers * self.moe.n_experts * 3 * d * self.moe.d_expert
         return dense + self.n_layers * self.moe.top_k * 3 * d \
             * self.moe.d_expert
+
+
+def shard_params_rules(cfg: LMConfig, rules: Rules) -> dict:
+    """The :class:`P` tree of the parameters (``Transformer.param_tree``'s
+    layout) under ``rules``: the reference's ``shard_params_rules``."""
+    def stk(spec):  # stacked layer params get a leading None (layer axis)
+        return P(None, *spec)
+
+    layer = {
+        "ln1": stk(()), "ln2": stk(()),
+        "wq": stk(rules.get("w_q", P())),
+        "wk": stk(rules.get("w_kv", P())),
+        "wv": stk(rules.get("w_kv", P())),
+        "wo": stk(rules.get("w_o", P())),
+    }
+    if cfg.qk_norm:
+        layer["qnorm"] = stk(())
+        layer["knorm"] = stk(())
+    if cfg.moe is not None:
+        # stacked expert tensors are (L, E, d, f): E on TP/EP, dim-2 FSDP
+        we = rules.get("w_expert", P(None, None, None, None))
+        layer["moe"] = {"router": P(None, None, None),
+                        "wi": we, "wg": we, "wo": we}
+    else:
+        layer["wi"] = stk(rules.get("w_ffn_in", P()))
+        layer["wg"] = stk(rules.get("w_ffn_in", P()))
+        layer["wo_ffn"] = stk(rules.get("w_ffn_out", P()))
+    out = {"embed": rules.get("w_embed", P()), "layers": layer,
+           "final_norm": P()}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = rules.get("w_embed", P())
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -198,6 +244,27 @@ def _prefill_attention(q, k, v, cfg: LMConfig):
     return full_attention(q, kf, vf)
 
 
+def decode_attention_partials(q, k_cache, v_cache, cache_len: int):
+    """:func:`decode_attention` as a partial result: (o (B, 1, H, hd)
+    float32, each row's natural-log log-sum-exp of its scaled, masked
+    scores (B, H, 1) float32).  o is the same product (probabilities cast
+    to q's type) widened to float32, so that one partial merged alone
+    gives :func:`decode_attention`'s bits."""
+    b, smax, hkv = k_cache.shape[:3]
+    g = q.shape[2] // hkv
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qg = q.reshape(b, q.shape[1], hkv, g, q.shape[-1])
+    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                          k_cache.float()) * scale
+    mask = torch.arange(smax, device=q.device) < cache_len
+    logits = logits.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)                 # (B, HK, G, S)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v_cache)
+    return (out.reshape(b, q.shape[1], hkv * g, q.shape[-1]).float(),
+            lse.reshape(b, hkv * g, q.shape[1]))
+
+
 def _decode_attention(q, k_cache, v_cache, kv_len: int):
     if q.is_cuda:
         return flash.flash_attention(q, k_cache, v_cache, causal=False,
@@ -205,10 +272,31 @@ def _decode_attention(q, k_cache, v_cache, kv_len: int):
     return decode_attention(q, k_cache, v_cache, kv_len)
 
 
+def _split_kv_attention(q, k_cache, v_cache, kv_len: int, seq_axes):
+    """Decode attention over a cache whose rows are cut over ``seq_axes``:
+    this rank's ``kv_len`` kept rows give a partial (o, lse), the ranks'
+    partials are gathered over the axes and merged."""
+    ctx = get_mesh_ctx()
+    if kv_len > 0:
+        if q.is_cuda:
+            o, lse = flash.flash_attention_partials(q, k_cache, v_cache,
+                                                    kv_len)
+        else:
+            o, lse = decode_attention_partials(q, k_cache, v_cache, kv_len)
+    else:                       # every row of this shard lies past the end
+        b, s, h, d = q.shape
+        o = torch.zeros((b, s, h, d), dtype=torch.float32, device=q.device)
+        lse = torch.full((b, h, s), float("-inf"), device=q.device)
+    o = ctx.all_gather(o[None], seq_axes, 0)
+    lse = ctx.all_gather(lse[None], seq_axes, 0)
+    return flash.merge_partials(o, lse, q.dtype)
+
+
 def _attn_block(p: dict, x, positions, cfg: LMConfig, kv_cache=None,
-                cache_len: int | None = None):
+                cache_len: int | None = None, seq_axes=None):
     """Returns (out, (k, v)): this call's new cache entries, or with
-    ``kv_cache`` the caches with this token written at ``cache_len``."""
+    ``kv_cache`` the caches with this token written at ``cache_len``
+    (with ``seq_axes``, this rank's rows of a sequence-sharded cache)."""
     h = rms_norm(x, p["ln1"])
     q = torch.einsum("btd,dhk->bthk", h, p["wq"])
     k = torch.einsum("btd,dhk->bthk", h, p["wk"])
@@ -218,7 +306,18 @@ def _attn_block(p: dict, x, positions, cfg: LMConfig, kv_cache=None,
         k = rms_norm(k, p["knorm"])
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if kv_cache is not None:                        # decode: 1 new token
+    if kv_cache is not None and seq_axes is not None:   # split-KV decode
+        k_c, v_c = kv_cache
+        rows = k_c.shape[1]
+        lo = get_mesh_ctx().index(seq_axes) * rows
+        if lo <= cache_len < lo + rows:             # this rank's row
+            k_c[:, cache_len - lo] = k[:, 0].to(k_c.dtype)
+            v_c[:, cache_len - lo] = v[:, 0].to(v_c.dtype)
+        o = _split_kv_attention(q, k_c, v_c,
+                                min(max(cache_len + 1 - lo, 0), rows),
+                                seq_axes)
+        new_kv = (k_c, v_c)
+    elif kv_cache is not None:                      # decode: 1 new token
         k_c, v_c = kv_cache
         # In place: the reference writes the row with a one-hot ``where``
         # over its donated cache; the same row is written here.
@@ -327,13 +426,14 @@ class Transformer(nn.Module):
             tree["lm_head"] = self.lm_head
         return tree
 
-    def _layer(self, i: int, x, positions, kv_cache=None, cache_len=None):
+    def _layer(self, i: int, x, positions, kv_cache=None, cache_len=None,
+               seq_axes=None):
         """Returns (x, new_kv, aux)."""
         p = {k: w[i] for k, w in self.layers.items()}
         if self.cfg.moe is not None:
             p["moe"] = {k: w[i] for k, w in self.moe.items()}
         a, new_kv = _attn_block(p, x, positions, self.cfg, kv_cache,
-                                cache_len)
+                                cache_len, seq_axes)
         x = x + a
         f, aux = _ffn_block(p, x, self.cfg)
         return x + f, new_kv, aux
@@ -373,10 +473,16 @@ class Transformer(nn.Module):
         logits = self._logits(x)
         return (logits, caches, aux) if return_cache else (logits, aux)
 
-    def decode(self, token: torch.Tensor, kv_caches, cache_len: int):
+    def decode(self, token: torch.Tensor, kv_caches, cache_len: int,
+               seq_axes=None):
         """One decode step.  token (B, 1); kv_caches (k, v) each
         (L, B, Smax, HK, hd), written in place at row ``cache_len`` (a
-        host int); returns (logits (B, 1, V), kv_caches, cache_len + 1)."""
+        host int); returns (logits (B, 1, V), kv_caches, cache_len + 1).
+        With ``seq_axes`` (a tuple of mesh axes, under a mesh context) the
+        caches are this rank's Smax / n rows of the sequence, and
+        attention is split-KV across the axes' ranks."""
+        if seq_axes is not None and get_mesh_ctx() is None:
+            raise ValueError("a sequence-sharded cache needs a mesh context")
         cache_len = int(cache_len)
         b = token.shape[0]
         x = self.embed.to(self.cfg.dtype)[token.long()]
@@ -384,7 +490,7 @@ class Transformer(nn.Module):
         k_all, v_all = kv_caches
         for i in range(self.cfg.n_layers):
             x, _, _ = self._layer(i, x, positions, (k_all[i], v_all[i]),
-                                  cache_len)
+                                  cache_len, seq_axes)
         return self._logits(x), kv_caches, cache_len + 1
 
 

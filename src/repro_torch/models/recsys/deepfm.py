@@ -8,7 +8,11 @@ The two field sums of ``forward``, Σ_f w1[id_f] (first order) and
 Σ_f v_f (the FM sum), are embedding bags of weight 1, computed by the
 embedding-bag kernel (``kernels.embedding_bag.ops``): two launches a
 forward on the card.  The (B, F, D) gather for the deep branch and
-Σ‖v‖² stay plain torch.  ``retrieval_cand`` scores one query against the
+Σ‖v‖² stay plain torch.  Under a mesh context ``table``, ``w1`` and
+``item_tower`` are this rank's row shards over the model axis
+(``models.recsys.embedding``): the gather and both bags read the shard
+and sum their partial results over the model axis, the bags still
+through the kernel, and retrieval scores this rank's candidate rows.  ``retrieval_cand`` scores one query against the
 whole candidate tower with one matmul.  Training (``loss_fn`` under
 autograd) takes the table's gradient through the gather and both bags:
 on the card each bag's backward is one ``embedding_bag_backward`` launch,
@@ -23,11 +27,11 @@ import torch
 from torch import nn
 
 from repro_torch.core.graph import resolve_device
-from repro_torch.kernels.embedding_bag import ops
 from repro_torch.models.common import (MLP, normal_init,
                                       params_from_numpy,  # noqa: F401
                                       params_to_numpy)
-from repro_torch.models.recsys.embedding import sharded_lookup
+from repro_torch.models.recsys.embedding import (sharded_bag,
+                                                 sharded_lookup)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,8 +88,8 @@ class DeepFM(nn.Module):
         """x: (B, F) int categorical ids → (B,) logits."""
         ids = _field_ids(x, self.cfg)
         emb = sharded_lookup(self.table, ids)                  # (B, F, D)
-        first = ops.embedding_bag(self.w1, ids)[:, 0]          # (B,)
-        s = ops.embedding_bag(self.table, ids)                 # (B, D)
+        first = sharded_bag(self.w1, ids)[:, 0]                # (B,)
+        s = sharded_bag(self.table, ids)                       # (B, D)
         fm2 = 0.5 * ((s * s).sum(-1) - (emb * emb).sum((1, 2)))
         deep = self.mlp(emb.reshape(x.shape[0], -1))[:, 0]
         return self.bias + first + fm2 + deep

@@ -114,7 +114,11 @@ def ingest_host_range(path: str | os.PathLike, start: int, stop: int,
         for blk in ef.iter_blocks(start, stop):
             dev = grid_assign_host(blk, num_devices, salt=salt)
             devs.append(dev)
-            for d in np.unique(dev):
+            present = np.flatnonzero(np.bincount(dev, minlength=num_devices))
+            if len(present) == 1:        # the whole block to one device
+                parts[present[0]].append(np.array(blk, dtype=np.int32))
+                continue
+            for d in present:
                 parts[d].append(np.ascontiguousarray(blk[dev == d],
                                                      dtype=np.int32))
     rows = [np.concatenate(p) if p else np.zeros((0, 2), np.int32)
@@ -134,7 +138,10 @@ def range_flat_edges(rows: list[np.ndarray], dev: np.ndarray) -> np.ndarray:
     """
     flat = np.empty((dev.shape[0], 2), np.int32)
     for d, r in enumerate(rows):
-        flat[np.flatnonzero(dev == d)] = r
+        if r.shape[0] == dev.shape[0]:      # every edge on device d
+            flat[:] = r
+        elif r.shape[0]:
+            flat[np.flatnonzero(dev == d)] = r
     return flat
 
 

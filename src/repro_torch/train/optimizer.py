@@ -64,25 +64,30 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, gn=None):
     """Gradients times min(1, max_norm / |g|), in the type JAX promotes a
     gradient and the float32 scale to (a bfloat16 gradient's product is
-    float32, not rounded back), and the global norm."""
-    gn = global_norm(grads)
+    float32, not rounded back), and the global norm (``gn`` where the
+    caller has it: a sharded step's norm over every rank's shards)."""
+    if gn is None:
+        gn = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_map(lambda g: g.to(torch.promote_types(g.dtype, scale.dtype))
                     * scale, grads), gn
 
 
 @torch.no_grad()
-def update(grads, state, params, cfg: OptConfig):
-    """Returns (new_params, new_state, stats); inputs are not changed."""
+def update(grads, state, params, cfg: OptConfig, grad_norm=None):
+    """Returns (new_params, new_state, stats); inputs are not changed.
+    ``grad_norm``: the gradients' global norm where the caller computed
+    it (a sharded step: the trees are a rank's shards); else it is the
+    norm of ``grads``."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
     if cfg.clip_norm > 0:
-        grads, gn = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gn = clip_by_global_norm(grads, cfg.clip_norm, grad_norm)
     else:
-        gn = global_norm(grads)
+        gn = global_norm(grads) if grad_norm is None else grad_norm
     if cfg.kind == "sgd":
         new_params = tree_map(
             lambda p, g: (p.float() - lr * g.float()).to(p.dtype),

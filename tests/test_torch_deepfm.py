@@ -97,9 +97,11 @@ def test_serve_steps_match_reference():
 
 def test_forward_runs_two_embedding_bags(monkeypatch):
     _, _, model, x, _ = _model("smoke")
+    from repro_torch.models.recsys import embedding
+
     calls = []
-    real = td.ops.embedding_bag
-    monkeypatch.setattr(td.ops, "embedding_bag",
+    real = embedding.ops.embedding_bag      # the bags go through this
+    monkeypatch.setattr(embedding.ops, "embedding_bag",
                         lambda *a, **k: calls.append(a[0].shape) or
                         real(*a, **k))
     model(torch.from_numpy(x))

@@ -290,3 +290,136 @@ def test_flash_kernel_split_kv_route(cuda, kv_len):
     q, k, v = _bf16_case(cuda, 2, 1, 32_768, 9, 3, 64, kv_len)
     chunks = ops.split_chunks(q.dtype, 1, 3, kv_len, False)
     _check_bf16_route(q, k, v, False, kv_len, int(chunks > 1))
+
+
+# --------------------------------------------------------------------------
+# split-KV across ranks: a rank's partial result and the merge
+# --------------------------------------------------------------------------
+
+def _slices(k, v, kv_len, r):
+    """The (k, v, kept rows) of R equal slices of the cache rows, as R
+    ranks hold them: slice i keeps rows [i·T/R, min((i+1)·T/R, kv_len))."""
+    t = k.shape[1] // r
+    return [(k[:, i * t:(i + 1) * t], v[:, i * t:(i + 1) * t],
+             min(max(kv_len - i * t, 0), t)) for i in range(r)]
+
+
+def _partials(q, k, v, kv_len, r, fn):
+    """Stacked partials of R slices; an empty slice gives o = 0 and
+    lse = -inf, and ``fn`` is not called on it."""
+    b, s, h, d = q.shape
+    os_, ls = [], []
+    for ks, vs, n in _slices(k, v, kv_len, r):
+        if n:
+            o, lse = fn(q, ks, vs, n)
+        else:
+            o = torch.zeros((b, s, h, d), dtype=torch.float32,
+                            device=q.device)
+            lse = torch.full((b, h, s), float("-inf"), device=q.device)
+        os_.append(o)
+        ls.append(lse)
+    return torch.stack(os_), torch.stack(ls)
+
+
+@pytest.mark.parametrize("r", [1, 2, 4])
+@pytest.mark.parametrize("kv_len", [1, 7, 16, 24, 31, 32])
+def test_merged_plain_partials_equal_whole_cache_attention(r, kv_len):
+    """R slices' plain partials merged equal attention over the whole
+    cache within 1e-6 in float32, the slices past kv_len empty; at R = 1
+    the merge gives the single call's bits."""
+    q, k, v = (torch.from_numpy(a) for a in _normal(
+        100 + kv_len, (2, 1, 6, 16), (2, 32, 3, 16), (2, 32, 3, 16)))
+    want = ref.attention_ref(q, k, v, causal=False, kv_len=kv_len)
+    o, lse = _partials(q, k, v, kv_len, r, ref.attention_partials_ref)
+    got = ops.merge_partials(o, lse, torch.float32)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    if r == 1:
+        assert torch.equal(got, o[0])
+        _, lse1 = ref.attention_lse_ref(q[:, :, :, :], k[:, :kv_len],
+                                        v[:, :kv_len], causal=False)
+        torch.testing.assert_close(lse[0], lse1, atol=1e-6, rtol=1e-6)
+
+
+def test_merge_of_one_partial_is_its_rounding():
+    o = torch.from_numpy(_normal(5, (1, 3, 1, 4, 8))[0])
+    lse = torch.from_numpy(_normal(6, (1, 3, 4, 1))[0])
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(ops.merge_partials(o, lse, dt), o[0].to(dt))
+
+
+def test_decode_partials_merge_to_decode_attention_bits():
+    """The model's CPU partial (probabilities in q's type, as
+    decode_attention rounds them) merged alone gives decode_attention's
+    bits, in float32 and bfloat16."""
+    from repro_torch.models.lm import transformer as ttf
+
+    q, k, v = (torch.from_numpy(a) for a in _normal(
+        9, (2, 1, 6, 16), (2, 40, 3, 16), (2, 40, 3, 16)))
+    for dt in (torch.float32, torch.bfloat16):
+        qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+        want = ttf.decode_attention(qd, kd, vd, 29)
+        o, lse = ttf.decode_attention_partials(qd, kd, vd, 29)
+        assert torch.equal(ops.merge_partials(o[None], lse[None], dt), want)
+
+
+def test_merge_rejects_what_it_does_not_take():
+    o = torch.zeros((2, 1, 1, 4, 8))
+    with pytest.raises(ValueError):
+        ops.merge_partials(o, torch.zeros((2, 1, 1, 4)))
+    with pytest.raises(TypeError):
+        ops.merge_partials(o.double(), torch.zeros((2, 1, 4, 1)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_len", [1, 700, ops.DECODE_CHUNK,
+                                    ops.DECODE_CHUNK + 1, 5000])
+def test_kernel_partials_match_plain(cuda, dtype, kv_len):
+    """A rank's partial on the card (float32: the FMA kernel with its
+    LSE; bf16: split-KV with combine_kernel writing float32 rows and the
+    LSE, at one chunk too) against ref.attention_partials_ref."""
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in _normal(
+        kv_len, (2, 1, 8, 128), (2, 6000, 8, 128), (2, 6000, 8, 128)))
+    before = dict(ops.launches)
+    o, lse = ops.flash_attention_partials(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    wo, wl = ref.attention_partials_ref(q, k, v, kv_len)
+    assert o.dtype == lse.dtype == torch.float32
+    assert ops.launches["flash_attention"] == before["flash_attention"] + 1
+    if dtype == torch.bfloat16:
+        assert ops.launches["flash_attention_combine"] == \
+            before["flash_attention_combine"] + 1
+    torch.testing.assert_close(o, wo, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, wl, atol=2e-5, rtol=2e-5)
+    # merged alone, the partial is the single call's output
+    single = ops.flash_attention(q, k, v, causal=False, kv_len=kv_len)
+    assert torch.equal(ops.merge_partials(o[None], lse[None], dtype), single)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [1, 2, 4])
+@pytest.mark.parametrize("where", ["last", "boundary", "first"])
+def test_merge_kernel_matches_plain(cuda, r, where):
+    """R slices' kernel partials merged by merge_kernel: against the plain
+    merge of the same partials (float32 within 1e-6 relative; bf16 within
+    one rounding) and against the whole-cache call, with empty slices."""
+    t = 8192
+    kv_len = {"last": t - 100, "boundary": t // 2, "first": 300}[where]
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _normal(
+        r + kv_len, (2, 1, 8, 128), (2, t, 8, 128), (2, t, 8, 128)))
+    o, lse = _partials(q, k, v, kv_len, r, ops.flash_attention_partials)
+    before = ops.launches["flash_attention_merge"]
+    got = ops.merge_partials(o, lse, torch.bfloat16)
+    got32 = ops.merge_partials(o, lse, torch.float32)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_merge"] == before + 2
+    want32 = ref.merge_partials_ref(o.cpu(), lse.cpu(), torch.float32)
+    torch.testing.assert_close(got32.cpu(), want32, atol=1e-6, rtol=1e-6)
+    assert (got.float().cpu() - want32.to(torch.bfloat16).float()).abs() \
+        .max() <= 2.0 ** -7 * want32.abs().max()
+    single = ops.flash_attention(q, k, v, causal=False, kv_len=kv_len)
+    if r == 1:
+        assert torch.equal(got, single)
+    plain = ref.attention_ref(q, k, v, causal=False, kv_len=kv_len).float()
+    err = (got.float() - plain).abs()
+    assert bool((err <= 1e-5 + 2.0 ** -7 * plain.abs()).all())

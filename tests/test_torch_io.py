@@ -458,7 +458,7 @@ def test_spill_canonical_rmat_partitions(tmp_path):
 
 def test_grid_assign_host_matches_device():
     e = rmat_edges(10, 8, seed=3)
-    for d in (1, 4, 8, 12):
+    for d in (1, 2, 3, 4, 8, 12):        # 1, 2, 3: a grid side of 1
         host = tio.grid_assign_host(e, d, salt=1)
         dev = tgraph.grid_assign(torch.from_numpy(e), d, salt=1).numpy()
         np.testing.assert_array_equal(host, dev)

@@ -166,7 +166,12 @@ def test_moe_block_matches_reference(capacity_factor):
 
 def test_moe_block_deterministic_mode_and_mesh():
     """The layer runs under torch's deterministic mode (training's resume
-    check sets it), and a mesh raises."""
+    check sets it), and under a mesh of one rank its expert-parallel
+    branch gives the dense branch's bits: y, aux and the gradients."""
+    from repro_torch.dist import compat
+    from repro_torch.dist.context import mesh_context
+    from repro_torch.launch.mesh import make_host_mesh
+
     jp, tp = _layer0("kimi")
     x = torch.from_numpy(_x(12, 64, 8).reshape(2, 6, 64))
     ref = tmoe.moe_block(tp, x, tkimi.SMOKE.moe)[0]
@@ -176,8 +181,20 @@ def test_moe_block_deterministic_mode_and_mesh():
     finally:
         torch.use_deterministic_algorithms(False)
     assert torch.equal(got, ref)
-    with pytest.raises(NotImplementedError, match="more than one card"):
-        tmoe.moe_block(tp, x, tkimi.SMOKE.moe, mesh=object())
+
+    def run(p, x):
+        p = {k: w.detach().requires_grad_() for k, w in p.items()}
+        x = x.detach().requires_grad_()
+        y, aux = tmoe.moe_block(p, x, tkimi.SMOKE.moe)
+        ((y * y).sum() + aux).backward()
+        return [y, aux, x.grad] + [p[k].grad for k in sorted(p)]
+
+    want = run(tp, x)
+    with compat.world1("gloo"):
+        with mesh_context(make_host_mesh(1)):
+            got = run(tp, x)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------------

@@ -281,6 +281,8 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.serve.batch, repro_torch.serve.store\n"
         "import repro_torch.serve.service, repro_torch.serve.server\n"
         "import repro_torch.serve.gang\n"
+        "import repro_torch.dist.context, repro_torch.dist.sharding\n"
+        "import repro_torch.launch.mesh\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -316,7 +318,8 @@ def test_port_sources_name_no_jax_and_no_repro():
     bad = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)\b)",
                      re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    for mod in ("dist/partitioner_sm.py", "launch/gnn_engine.py",
+    for mod in ("dist/context.py", "dist/sharding.py", "launch/mesh.py",
+                "dist/partitioner_sm.py", "launch/gnn_engine.py",
                 "kernels/block_spmm/ops.py", "apps/engine.py",
                 "models/gnn/gin.py", "train/optimizer.py",
                 "kernels/embedding_bag/ops.py",

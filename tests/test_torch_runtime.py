@@ -718,6 +718,34 @@ def test_exchange_ingestion_bit_identical(store, tmp_path, hosts):
     np.testing.assert_array_equal(degree, deg)
 
 
+@pytest.mark.parametrize("hosts", [1, 2])
+def test_exchange_ingestion_one_device_bit_identical(store, tmp_path, hosts):
+    """At one device every edge hashes to device 0 (no hash is taken, a
+    block is copied whole, the flat edges are not scattered): the same
+    bytes as the streaming shards and repro's exchange."""
+    from repro.runtime import cluster as jcluster
+    from repro_torch.runtime.cluster import (exchange_assemble,
+                                             exchange_read_global,
+                                             exchange_write_range)
+
+    ref_sh, ref_mk, ref_cap, ref_dev, ref_edges = shard_edges_stream(
+        store, 1, with_edges=True)
+    ex, jex = tmp_path / "exchange", tmp_path / "jexchange"
+    for h in range(hosts):
+        counts = exchange_write_range(ex, store.path, h, hosts, 1)
+        want = jcluster.exchange_write_range(jex, store.path, h, hosts, 1)
+        np.testing.assert_array_equal(counts, want)
+    for f in sorted(os.listdir(jex)):
+        assert (ex / f).read_bytes() == (jex / f).read_bytes(), f
+    shards, masks, cap, _ = exchange_assemble(ex, hosts, 1, [0])
+    assert cap == ref_cap
+    np.testing.assert_array_equal(shards[0], ref_sh[0])
+    np.testing.assert_array_equal(masks[0], ref_mk[0])
+    edges, dev = exchange_read_global(ex, hosts)
+    np.testing.assert_array_equal(edges, ref_edges)
+    np.testing.assert_array_equal(dev, ref_dev)
+
+
 def test_reshard_stream_matches_memory(store, tmp_path):
     from repro_torch.io.csr import grid_assign_host
     from repro_torch.runtime.cluster import (exchange_write_range,

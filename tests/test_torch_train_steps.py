@@ -239,10 +239,29 @@ def test_flops_and_step_meta_match_reference():
                 j.dtype).name.replace("bool", "bool"), (a, sid)
 
 
-def test_mesh_raises():
-    spec = treg.get_arch("smollm-135m")
-    with pytest.raises(NotImplementedError, match="more than one card"):
-        steps.make_step(spec, "train_4k", mesh=object())
+def test_mesh_steps_build_every_kind():
+    """No step builder refuses a mesh: every cell kind of the three
+    families builds on a production-shaped mesh (the builders read its
+    axis names and sizes), with the reference's shardings, the port's
+    layout and the layout-only rules named."""
+    from types import SimpleNamespace
+
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(16, 16))
+    cells = {"olmoe-1b-7b": ("train_4k", "prefill_32k", "decode_32k",
+                             "long_500k"),
+             "smollm-135m": ("train_4k", "decode_32k"),
+             "deepfm": ("train_batch", "serve_p99", "retrieval_cand"),
+             "gin-tu": ("full_graph_sm", "minibatch_lg", "molecule")}
+    for arch, sids in cells.items():
+        for sid in sids:
+            b = steps.make_step(treg.get_arch(arch), sid, mesh=mesh)
+            assert b.shardings is not None and b.layout is not None, sid
+            assert len(b.shardings) == len(b.args) == len(b.layout), sid
+            assert "replicated" in b.meta, sid
+    b = steps.make_step(treg.get_arch("smollm-135m"), "train_4k", mesh=mesh)
+    assert "w_ffn_in" in b.meta["replicated"]
+    b = steps.make_step(treg.get_arch("gin-tu"), "full_graph_sm", mesh=mesh)
+    assert b.meta["engine_caps"]["n_dev"] == 256
 
 
 def test_optimizer_state_round_trip():
